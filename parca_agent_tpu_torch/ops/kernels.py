@@ -1,0 +1,124 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by nvcc for sm_90a into a shared library with a
+plain C interface, at first use, into ``parca_agent_tpu_torch/build/``
+(listed in .gitignore), and loaded with ctypes. The library's file name
+carries a digest of its source, so an edited kernel is never served from
+a stale build. A failed build raises: there is no fallback.
+
+Nothing here runs at import time: this module is imported on hosts that
+have no nvcc and no card (the CPU tests), where no kernel is ever built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+# C signatures of every entry point, by source: name -> (argtypes, restype).
+SIGNATURES = {
+    "feed_probe": {
+        "pa_batch_probe": ([_P, _I64, _P, _P, _P, _P, _I64, _P],
+                           ctypes.c_int),
+        "pa_feed_accumulate": ([_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P,
+                                _P, _P, _P, _I64, _P], ctypes.c_int),
+        "pa_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of parca_agent_tpu_torch are built from csrc/ at "
+        "first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                          + " ".join(ARCH_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _nvcc_command(name: str, out: Path) -> list[str]:
+    return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile every named source that has no current library, one nvcc
+    process per source, all started together. Returns each source's
+    compiler output (ptxas register and shared-memory report); raises
+    RuntimeError when any compile fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        reports[name] = text
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        _loaded[name] = lib
+        return lib
+
+
+def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a launch reported a CUDA error (code != 0)."""
+    if code != 0:
+        msg = lib.pa_cuda_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: "
+                           f"error {code} ({msg})")
