@@ -24,6 +24,15 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                then pprof for every pid. Totals and per-pid masses must
                equal the numpy CPUAggregator's on the same snapshot; every
                feed must launch the fused probe kernel.
+  5. one shot  the port's TPUAggregator (--aggregator tpu) on the same
+               window: the hash arm twice, the second run checked against
+               the same oracle (with per-pid location counts) and its
+               row_hash and loc_table launches counted; the sort arm's 10
+               outputs and a sample's pprof bytes equal to the hash arm's;
+               both kernels against their plain versions at the window's
+               shapes, timed, with their bounds; the CLI entry; and each
+               dedup arm's device time on two windows below the
+               aggregator's location warning threshold.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -58,6 +67,8 @@ PIDS = 50_000
 SAMPLES = 5_000_000
 STEADY_WINDOWS = 3
 DRAINS = 10
+# Phase 5: timed runs of each dedup arm on each small window.
+ARM_REPS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -109,6 +120,13 @@ def time_ms(fn, reps: int, flush=None) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(nbytes: int, ops: int):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the scalar rate."""
+    b, o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
 
 # -- phase 3 inputs ----------------------------------------------------------
@@ -293,10 +311,6 @@ def phase_kernels(dev) -> dict:
     bp_ops = 6 * n_steps
     fa_ops = 6 * n_steps + 2 * int(hit_np.sum())
 
-    def bound(nbytes, ops):
-        b, o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-        return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
-
     bp_bound, bp_by = bound(bp_bytes, bp_ops)
     fa_bound, fa_by = bound(fa_bytes, fa_ops)
     emit("kernels", inputs_s=t_in, cap=CAP, rows=n, shapes=shapes,
@@ -331,25 +345,15 @@ def phase_kernels(dev) -> dict:
 # -- phase 4 -----------------------------------------------------------------
 
 
-def phase_main_path(dev, rows: int = ROWS, pids: int = PIDS,
-                    steady: int = STEADY_WINDOWS) -> dict:
-    """The port's main path on `dev`; returns the feed launch counts.
-    Raises on any disagreement with the numpy oracle."""
-    import numpy as np
-    import torch
-
-    from parca_agent_tpu_torch.aggregator import probe
+def window_setup(rows: int = ROWS, pids: int = PIDS):
+    """bench.py's window (_bench_spec at 1M rows, seed 42) and the numpy
+    CPUAggregator's profiles of it: the input and the oracle of both main
+    paths."""
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
-    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.capture.synthetic import (
         SyntheticSpec,
         generate,
     )
-    from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     t0 = time.perf_counter()
     snap = generate(SyntheticSpec(
@@ -360,12 +364,51 @@ def phase_main_path(dev, rows: int = ROWS, pids: int = PIDS,
     t0 = time.perf_counter()
     want = CPUAggregator().aggregate(snap)
     oracle_s = time.perf_counter() - t0
-    want_mass = {p.pid: p.total() for p in want}
-    want_vals = {p.pid: sorted(p.values.tolist()) for p in want}
-    total = snap.total_samples()
-    emit("main_path_setup", rows=len(snap), pids=pids, samples=total,
-         generate_s=gen_s, oracle_s=oracle_s)
+    emit("main_path_setup", rows=len(snap), pids=pids,
+         samples=snap.total_samples(), generate_s=gen_s, oracle_s=oracle_s)
+    return snap, want
 
+
+def check_profiles(label: str, snap, want, profiles, sample: int = 500,
+                   locations: bool = False) -> None:
+    """Raise unless `profiles` hold the window's total, the oracle's mass
+    for every pid, and the oracle's sorted stack counts (and, with
+    `locations`, its location count) for a sample of pids."""
+    total = snap.total_samples()
+    got_total = sum(p.total() for p in profiles)
+    if got_total != total:
+        raise AssertionError(f"{label}: total {got_total} != {total}")
+    want_by_pid = {p.pid: p for p in want}
+    got = {p.pid: p.total() for p in profiles}
+    if got != {p: w.total() for p, w in want_by_pid.items()}:
+        bad = [p for p, w in want_by_pid.items()
+               if got.get(p) != w.total()][:5]
+        raise AssertionError(f"{label}: per-pid mass differs, e.g. {bad}")
+    for p in profiles[:: max(1, len(profiles) // sample)]:
+        w = want_by_pid[p.pid]
+        if sorted(p.values.tolist()) != sorted(w.values.tolist()):
+            raise AssertionError(f"{label}: pid {p.pid} stack counts")
+        if locations and p.n_locations != w.n_locations:
+            raise AssertionError(f"{label}: pid {p.pid} has {p.n_locations} "
+                                 f"locations, the oracle {w.n_locations}")
+
+
+def phase_main_path(dev, snap, want,
+                    steady: int = STEADY_WINDOWS) -> dict:
+    """The dict main path on `dev` over `snap`; returns its kernels'
+    launch counts. Raises on any disagreement with the numpy oracle."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import probe
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    total = snap.total_samples()
     agg = DictAggregator(capacity=CAP, overflow="raise", device=dev)
     t0 = time.perf_counter()
     hashes = agg.hash_rows(snap)  # the capture-carried identity triple
@@ -375,13 +418,7 @@ def phase_main_path(dev, rows: int = ROWS, pids: int = PIDS,
         if int(counts.sum()) != total:
             raise AssertionError(f"{label}: total {int(counts.sum())} != "
                                  f"{total}")
-        got = {p.pid: p.total() for p in profiles}
-        if got != want_mass:
-            bad = [p for p in want_mass if got.get(p) != want_mass[p]][:5]
-            raise AssertionError(f"{label}: per-pid mass differs, e.g. {bad}")
-        for p in profiles[:: max(1, len(profiles) // 500)]:
-            if sorted(p.values.tolist()) != want_vals[p.pid]:
-                raise AssertionError(f"{label}: pid {p.pid} stack counts")
+        check_profiles(label, snap, want, profiles)
 
     # Every count to 0 just before the main path; read just after.
     probe.reset_launches()
@@ -447,13 +484,272 @@ def phase_main_path(dev, rows: int = ROWS, pids: int = PIDS,
             "timings_ms": {k: v * 1e3 for k, v in agg.timings.items()},
         })
         emit("steady_window", **steady_rows[-1])
-    launches = dict(probe.LAUNCHES)
+    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"]}
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
                              f"{launches_per_feed}")
     emit("main_path", launches=launches, feeds=len(launches_per_feed),
          launches_per_feed=launches_per_feed)
     return launches
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+
+def dedup_arms(dev, spec, reps: int = None) -> dict:
+    """window_program's device time with dedup "hash" and "sort" on one
+    packed window, the arms alternating, after one untimed run of each
+    whose 10 outputs must be equal. Per arm: the median of the stage
+    sums, every run's sum, and the stages of the median run."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import tpu
+    from parca_agent_tpu_torch.capture.synthetic import generate
+
+    reps = ARM_REPS if reps is None else reps
+    snap = tpu._coalesce_snapshot_rows(generate(spec))
+    host, dims = tpu.pack_window_inputs(snap)
+    args = tpu.to_device(host, dev)
+    runs = {"hash": [], "sort": []}
+    outs = {}
+    for rep in range(reps + 1):
+        for dedup in runs:
+            clock = tpu.StageClock(dev)
+            out = tpu.window_program(*args, dedup=dedup, clock=clock, **dims)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if rep == 0:
+                outs[dedup] = [x.cpu() for x in out]
+            else:
+                runs[dedup].append(clock.read_ms())
+    if not all(torch.equal(a, b) for a, b in zip(outs["hash"],
+                                                 outs["sort"])):
+        raise AssertionError("dedup arms disagree on a small window")
+    n_locs = int(outs["hash"][1])
+    if n_locs > dims["l_cap"]:
+        raise AssertionError(f"{n_locs} locations over l_cap "
+                             f"{dims['l_cap']}")
+    row = {"rows": len(snap), "n_locs": n_locs,
+           "live_frames": int((host[2].astype(np.int64)
+                               + host[3].astype(np.int64)).sum()),
+           "f_cap": dims["f_cap"], "l_cap": dims["l_cap"]}
+    for dedup, stages in runs.items():
+        totals = [sum(st.values()) for st in stages]
+        mid = sorted(range(len(totals)), key=totals.__getitem__)[
+            len(totals) // 2]
+        row[dedup] = {"device_ms": totals[mid], "device_ms_runs": totals,
+                      "stages_ms": stages[mid]}
+    row["faster_arm"] = min(("hash", "sort"),
+                            key=lambda d: row[d]["device_ms"])
+    return row
+
+
+def phase_one_shot(dev, snap, want) -> dict:
+    """The one-shot aggregator (--aggregator tpu) on `dev` over the same
+    window: (b) the hash arm twice, the second run checked against the
+    oracle with its kernel launches counted; (c) the sort arm's outputs
+    and pprof against the hash arm's; (a) both kernels against their
+    plain versions at the window's shapes, timed; (d) the CLI entry.
+    Returns the kernel rows of row_hash and loc_table."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch import cli
+    from parca_agent_tpu_torch.aggregator import probe, tpu
+    from parca_agent_tpu_torch.ops import row_hash
+    from parca_agent_tpu_torch.ops.hashing import u32_wide
+    from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def ms(seconds: dict) -> dict:
+        return {k: v * 1e3 for k, v in seconds.items()}
+
+    # (b) The main path: the first run pays the kernels' load; counts go
+    # to 0 just before the second run and are read just after it.
+    agg = tpu.TPUAggregator(dedup="hash", device=dev)
+    t0 = time.perf_counter()
+    agg.aggregate(snap)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    probe.reset_launches()
+    row_hash.reset_launches()
+    t0 = time.perf_counter()
+    profiles = agg.aggregate(snap)
+    sync()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"row_hash": row_hash.LAUNCHES["row_hash"],
+                "loc_table": probe.LAUNCHES["loc_table"]}
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the one-shot window never launched "
+                                 f"{name}")
+    check_profiles("one-shot hash arm", snap, want, profiles,
+                   locations=True)
+    stats = dict(agg.stats)
+    emit("one_shot_window", first_window_ms=first_ms, window_ms=window_ms,
+         launches=launches, host_ms=ms(agg.timings),
+         device_ms=agg.device_ms, profiles=len(profiles), **stats)
+
+    # (c) The sort arm: the same 10 outputs, bit for bit, and pprof bytes.
+    snap_h, outs_h = agg.window_outputs(snap)
+    agg_s = tpu.TPUAggregator(dedup="sort", device=dev)
+    snap_s, outs_s = agg_s.window_outputs(snap)
+    for i, (a, b) in enumerate(zip(outs_h, outs_s)):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"sort arm output {i} != hash arm's")
+    profiles_s = agg_s._build_profiles(snap_s, snap_s.mappings,
+                                       int(outs_s[0]), int(outs_s[1]),
+                                       *outs_s[2:])
+    pick = list(range(0, len(profiles), max(1, len(profiles) // 64)))[:64]
+    for i in pick:
+        if build_pprof(profiles[i], compress=False) != \
+                build_pprof(profiles_s[i], compress=False):
+            raise AssertionError(f"pid {profiles[i].pid}: sort arm pprof "
+                                 "bytes != hash arm's")
+    emit("one_shot_sort_arm", outputs_equal=10, pprof_pids_equal=len(pick),
+         host_ms=ms(agg_s.timings), device_ms=agg_s.device_ms)
+
+    # (a) The kernels against their plain versions, at the window's shapes.
+    host, dims = tpu.pack_window_inputs(snap_h, l_cap=stats["l_cap"])
+    args = tpu.to_device(host, dev)
+    pid, cnt, ulen, klen, shi, slo, valid = args[:7]
+    rh = row_hash.row_hash(shi, slo, pid, ulen, klen)
+    rh_plain = row_hash.row_hash_plain(shi, slo, pid, ulen, klen)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(rh, rh_plain)):
+        raise AssertionError("row_hash kernel != plain version")
+    (_, out_pid, out_ulen, out_klen, out_shi, out_slo, _values,
+     group_live) = tpu.stack_dedup(pid, cnt, ulen, klen, shi, slo, valid,
+                                   *rh, n_pad=dims["n_pad"])
+    fpid, fhi, flo, _fsrc = tpu.compact_frames(
+        out_pid, out_shi, out_slo, out_ulen + out_klen, group_live,
+        f_cap=dims["f_cap"])
+    base = tpu.loc_base(fpid, fhi, flo)
+    cap_loc = 2 * dims["l_cap"]
+    lt = probe.build_loc_table(fpid, fhi, flo, base, cap_loc)
+    lt_plain = probe.build_loc_table_plain(fpid, fhi, flo, base, cap_loc)
+    sync()
+    slot, tp, th, tl = lt
+    live, placed = fpid != -1, slot >= 0
+    if not torch.equal(placed, lt_plain[0] >= 0) or \
+            not torch.equal(placed, live):
+        raise AssertionError("loc_table: the -1 set differs from the plain "
+                             "version's, or a live lane did not place")
+    s_ = slot[placed].long()
+    if not (torch.equal(tp[s_], fpid[placed])
+            and torch.equal(th[s_], fhi[placed])
+            and torch.equal(tl[s_], flo[placed])):
+        raise AssertionError("loc_table: a lane's slot holds another key")
+    n_entries = int((tp != -1).sum())
+    if n_entries != int((lt_plain[1] != -1).sum()):
+        raise AssertionError("loc_table: live entries != distinct keys")
+    ko, po = tpu.argsort3(tp, th, tl), tpu.argsort3(*lt_plain[1:])
+    for x, y in zip((tp, th, tl), lt_plain[1:]):
+        if not torch.equal(x[ko], y[po]):
+            raise AssertionError("loc_table: the re-sorted table differs "
+                                 "from the plain version's")
+
+    # Probe steps this run's data needed: each placed lane visited the
+    # slots from its base to its slot.
+    mask = cap_loc - 1
+    steps = int((((slot[placed].long() - (u32_wide(base[placed]) & mask))
+                  & mask) + 1).sum())
+    keys = torch.stack([u32_wide(x[live]) for x in (fpid, fhi, flo)], 1)
+    saved = (dict(probe.LAUNCHES), dict(row_hash.LAUNCHES))
+    rh_ms = time_ms(lambda: row_hash.row_hash(shi, slo, pid, ulen, klen),
+                    20)
+    rh_plain_ms = time_ms(
+        lambda: row_hash.row_hash_plain(shi, slo, pid, ulen, klen), 2)
+    lt_ms = time_ms(lambda: probe.build_loc_table(fpid, fhi, flo, base,
+                                                  cap_loc), 10)
+    lt_plain_ms = time_ms(lambda: probe.build_loc_table_plain(
+        fpid, fhi, flo, base, cap_loc), 1)
+    lib_ms = time_ms(lambda: torch.unique(keys, dim=0, return_inverse=True),
+                     2)
+    probe.LAUNCHES.update(saved[0])
+    row_hash.LAUNCHES.update(saved[1])
+
+    n_pad, f_cap = dims["n_pad"], dims["f_cap"]
+    frames = int((ulen.long() + klen.long()).sum())
+    # row_hash: each row's live frames (8 B) and header (12 B) read, 8 B
+    # of hashes written; 2 families x 2 lanes x (multiply + add) a frame.
+    rh_bytes = 8 * frames + 20 * n_pad
+    rh_bound, rh_by = bound(rh_bytes, 8 * frames + 20 * n_pad)
+    # loc_table: a live lane reads its 16 B and writes its 4 B slot, a
+    # dead lane reads its pid and writes -1 (8 B); 12 B a slot out; ~8
+    # integer ops a probe step (load compare x3, advance, mask, loop).
+    live_lanes = int(live.sum())
+    lt_bytes = 20 * live_lanes + 8 * (f_cap - live_lanes) + 12 * cap_loc
+    lt_bound, lt_by = bound(lt_bytes, 8 * steps)
+    emit("one_shot_kernels", rows=n_pad, live_frames=frames,
+         lanes=f_cap, live_lanes=live_lanes, table_slots=cap_loc,
+         distinct_keys=n_entries, probe_steps=steps,
+         row_hash={"equal": True, "ms": rh_ms, "plain_ms": rh_plain_ms,
+                   "bound_ms": rh_bound, "bound_by": rh_by,
+                   "bytes": rh_bytes, "library_ms": None},
+         loc_table={"invariants_hold": True, "ms": lt_ms,
+                    "plain_ms": lt_plain_ms, "bound_ms": lt_bound,
+                    "bound_by": lt_by, "bytes": lt_bytes,
+                    "library_ms": lib_ms},
+         row_hash_library_note="no single PyTorch call computes a "
+                               "multilinear hash mod 2^32 of each row",
+         loc_table_library="torch.unique of the live keys as int64 [n, 3], "
+                           "dim=0, return_inverse=True")
+    del args, rh, rh_plain, out_shi, out_slo, lt, lt_plain, keys
+
+    # (d) The CLI entry on the card.
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = cli.run(["--aggregator", "tpu", "--windows", "2",
+                      "--profiling-duration", "0.1",
+                      "--local-store-directory", tmp])
+        files = sorted(Path(tmp).glob("*.pb.gz"))
+        if rc != 0 or not files:
+            raise AssertionError(f"CLI --aggregator tpu: rc {rc}, "
+                                 f"{len(files)} profiles written")
+        parsed = parse_pprof(files[0].read_bytes())
+        if not parsed.samples or min(v[0] for _, v, _ in parsed.samples) < 1:
+            raise AssertionError("CLI --aggregator tpu wrote an empty "
+                                 "profile")
+    emit("one_shot_cli", rc=rc, profiles_written=len(files))
+
+    # (e) The two dedup arms below LOC_WARN_THRESHOLD, where the one-shot
+    # path is meant to run: the CLI's synthetic window, and the bench's
+    # spec cut to 2^17 rows.
+    from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec
+
+    arms = {
+        "cli_window": dedup_arms(dev, SyntheticSpec(seed=1)),
+        "bench_2e17_rows": dedup_arms(dev, SyntheticSpec(
+            n_pids=PIDS, n_unique_stacks=1 << 17, n_rows=1 << 17,
+            total_samples=SAMPLES, mean_depth=24, kernel_fraction=0.2,
+            seed=42)),
+    }
+    emit("one_shot_arms", threshold=tpu.TPUAggregator.LOC_WARN_THRESHOLD,
+         reps=ARM_REPS, **arms)
+
+    return {
+        "row_hash": {
+            "name": "row_hash", "route": "cuda",
+            "source": "parca_agent_tpu_torch/csrc/row_hash.cu",
+            "replaces": "parca_agent_tpu/aggregator/tpu.py:109",
+            "launches": launches["row_hash"], "max_abs_err": 0,
+            "ms": rh_ms, "plain_ms": rh_plain_ms, "bound_ms": rh_bound,
+            "bound_by": rh_by, "library_ms": None,
+        },
+        "loc_table": {
+            "name": "loc_table", "route": "cuda",
+            "source": "parca_agent_tpu_torch/csrc/loc_table.cu",
+            "replaces": "parca_agent_tpu/aggregator/pallas_probe.py:134",
+            "launches": launches["loc_table"], "max_abs_err": 0,
+            "ms": lt_ms, "plain_ms": lt_plain_ms, "bound_ms": lt_bound,
+            "bound_by": lt_by, "library_ms": lib_ms,
+        },
+    }
 
 
 def main() -> int:
@@ -490,9 +786,12 @@ def main() -> int:
                     or "Compiling" in ln] for k, v in report.items()})
 
     rows = phase_kernels(dev)
-    launches = phase_main_path(dev)
+    snap, want = window_setup()
+    launches = phase_main_path(dev, snap, want)
     for name, row in rows.items():
         row["launches"] = launches[name]
+    rows.update(phase_one_shot(dev, snap, want))
+    for name, row in rows.items():
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on the main path")
     emit("done", total_s=time.perf_counter() - t_start)

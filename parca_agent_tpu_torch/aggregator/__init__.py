@@ -4,6 +4,9 @@
   DictAggregator  stateful stack dictionary resident on the device; a
                   steady window is one batched probe+accumulate kernel per
                   feed and one pack per close (aggregator/dict.py)
+  TPUAggregator   one-shot window program on the device: row hash and
+                  location-table kernels, sorts and joins in torch
+                  (aggregator/tpu.py)
 """
 
 from parca_agent_tpu_torch.aggregator.base import (  # noqa: F401
@@ -13,3 +16,4 @@ from parca_agent_tpu_torch.aggregator.base import (  # noqa: F401
     WindowProfiles,
 )
 from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator  # noqa: F401
+from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator  # noqa: F401

@@ -51,7 +51,7 @@ from parca_agent_tpu_torch.capture.formats import (
     WindowSnapshot,
     fold_rows_first_seen,
 )
-from parca_agent_tpu_torch.ops.hashing import row_hash_np
+from parca_agent_tpu_torch.ops.hashing import row_hash_np, u32_bits
 from parca_agent_tpu_torch.pprof.vec import ragged_gather
 from parca_agent_tpu_torch.utils.device import resolve_device
 
@@ -68,12 +68,6 @@ _PROBES = probe.PROBES
 _VEC_MISS_MIN = 512
 
 _U32 = 0xFFFFFFFF
-
-
-def _u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values taken mod 2^32, as int32 tensors of the same bits."""
-    x = x & _U32
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def _pack_lanes(vals: torch.Tensor, width: int) -> torch.Tensor:
@@ -143,7 +137,7 @@ def close_pack(acc: torch.Tensor, n_fetch: int, width: int,
     over_val = _compact_into(n_over_buf, over, head & _U32, 0)
     n_over = over.sum().reshape(1)
     tail = acc[n_fetch:].sum(dtype=torch.int64).reshape(1)
-    return _u32_bits(torch.cat([lanes, over_id, over_val, n_over, tail]))
+    return u32_bits(torch.cat([lanes, over_id, over_val, n_over, tail]))
 
 
 def close_pack_delta(acc: torch.Tensor, touch: torch.Tensor, n_fetch: int,
@@ -188,8 +182,8 @@ def close_pack_delta(acc: torch.Tensor, touch: torch.Tensor, n_fetch: int,
     blk_mass = acc[:n_fetch].to(torch.int64).reshape(nb_prefix, blk).sum(1)
     untouched = torch.where(t, 0, blk_mass).sum().reshape(1)
     tail = acc[n_fetch:].sum(dtype=torch.int64).reshape(1)
-    return _u32_bits(torch.cat([lanes, blk_ids, over_id, over_val,
-                                n_touched, n_over, untouched, tail]))
+    return u32_bits(torch.cat([lanes, blk_ids, over_id, over_val,
+                               n_touched, n_over, untouched, tail]))
 
 
 # Overflow sideband caps for the packed close fetch: ids whose window

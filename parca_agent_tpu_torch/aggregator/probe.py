@@ -1,8 +1,10 @@
-"""The stack dictionary's batch probe: CUDA kernel wrapper and plain version.
+"""The hash-table kernels: CUDA kernel wrappers and plain versions.
 
-Counterpart of parca_agent_tpu/aggregator/pallas_probe.py:make_batch_probe
-(and of the probe loop inside aggregator/dict.py:make_feed). Two entry
-points, each with a plain PyTorch version beside it:
+Counterpart of parca_agent_tpu/aggregator/pallas_probe.py: the stack
+dictionary's batch probe (make_batch_probe, and the probe loop inside
+aggregator/dict.py:make_feed) and the one-shot window's location table
+(make_loc_table_builder). Three entry points, each with a plain PyTorch
+version beside it:
 
   batch_probe(table, h1, h2, h3) -> found_id
       up to PROBES linear-probe steps at (h1 + k) & (cap - 1) into the
@@ -12,10 +14,15 @@ points, each with a plain PyTorch version beside it:
       the probe fused with the feed's accumulate: every live row
       (cnt > 0) that hits adds cnt to acc[id] and sets touch[id // blk].
       acc and touch are updated in place.
+  build_loc_table(kpid, khi, klo, base, cap_l) -> (slot, tpid, thi, tlo)
+      every live (kpid != U32_MAX) 96-bit key finds or claims one slot of
+      an open-addressing table of cap_l slots, walking linearly from
+      base & (cap_l - 1); slot = -1 for dead lanes and for lanes that
+      could not place (the table is too small).
 
 Dispatch is by the tensors' device, and only by it: CUDA tensors launch
-the kernel of csrc/feed_probe.cu (a failed build or launch raises), CPU
-tensors run the plain version. Nothing falls back.
+the kernel of csrc/feed_probe.cu or csrc/loc_table.cu (a failed build or
+launch raises), CPU tensors run the plain version. Nothing falls back.
 
 u32 lanes: the table and the hash lanes are uint32 values carried in int32
 tensors bit for bit (a numpy uint32 array viewed as int32 on the way in);
@@ -35,7 +42,7 @@ _U32 = 0xFFFFFFFF
 
 # Kernel launches per entry point: each wrapper adds one where it launches
 # its CUDA kernel and nowhere else (the plain version counts nothing).
-LAUNCHES = {"batch_probe": 0, "feed_accumulate": 0}
+LAUNCHES = {"batch_probe": 0, "feed_accumulate": 0, "loc_table": 0}
 
 
 def reset_launches() -> None:
@@ -94,6 +101,52 @@ def feed_accumulate_plain(table, acc, touch, blk: int, h1, h2, h3,
         b = ids // blk
         touch[b[b < touch.shape[0]]] = 1
     return found
+
+
+def build_loc_table_plain(kpid: torch.Tensor, khi: torch.Tensor,
+                          klo: torch.Tensor, base: torch.Tensor,
+                          cap_l: int):
+    """The location table in plain PyTorch ops: make_loc_table_builder's
+    loop, iteration for iteration, so slot and table equal the Pallas
+    kernel's bit for bit. Each iteration, every unplaced lane reads its
+    slot: a match places it; on an empty slot the lowest lane that wants
+    it claims it (the others re-read it next iteration); a lane advances
+    only past an occupied mismatch. At most 2 * cap_l + 2 iterations.
+    Placed lanes do nothing in that loop, so only the unplaced ones are
+    carried from one iteration to the next."""
+    dev = kpid.device
+    n = kpid.shape[0]
+    mask = cap_l - 1
+    slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    # The table and the claim buffer carry a dump slot at cap_l for lanes
+    # that claim nothing (the JAX scatters' mode="drop").
+    tpid = torch.full((cap_l + 1,), -1, dtype=torch.int32, device=dev)
+    thi = torch.zeros(cap_l + 1, dtype=torch.int32, device=dev)
+    tlo = torch.zeros(cap_l + 1, dtype=torch.int32, device=dev)
+    claim = torch.full((cap_l + 1,), n, dtype=torch.int64, device=dev)
+    lane = (kpid != -1).nonzero().squeeze(1)
+    pos = base[lane].to(torch.int64) & mask
+    kp, kh, kl = kpid[lane], khi[lane], klo[lane]
+    for _ in range(2 * cap_l + 2):
+        if lane.numel() == 0:
+            break
+        occ_pid = tpid[pos]
+        occ = occ_pid != -1
+        match = occ & (occ_pid == kp) & (thi[pos] == kh) & (tlo[pos] == kl)
+        tgt = torch.where(occ, cap_l, pos)
+        claim.scatter_reduce_(0, tgt, lane, "amin")
+        won = ~occ & (claim[pos] == lane)
+        claim[tgt] = n
+        wtgt = torch.where(won, pos, cap_l)
+        tpid[wtgt] = kp
+        thi[wtgt] = kh
+        tlo[wtgt] = kl
+        placed = match | won
+        slot[lane[placed]] = pos[placed].to(torch.int32)
+        pos = torch.where(occ & ~match, (pos + 1) & mask, pos)
+        keep = ~placed
+        lane, pos, kp, kh, kl = (x[keep] for x in (lane, pos, kp, kh, kl))
+    return slot, tpid[:cap_l], thi[:cap_l], tlo[:cap_l]
 
 
 # -- CUDA kernel wrappers ----------------------------------------------------
@@ -156,3 +209,42 @@ def feed_accumulate(table: torch.Tensor, acc: torch.Tensor,
     kernels.check_launch(lib, code, "feed_accumulate")
     LAUNCHES["feed_accumulate"] += 1
     return found
+
+
+def build_loc_table(kpid: torch.Tensor, khi: torch.Tensor,
+                    klo: torch.Tensor, base: torch.Tensor, cap_l: int):
+    """(slot int32 [n], tpid, thi, tlo int32 [cap_l] uint32 bits); CUDA
+    tensors launch the kernel of csrc/loc_table.cu, CPU tensors run
+    build_loc_table_plain.
+
+    The kernel claims slots by compare-and-swap, so a key may land in
+    another slot than the plain version gives it; what both keep is one
+    slot per distinct live key, each live lane's slot holding its key, and
+    a live -1 exactly when cap_l slots cannot hold every key."""
+    n = kpid.shape[0]
+    for x in (kpid, khi, klo, base):
+        if x.dtype != torch.int32 or x.dim() != 1 or x.shape[0] != n \
+                or not x.is_contiguous() or x.device != kpid.device:
+            raise ValueError("key lanes must be contiguous int32 [n] tensors "
+                             "of one length on one device (uint32 bits)")
+    if cap_l < 1 or cap_l & (cap_l - 1) or cap_l > 1 << 31:
+        raise ValueError(f"table capacity {cap_l} is not a power of two "
+                         "<= 2^31")
+    dev = kpid.device
+    if dev.type == "cpu":
+        return build_loc_table_plain(kpid, khi, klo, base, cap_l)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    lib = kernels.load("loc_table")
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    tpid = torch.full((cap_l,), -1, dtype=torch.int32, device=dev)
+    thi = torch.zeros(cap_l, dtype=torch.int32, device=dev)
+    tlo = torch.zeros(cap_l, dtype=torch.int32, device=dev)
+    state = torch.zeros(cap_l, dtype=torch.int32, device=dev)
+    code = lib.pa_loc_table(
+        kpid.data_ptr(), khi.data_ptr(), klo.data_ptr(), base.data_ptr(), n,
+        cap_l, slot.data_ptr(), tpid.data_ptr(), thi.data_ptr(),
+        tlo.data_ptr(), state.data_ptr(), _stream_ptr(dev))
+    kernels.check_launch(lib, code, "loc_table")
+    LAUNCHES["loc_table"] += 1
+    return slot, tpid, thi, tlo

@@ -2,11 +2,11 @@
 
 Runs the profile-build loop of parca_agent_tpu's CLI for the subset this
 package carries: a capture source (synthetic or replay) -> window
-aggregation (the device-resident stack dictionary, or the numpy
-CPUAggregator) -> per-pid pprof -> the local store. Flag names are those
-of parca_agent_tpu's CLI. The aggregation runs on the CUDA card unless
-``--device cpu`` is given; without a CUDA device the run stops with an
-error that names the missing device.
+aggregation (the device-resident stack dictionary, the one-shot window
+program, or the numpy CPUAggregator) -> per-pid pprof -> the local
+store. Flag names are those of parca_agent_tpu's CLI. The aggregation
+runs on the CUDA card unless ``--device cpu`` is given; without a CUDA
+device the run stops with an error that names the missing device.
 """
 
 from __future__ import annotations
@@ -33,10 +33,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "ends; synthetic never ends)")
     p.add_argument("--profiling-duration", type=float, default=10.0,
                    help="aggregation window seconds")
-    p.add_argument("--aggregator", default="dict", choices=["dict", "cpu"],
+    p.add_argument("--aggregator", default="dict",
+                   choices=["dict", "tpu", "cpu"],
                    help="dict = stack dictionary resident on the device "
-                        "(fails fast at capacity); cpu = numpy aggregation "
-                        "on the host")
+                        "(fails fast at capacity); tpu = one-shot window "
+                        "program on the device (the name of "
+                        "parca_agent_tpu's batch aggregator); cpu = numpy "
+                        "aggregation on the host")
     p.add_argument("--aggregator-capacity", type=int, default=1 << 21,
                    help="dict table slots (power of two)")
     p.add_argument("--local-store-directory", default="",
@@ -76,6 +79,7 @@ def run(argv=None) -> int:
     from parca_agent_tpu_torch.agent.writer import FileProfileWriter
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator
     from parca_agent_tpu_torch.pprof.builder import build_pprof
     from parca_agent_tpu_torch.utils.device import resolve_device
 
@@ -97,6 +101,8 @@ def run(argv=None) -> int:
     if args.aggregator == "dict":
         aggregator = DictAggregator(capacity=args.aggregator_capacity,
                                     overflow="raise", device=device)
+    elif args.aggregator == "tpu":
+        aggregator = TPUAggregator(device=device)
     else:
         aggregator = CPUAggregator()
     writer = (FileProfileWriter(args.local_store_directory)

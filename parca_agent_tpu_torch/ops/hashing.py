@@ -1,4 +1,5 @@
-"""Row hashing: the 96-bit stack identity the dictionary keys on (numpy).
+"""Row hashing: the 96-bit stack identity the dictionary keys on, and the
+window row hash of the one-shot aggregator (numpy and torch).
 
 Everything works on uint32 lanes; 64-bit addresses travel as (hi, lo)
 uint32 pairs. The workhorse is a multilinear hash family
@@ -7,11 +8,20 @@ pairwise collision probability <= 2^-32 per independent hash. The
 coefficient tables come from fixed numpy seeds, so hashes are stable
 across processes, hosts and packages: parca_agent_tpu's row hash (its
 numpy path and its native kernel) gives the same bits for the same rows.
+
+mix32, multilinear_hash_u32 and fold_u64_rows take numpy arrays or torch
+tensors and answer in kind, as parca_agent_tpu's take numpy or jax arrays.
+Torch has no uint32 arithmetic to rely on (int32 ``>>`` is arithmetic,
+and an int64 product of two u32 lanes overflows), so the torch paths
+widen each lane to int64 in [0, 2^32), split every product into 16-bit
+halves that are masked before they are summed, and return u32 values as
+int32 tensors of the same bits (the port's device convention).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Enough coefficient lanes for [hi | lo | pid | user_len | kernel_len].
 _MAX_LANES = 2 * 128 + 8
@@ -39,8 +49,42 @@ _BIASES = np.array([
 ], np.uint32)
 
 
-def mix32(x: np.ndarray, seed: int = 0) -> np.ndarray:
+_U32 = 0xFFFFFFFF
+
+
+def u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32, as int32 tensors of the same bits."""
+    x = x & _U32
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def u32_wide(x: torch.Tensor) -> torch.Tensor:
+    """u32 lanes (int32 bits, or any integer tensor taken mod 2^32) as
+    int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & _U32
+
+
+def _mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """a * b mod 2^32 for int64 a, b in [0, 2^32), with no product past
+    2^49: b splits into 16-bit halves and the high half's product is
+    masked to 16 bits before it is shifted up."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _mix32_torch(x: torch.Tensor, seed: int) -> torch.Tensor:
+    x = u32_wide(x) ^ (seed & _U32)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return u32_bits(x)
+
+
+def mix32(x, seed: int = 0):
     """fmix32 finalizer (murmur3-style): avalanche a uint32 lane."""
+    if isinstance(x, torch.Tensor):
+        return _mix32_torch(x, seed)
     x = x.astype(np.uint32) ^ np.uint32(seed & 0xFFFFFFFF)
     x = x ^ (x >> np.uint32(16))
     x = x * np.uint32(0x85EBCA6B)
@@ -50,24 +94,37 @@ def mix32(x: np.ndarray, seed: int = 0) -> np.ndarray:
     return x
 
 
-def multilinear_hash_u32(lanes: np.ndarray, which: int) -> np.ndarray:
+def multilinear_hash_u32(lanes, which: int):
     """Hash uint32 lane matrix [N, K] -> uint32 [N] with hash family `which`.
 
     Modular arithmetic wraps naturally in uint32; the final mix decorrelates
-    the low bits so the result can be truncated for bucket indices.
+    the low bits so the result can be truncated for bucket indices. A torch
+    tensor (int32 bits or int64) gives an int32 tensor of the same bits.
     """
     k = lanes.shape[-1]
     if k > _MAX_LANES:
         raise ValueError(f"too many lanes to hash: {k} > {_MAX_LANES}")
+    if isinstance(lanes, torch.Tensor):
+        c = torch.from_numpy(_COEFS[which, :k].astype(np.int64)).to(
+            lanes.device)
+        # Products below 2^32, summed over at most _MAX_LANES lanes.
+        acc = _mul32(u32_wide(lanes), c).sum(-1)
+        return _mix32_torch(acc + int(_BIASES[which]), 0)
     coefs = _COEFS[which, :k]
     acc = (lanes.astype(np.uint32) * coefs[None, :]).sum(axis=-1,
                                                          dtype=np.uint32)
     return mix32(acc + _BIASES[which])
 
 
-def fold_u64_rows(hi, lo, extra=None) -> np.ndarray:
+def fold_u64_rows(hi, lo, extra=None):
     """Interleave (hi, lo) uint32 matrices [N, S] (+ optional scalar columns
-    [N] each) into one lane matrix for multilinear_hash_u32."""
+    [N] each) into one lane matrix for multilinear_hash_u32 (torch: int64
+    lanes in [0, 2^32))."""
+    if isinstance(hi, torch.Tensor):
+        cols = [u32_wide(hi), u32_wide(lo)]
+        if extra:
+            cols.append(torch.stack([u32_wide(c) for c in extra], dim=-1))
+        return torch.cat(cols, dim=-1)
     cols = [hi.astype(np.uint32), lo.astype(np.uint32)]
     if extra:
         cols.append(np.stack([c.astype(np.uint32) for c in extra], axis=-1))

@@ -27,6 +27,8 @@ ARCH_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a",)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+_ERR = ([ctypes.c_int], ctypes.c_char_p)
 # C signatures of every entry point, by source: name -> (argtypes, restype).
 SIGNATURES = {
     "feed_probe": {
@@ -34,7 +36,17 @@ SIGNATURES = {
                            ctypes.c_int),
         "pa_feed_accumulate": ([_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P,
                                 _P, _P, _P, _I64, _P], ctypes.c_int),
-        "pa_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+        "pa_cuda_error_string": _ERR,
+    },
+    "loc_table": {
+        "pa_loc_table": ([_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                          _P], ctypes.c_int),
+        "pa_cuda_error_string": _ERR,
+    },
+    "row_hash": {
+        "pa_row_hash": ([_P, _P, _P, _P, _P, _I64, _I64, _P, _U32, _U32, _P,
+                         _P, _P], ctypes.c_int),
+        "pa_cuda_error_string": _ERR,
     },
 }
 

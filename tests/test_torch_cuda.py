@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from parca_agent_tpu_torch.aggregator import probe
+from parca_agent_tpu_torch.aggregator import probe, tpu
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator, feed_step
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
+from parca_agent_tpu_torch.ops import row_hash
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +119,67 @@ def test_dict_aggregator_cuda_equals_cpu(cuda):
         assert np.array_equal(dc.close_window(), dh.close_window())
     assert probe.LAUNCHES["feed_accumulate"] == before + 6
     assert dc._key_to_id == dh._key_to_id
+
+
+def _window(spec: dict):
+    snap = generate(SyntheticSpec(**spec))
+    return tpu.pack_window_inputs(tpu._coalesce_snapshot_rows(snap))
+
+
+def test_row_hash_kernel_equals_plain(cuda):
+    host, _ = _window(dict(n_pids=40, n_unique_stacks=5000, seed=4))
+    pid, _cnt, ulen, klen, shi, slo = tpu.to_device(host[:6], cuda)
+    before = row_hash.LAUNCHES["row_hash"]
+    got = row_hash.row_hash(shi, slo, pid, ulen, klen)
+    torch.cuda.synchronize()
+    assert row_hash.LAUNCHES["row_hash"] == before + 1
+    want = row_hash.row_hash_plain(shi, slo, pid, ulen, klen)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("cap_l", [1 << 12, 1 << 8])
+def test_loc_table_kernel_keeps_the_plain_versions_invariants(cuda, cap_l):
+    """Slots may differ (compare-and-swap claims); what must not: the
+    -1 set, each placed lane's key in its slot, one slot per distinct key
+    and the table sorted by key. 2^8 slots cannot hold the 1,500 keys:
+    there some live lane must come back -1."""
+    rng = np.random.default_rng(cap_l)
+    n = 6000
+    uniq = rng.integers(0, 2**31, size=(1500, 3), dtype=np.uint64)
+    keys = uniq[rng.integers(0, 1500, n)].astype(np.uint32)
+    keys[rng.random(n) < 0.2, 0] = np.uint32(0xFFFFFFFF)
+    kpid, khi, klo = (_t(np.ascontiguousarray(keys[:, j]), cuda)
+                      for j in range(3))
+    base = tpu.loc_base(kpid, khi, klo)
+    before = probe.LAUNCHES["loc_table"]
+    slot, tp, th, tl = probe.build_loc_table(kpid, khi, klo, base, cap_l)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES["loc_table"] == before + 1
+    want = probe.build_loc_table_plain(kpid, khi, klo, base, cap_l)
+    live, placed = kpid != -1, slot >= 0
+    assert not (placed & ~live).any()
+    s = slot[placed].long()
+    assert torch.equal(tp[s], kpid[placed]) and torch.equal(th[s], khi[placed])
+    assert torch.equal(tl[s], klo[placed])
+    if cap_l < 1500:
+        assert (live & ~placed).any() and (live & (want[0] < 0)).any()
+        return
+    assert torch.equal(placed, want[0] >= 0)
+    n_keys = torch.unique(torch.stack([kpid, khi, klo], 1)[live],
+                          dim=0).shape[0]
+    assert int((tp != -1).sum()) == n_keys
+    got_order, want_order = tpu.argsort3(tp, th, tl), tpu.argsort3(*want[1:])
+    for x, y in zip((tp, th, tl), want[1:]):
+        assert torch.equal(x[got_order], y[want_order])
+
+
+@pytest.mark.parametrize("dedup", ["hash", "sort"])
+def test_tpu_aggregator_cuda_equals_cpu(cuda, dedup):
+    snap = generate(SyntheticSpec(n_pids=60, n_unique_stacks=20_000,
+                                  total_samples=200_000, n_funcs=64, seed=5))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        agg = tpu.TPUAggregator(dedup=dedup, device=dev)
+        outs[dev] = agg.window_outputs(snap)[1]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)

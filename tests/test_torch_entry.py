@@ -4,6 +4,7 @@ The port imports torch and never jax or parca_agent_tpu; its entry point
 runs on the CPU only when asked to, and otherwise needs a CUDA device.
 """
 
+import json
 import os
 import pkgutil
 import subprocess
@@ -33,6 +34,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             parca_agent_tpu_torch.__path__, "parca_agent_tpu_torch.")]
     assert "parca_agent_tpu_torch.aggregator.dict" in names
     assert "parca_agent_tpu_torch.aggregator.probe" in names
+    assert "parca_agent_tpu_torch.aggregator.tpu" in names
+    assert "parca_agent_tpu_torch.ops.row_hash" in names
     code = (
         "import importlib, sys\n"
         f"names = {names!r}\n"
@@ -66,6 +69,28 @@ def test_cli_on_cpu_writes_profiles(tmp_path):
     assert len(files) >= 2
     prof = parse_pprof(files[0].read_bytes())
     assert prof.samples and all(v[0] > 0 for _, v, _ in prof.samples)
+
+
+def test_cli_on_cpu_with_the_one_shot_aggregator(tmp_path):
+    """--aggregator tpu: every window's profiles land in the store and
+    parse back to the window's mass (the synthetic source's 1M samples)."""
+    store = tmp_path / "store"
+    r = subprocess.run(
+        [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--capture", "synthetic", "--aggregator", "tpu", "--windows", "2",
+         "--profiling-duration", "0.1",
+         "--local-store-directory", str(store)],
+        env=_env(), cwd=tmp_path, capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    assert [ln["aggregator"] for ln in lines] == ["tpu", "tpu"]
+    files = sorted(store.glob("*.pb.gz"))
+    assert len(files) == sum(ln["profiles"] for ln in lines)
+    mass = sum(v[0] for f in files
+               for _, v, _ in parse_pprof(f.read_bytes()).samples)
+    assert mass == sum(ln["samples"] for ln in lines)
 
 
 def test_cli_without_cuda_names_the_missing_device(tmp_path):
