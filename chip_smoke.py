@@ -1,38 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of parca_agent_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k1-reference FEED_PROBE_CU]
 
 Needs one CUDA device, nvcc and this checkout; imports nothing of jax or
 of parca_agent_tpu. Phases, each printing one JSON line:
 
   1. identity  the card (nvidia-smi name and power limit, also printed as
                the raw nvidia-smi line), torch and CUDA versions
-  2. build     every CUDA kernel built from csrc/ with nvcc for sm_90a
-  3. kernels   each kernel held against its plain PyTorch version on the
-               card at full size (table of 2^21 slots, half filled, with
-               chains past the probe bound, h1-only collisions and
-               empty-slot stops; 2^20 query rows with hits, misses and
-               dead rows): outputs must be exactly equal. Prints each
-               kernel's time (queued back to back, and with the L2
-               flushed before each call), the plain version's time and
-               the bound (the least time the card could take for the
-               same work, from this run's data)
+  2. build     every CUDA kernel built from csrc/ with nvcc for sm_90a;
+               nvcc's version, ptxas's report and the location table's
+               compare-and-swap instructions
+  3. kernels   K1 held against its plain PyTorch version on the card at
+               full size (table of 2^21 slots, half filled, with chains
+               past the probe bound, h1-only collisions and empty-slot
+               stops; 2^20 query rows with hits, misses and dead rows) and
+               at a steady drain's 2^17 rows: outputs must be exactly
+               equal. Prints the kernel's time (queued back to back, and
+               with the L2 flushed before each call), the plain version's
+               time and the bound (the least time the card could take for
+               the same work, from this run's data) at both shapes
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
                window, then steady windows fed as 10 drains each and closed,
-               then pprof for every pid. Totals and per-pid masses must
-               equal the numpy CPUAggregator's on the same snapshot; every
-               feed must launch the fused probe kernel.
+               then pprof for every pid of the last one. Totals and
+               per-pid masses must equal the numpy CPUAggregator's on the
+               same snapshot; every feed must launch the fused probe
+               kernel. Then the probe-step histogram of the window's rows
+               in the table, and K1 on that table at one drain's rows,
+               against its plain version, timed, with its bound.
   5. one shot  the port's TPUAggregator (--aggregator tpu) on the same
                window: the hash arm twice, the second run checked against
                the same oracle (with per-pid location counts) and its
                row_hash and loc_table launches counted; the sort arm's 10
                outputs and a sample's pprof bytes equal to the hash arm's;
                both kernels against their plain versions at the window's
-               shapes, timed, with their bounds; the CLI entry; and each
-               dedup arm's device time on two windows below the
-               aggregator's location warning threshold.
+               shapes (the location table's dense list re-sorted), timed,
+               with their bounds and the table's probe-step histogram;
+               the CLI entry; and each dedup arm's device time on two
+               windows below the aggregator's location warning threshold.
+
+With --k1-reference, a second build of K1 from that source (one with
+csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
+against the kernel and timed in turns with it, in phases 3 and 4.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -42,6 +52,7 @@ nonzero at once.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -122,11 +133,73 @@ def time_ms(fn, reps: int, flush=None) -> float:
     return times[len(times) // 2]
 
 
+def time_turns(fns: dict, reps: int, flush=None) -> dict:
+    """name -> [ms]: each fn timed by time_ms; two fns in turns (a, b, b,
+    a), so that neither gains from its place in the run."""
+    names = list(fns)
+    order = names if len(names) == 1 else names + names[::-1]
+    out = {name: [] for name in names}
+    for name in order:
+        out[name].append(time_ms(fns[name], reps, flush))
+    return out
+
+
 def bound(nbytes: int, ops: int):
     """(bound ms, "bytes" or "operations"): the larger of the bytes over
     the HBM rate and the operations over the scalar rate."""
     b, o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
+
+
+# -- a reference build of K1 ------------------------------------------------
+
+
+def load_k1_reference(path: str):
+    """(batch_probe, feed_accumulate) of another source with
+    csrc/feed_probe.cu's C interface, built as csrc/ is built, called as
+    the port's wrappers call theirs; launches are not counted."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels
+
+    src = Path(path).resolve()
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    out = kernels.BUILD_DIR / f"libk1ref-{digest}.so"
+    if not out.exists():
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run(kernels.nvcc_command(src, out), check=True,
+                       capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    for fn, (argtypes, restype) in kernels.SIGNATURES["feed_probe"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+
+    def stream(t):
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    def batch_probe(table, h1, h2, h3):
+        found = torch.empty(h1.shape[0], dtype=torch.int32,
+                            device=table.device)
+        kernels.check_launch(lib, lib.pa_batch_probe(
+            table.data_ptr(), table.shape[0], h1.data_ptr(), h2.data_ptr(),
+            h3.data_ptr(), found.data_ptr(), h1.shape[0], stream(table)),
+            "reference batch_probe")
+        return found
+
+    def feed_accumulate(table, acc, touch, blk, h1, h2, h3, cnt):
+        found = torch.empty(h1.shape[0], dtype=torch.int32,
+                            device=table.device)
+        kernels.check_launch(lib, lib.pa_feed_accumulate(
+            table.data_ptr(), table.shape[0], acc.data_ptr(), acc.shape[0],
+            touch.data_ptr(), touch.shape[0], max(blk, 1), h1.data_ptr(),
+            h2.data_ptr(), h3.data_ptr(), cnt.data_ptr(), found.data_ptr(),
+            h1.shape[0], stream(table)), "reference feed_accumulate")
+        return found
+
+    return batch_probe, feed_accumulate
 
 
 # -- phase 3 inputs ----------------------------------------------------------
@@ -218,7 +291,7 @@ def probe_work(table, q1, q2, q3, probes: int):
     return steps, slots, found
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, ref=None) -> dict:
     import numpy as np
     import torch
 
@@ -248,32 +321,44 @@ def phase_kernels(dev) -> dict:
     shapes["misses_empty_stop"] = int((found_np < 0).sum()) \
         - shapes["misses_past_bound"]
 
-    # batch_probe: the exact counterpart of K1.
-    got = probe.batch_probe(tab, d1, d2, d3)
-    want = probe.batch_probe_plain(tab, d1, d2, d3)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("batch_probe kernel != plain version")
-    if not np.array_equal(got.cpu().numpy(), found_np):
-        raise AssertionError("batch_probe != host probe")
-
-    # feed_accumulate: K1 fused with the feed's accumulate.
-    outs = []
-    for fn in (probe.feed_accumulate, probe.feed_accumulate_plain):
-        acc = torch.zeros(id_cap, dtype=torch.int32, device=dev)
-        touch = torch.zeros(id_cap // blk, dtype=torch.int32, device=dev)
-        outs.append((fn(tab, acc, touch, blk, d1, d2, d3, dc), acc, touch))
-    torch.cuda.synchronize()
-    (f0, a0, t0_), (f1, a1, t1_) = outs
-    for name, x, y in (("found_id", f0, f1), ("acc", a0, a1),
-                       ("touch", t0_, t1_)):
-        if not torch.equal(x, y):
-            raise AssertionError(f"feed_accumulate {name}: kernel != plain")
+    # Both kernels (and the reference build's) exactly equal to their
+    # plain versions at full size and at a steady drain's shape (one tenth
+    # of the window, padded to 2^17 rows).
+    drain = 1 << 17
+    impls = {"kernel": (probe.batch_probe, probe.feed_accumulate)}
+    if ref is not None:
+        impls["reference"] = ref
+    for label, (bp_fn, fa_fn) in impls.items():
+        for rows in (N_QUERY, drain):
+            d = [x[:rows] for x in (d1, d2, d3, dc)]
+            got = bp_fn(tab, *d[:3])
+            want = probe.batch_probe_plain(tab, *d[:3])
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"batch_probe {label} ({rows} rows) "
+                                     "!= plain version")
+            if not np.array_equal(got.cpu().numpy(), found_np[:rows]):
+                raise AssertionError(f"batch_probe {label} != host probe")
+            outs = []
+            for fn in (fa_fn, probe.feed_accumulate_plain):
+                acc = torch.zeros(id_cap, dtype=torch.int32, device=dev)
+                touch = torch.zeros(id_cap // blk, dtype=torch.int32,
+                                    device=dev)
+                outs.append((fn(tab, acc, touch, blk, *d), acc, touch))
+            torch.cuda.synchronize()
+            (f0, a0, t0_), (f1, a1, t1_) = outs
+            for name, x, y in (("found_id", f0, f1), ("acc", a0, a1),
+                               ("touch", t0_, t1_)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"feed_accumulate {label} {name} "
+                                         f"({rows} rows) != plain")
     max_abs_err = 0
 
     # Timing. Warm: the 32 MB table stays in the 50 MB L2 between
     # launches, as between back-to-back drains. Cold: 128 MB written
-    # between launches evicts it first.
+    # between launches evicts it first. With a reference build, each
+    # metric is timed in turns (kernel, reference, reference, kernel) and
+    # each reports its lower time.
     scrub = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
 
     def flush():
@@ -281,51 +366,83 @@ def phase_kernels(dev) -> dict:
 
     acc = torch.zeros(id_cap, dtype=torch.int32, device=dev)
     touch = torch.zeros(id_cap // blk, dtype=torch.int32, device=dev)
+    dr = [x[:drain] for x in (d1, d2, d3, dc)]
     n_launch_before = dict(probe.LAUNCHES)
-    bp_ms = time_ms(lambda: probe.batch_probe(tab, d1, d2, d3), 50)
-    bp_cold = time_ms(lambda: probe.batch_probe(tab, d1, d2, d3), 20, flush)
-    fa_ms = time_ms(lambda: probe.feed_accumulate(
-        tab, acc, touch, blk, d1, d2, d3, dc), 50)
-    fa_cold = time_ms(lambda: probe.feed_accumulate(
-        tab, acc, touch, blk, d1, d2, d3, dc), 20, flush)
+
+    def turns(call, reps, flush=None):
+        return time_turns({label: (lambda f=f: call(*f))
+                           for label, f in impls.items()}, reps, flush)
+
+    timed = {
+        "batch_probe_ms": turns(lambda bp, fa: bp(tab, d1, d2, d3), 50),
+        "batch_probe_ms_l2_flushed": turns(
+            lambda bp, fa: bp(tab, d1, d2, d3), 20, flush),
+        "feed_accumulate_ms": turns(lambda bp, fa: fa(
+            tab, acc, touch, blk, d1, d2, d3, dc), 50),
+        "feed_accumulate_ms_l2_flushed": turns(lambda bp, fa: fa(
+            tab, acc, touch, blk, d1, d2, d3, dc), 20, flush),
+        "feed_accumulate_ms_drain_2e17_rows": turns(
+            lambda bp, fa: fa(tab, acc, touch, blk, *dr), 50),
+    }
+    mine = {k: min(v["kernel"]) for k, v in timed.items()}
+    bp_ms, bp_cold = mine["batch_probe_ms"], \
+        mine["batch_probe_ms_l2_flushed"]
+    fa_ms, fa_cold = mine["feed_accumulate_ms"], \
+        mine["feed_accumulate_ms_l2_flushed"]
+    fa_drain = mine["feed_accumulate_ms_drain_2e17_rows"]
     bp_plain = time_ms(lambda: probe.batch_probe_plain(tab, d1, d2, d3), 5)
     fa_plain = time_ms(lambda: probe.feed_accumulate_plain(
         tab, acc, touch, blk, d1, d2, d3, dc), 5)
-    # A steady drain's shape: one tenth of the window, padded to 2^17.
-    dr = [x[: 1 << 17] for x in (d1, d2, d3, dc)]
-    fa_drain = time_ms(lambda: probe.feed_accumulate(
-        tab, acc, touch, blk, *dr), 50)
+    fa_drain_plain = time_ms(lambda: probe.feed_accumulate_plain(
+        tab, acc, touch, blk, *dr), 5)
     # Timing launches are not main-path launches: restore the counts.
     probe.LAUNCHES.update(n_launch_before)
 
     # Bounds from this run's data: each input read once, each output
     # written once; table bytes are the distinct slots the probes read.
+    def fa_work(rows: int):
+        st, sl, fd = probe_work(table, q1[:rows], q2[:rows], q3[:rows],
+                                probe.PROBES)
+        hit = (fd >= 0) & live[:rows]
+        ids = fd[hit]
+        # (h1, h2, h3) and found a row, cnt only where the probe hits
+        # (the kernel reads it after a hit), acc read and written a hit id.
+        nbytes = 16 * rows + 4 * int((fd >= 0).sum()) + 16 * sl \
+            + 8 * len(np.unique(ids)) + 4 * len(np.unique(ids // blk))
+        # ~6 integer ops per probe step (add, mask, 4 compares); +2 a hit.
+        return nbytes, 6 * int(st.sum()) + 2 * int(hit.sum())
+
     n = N_QUERY
     n_steps = int(steps.sum())
-    ids_hit = found_np[hit_np]
-    uniq_ids = len(np.unique(ids_hit))
-    uniq_blocks = len(np.unique(ids_hit // blk))
     bp_bytes = 12 * n + 16 * slots + 4 * n
-    fa_bytes = 16 * n + 16 * slots + 4 * n + 8 * uniq_ids + 4 * uniq_blocks
-    # ~6 integer ops per probe step (add, mask, 4 compares); +2 per hit.
     bp_ops = 6 * n_steps
-    fa_ops = 6 * n_steps + 2 * int(hit_np.sum())
+    fa_bytes, fa_ops = fa_work(n)
+    fad_bytes, fad_ops = fa_work(drain)
 
     bp_bound, bp_by = bound(bp_bytes, bp_ops)
     fa_bound, fa_by = bound(fa_bytes, fa_ops)
+    fad_bound, fad_by = bound(fad_bytes, fad_ops)
     emit("kernels", inputs_s=t_in, cap=CAP, rows=n, shapes=shapes,
          probe_steps=n_steps, distinct_slots=slots,
+         probe_step_hist=np.bincount(steps).tolist(),
+         ms_turns=timed,
          batch_probe={"equal": True, "ms": bp_ms, "ms_l2_flushed": bp_cold,
                       "plain_ms": bp_plain, "bound_ms": bp_bound,
                       "bound_by": bp_by, "bytes": bp_bytes},
          feed_accumulate={"equal": True, "ms": fa_ms,
                           "ms_l2_flushed": fa_cold,
                           "ms_drain_2e17_rows": fa_drain,
+                          "bound_ms_drain_2e17_rows": fad_bound,
+                          "bound_by_drain": fad_by,
+                          "bytes_drain": fad_bytes,
+                          "plain_ms_drain_2e17_rows": fa_drain_plain,
                           "plain_ms": fa_plain, "bound_ms": fa_bound,
                           "bound_by": fa_by, "bytes": fa_bytes},
          library_ms=None,
          library_note="no single PyTorch call computes a bounded "
-                      "linear probe with early exit")
+                      "linear probe with early exit",
+         **({"reference": {k: min(v["reference"])
+                           for k, v in timed.items()}} if ref else {}))
     return {
         "feed_accumulate": {
             "name": "feed_accumulate",
@@ -393,8 +510,8 @@ def check_profiles(label: str, snap, want, profiles, sample: int = 500,
                                  f"locations, the oracle {w.n_locations}")
 
 
-def phase_main_path(dev, snap, want,
-                    steady: int = STEADY_WINDOWS) -> dict:
+def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
+                    ref=None) -> dict:
     """The dict main path on `dev` over `snap`; returns its kernels'
     launch counts. Raises on any disagreement with the numpy oracle."""
     import numpy as np
@@ -455,17 +572,14 @@ def phase_main_path(dev, snap, want,
         feed_close_s = time.perf_counter() - t_win
         profiles = agg._build_profiles(snap, counts)
         profiles_ms = (time.perf_counter() - t_close) * 1e3
+        # pprof for every pid of the last window, for every 64th before.
         last = w == steady - 1
-        if last:
-            # pprof for every pid of the window.
-            blobs = [build_pprof(p) for p in profiles]
-        else:
-            blobs = [build_pprof(p) for p in profiles[:: len(profiles) // 64]]
+        sample = profiles if last else profiles[:: len(profiles) // 64]
+        blobs = [build_pprof(p) for p in sample]
         to_pprof_ms = (time.perf_counter() - t_close) * 1e3
         window_ms = (time.perf_counter() - t_win) * 1e3
         check(counts, profiles, f"steady window {w}")
-        for b, p in list(zip(blobs, profiles if last else
-                             profiles[:: len(profiles) // 64]))[:: 50]:
+        for b, p in list(zip(blobs, sample))[:: 50]:
             parsed = parse_pprof(b)
             if sum(v[0] for _, v, _ in parsed.samples) != p.total():
                 raise AssertionError(f"pprof of pid {p.pid} does not parse "
@@ -488,9 +602,82 @@ def phase_main_path(dev, snap, want,
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
                              f"{launches_per_feed}")
+    # How far the window's rows walk in the dictionary's table (the host
+    # mirror of the device table, at this window's load): slots read a
+    # row, and rounds of the probe kernel's group a row.
+    table = np.zeros((agg._cap, 4), np.uint32)
+    table[:, 0], table[:, 1], table[:, 2] = agg._h1, agg._h2, agg._h3
+    table[:, 3] = np.where(agg._occ, agg._ids + 1, 0).astype(np.uint32)
+    steps, _slots, _found = probe_work(table, *hashes, probe.PROBES)
     emit("main_path", launches=launches, feeds=len(launches_per_feed),
-         launches_per_feed=launches_per_feed)
+         launches_per_feed=launches_per_feed,
+         table_load=float(agg._occ.mean()),
+         probe_step_hist=np.bincount(steps).tolist())
+    drain_k1(dev, agg, table, snap, hashes, int(bounds[0]), int(bounds[1]),
+             ref)
     return launches
+
+
+def drain_k1(dev, agg, table, snap, hashes, lo: int, hi: int,
+             ref=None) -> None:
+    """K1 (feed_accumulate) on the main path's own device table, at one
+    steady drain: the window's rows lo:hi packed as feed() packs them
+    (padded to a power of two with dead rows). The kernel (and the
+    reference build) against the plain version, then timed (in turns with
+    the reference) beside the plain version and the bound of this drain's
+    data."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import probe
+
+    nd = hi - lo
+    n_pad = 1 << max(4, (nd - 1).bit_length())
+    packed = np.zeros((4, n_pad), np.uint32)
+    for k in range(3):
+        packed[k, :nd] = hashes[k][lo:hi]
+    packed[3, :nd] = snap.counts[lo:hi].astype(np.uint32)
+    lanes = [torch.from_numpy(packed[k].view(np.int32)).to(dev)
+             for k in range(4)]
+    blk = agg._blk
+    n_blocks = agg._n_blocks
+
+    def run(fn):
+        acc = torch.zeros(agg._id_cap, dtype=torch.int32, device=dev)
+        touch = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+        return fn(agg._dev, acc, touch, blk, *lanes), acc, touch
+
+    impls = {"kernel": probe.feed_accumulate}
+    if ref is not None:
+        impls["reference"] = ref[1]
+    want = run(probe.feed_accumulate_plain)
+    for label, fn in impls.items():
+        got = run(fn)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"feed_accumulate {label} != plain at the "
+                                 "main path's drain")
+    acc = torch.zeros(agg._id_cap, dtype=torch.int32, device=dev)
+    touch = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
+    saved = dict(probe.LAUNCHES)
+    timed = time_turns({label: (lambda fn=fn: fn(
+        agg._dev, acc, touch, blk, *lanes)) for label, fn in impls.items()},
+        50)
+    plain_ms = time_ms(lambda: probe.feed_accumulate_plain(
+        agg._dev, acc, touch, blk, *lanes), 5)
+    probe.LAUNCHES.update(saved)
+    steps, slots, found = probe_work(table, *packed[:3], probe.PROBES)
+    hit = (found >= 0) & (packed[3].view(np.int32) > 0)
+    ids = found[hit]
+    # As phase 3 counts it: 16 B a row, 4 B of cnt a row the probe finds.
+    nbytes = 16 * n_pad + 4 * int((found >= 0).sum()) + 16 * slots \
+        + 8 * len(np.unique(ids)) + 4 * len(np.unique(ids // blk))
+    b_ms, b_by = bound(nbytes, 6 * int(steps.sum()) + 2 * int(hit.sum()))
+    emit("main_path_drain_k1", rows=nd, n_pad=n_pad, hits=int(hit.sum()),
+         probe_step_hist=np.bincount(steps).tolist(), ms_turns=timed,
+         ms=min(timed["kernel"]), plain_ms=plain_ms, bound_ms=b_ms,
+         bound_by=b_by, bytes=nbytes, equal=True,
+         **({"reference_ms": min(timed["reference"])} if ref else {}))
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -629,46 +816,59 @@ def phase_one_shot(dev, snap, want) -> dict:
     fpid, fhi, flo, _fsrc = tpu.compact_frames(
         out_pid, out_shi, out_slo, out_ulen + out_klen, group_live,
         f_cap=dims["f_cap"])
-    base = tpu.loc_base(fpid, fhi, flo)
-    cap_loc = 2 * dims["l_cap"]
-    lt = probe.build_loc_table(fpid, fhi, flo, base, cap_loc)
-    lt_plain = probe.build_loc_table_plain(fpid, fhi, flo, base, cap_loc)
+    l_cap = dims["l_cap"]
+    cap_loc = 2 * l_cap
+    lt = probe.build_loc_table(fpid, fhi, flo, None, cap_loc, l_cap)
+    lt_plain = probe.build_loc_table_plain(fpid, fhi, flo, None, cap_loc,
+                                           l_cap)
     sync()
-    slot, tp, th, tl = lt
+    slot, epid, ehi, elo, eslot, n_ent = lt
     live, placed = fpid != -1, slot >= 0
     if not torch.equal(placed, lt_plain[0] >= 0) or \
             not torch.equal(placed, live):
         raise AssertionError("loc_table: the -1 set differs from the plain "
                              "version's, or a live lane did not place")
-    s_ = slot[placed].long()
-    if not (torch.equal(tp[s_], fpid[placed])
-            and torch.equal(th[s_], fhi[placed])
-            and torch.equal(tl[s_], flo[placed])):
+    n_entries = int(n_ent[0])
+    if n_entries != int(lt_plain[5][0]) or n_entries > l_cap:
+        raise AssertionError(f"loc_table: {n_entries} entries, the plain "
+                             f"version {int(lt_plain[5][0])}, l_cap {l_cap}")
+    entry = torch.full((cap_loc + 1,), -1, dtype=torch.int64, device=dev)
+    entry[eslot[:n_entries].long()] = torch.arange(n_entries, device=dev)
+    e = entry[slot[placed].long()]
+    if bool((e < 0).any()) or not all(
+            torch.equal(lst[e], lane[placed])
+            for lst, lane in ((epid, fpid), (ehi, fhi), (elo, flo))):
         raise AssertionError("loc_table: a lane's slot holds another key")
-    n_entries = int((tp != -1).sum())
-    if n_entries != int((lt_plain[1] != -1).sum()):
-        raise AssertionError("loc_table: live entries != distinct keys")
-    ko, po = tpu.argsort3(tp, th, tl), tpu.argsort3(*lt_plain[1:])
-    for x, y in zip((tp, th, tl), lt_plain[1:]):
+    pad = slice(n_entries, None)
+    if bool((eslot[pad] != cap_loc).any() | (epid[pad] != -1).any()
+            | (ehi[pad] != 0).any() | (elo[pad] != 0).any()):
+        raise AssertionError("loc_table: the list's padding is not "
+                             "(U32_MAX, 0, 0, cap_loc)")
+    ko, po = tpu.argsort3(epid, ehi, elo), tpu.argsort3(*lt_plain[1:4])
+    for x, y in zip((epid, ehi, elo), lt_plain[1:4]):
         if not torch.equal(x[ko], y[po]):
-            raise AssertionError("loc_table: the re-sorted table differs "
+            raise AssertionError("loc_table: the re-sorted list differs "
                                  "from the plain version's")
 
     # Probe steps this run's data needed: each placed lane visited the
     # slots from its base to its slot.
     mask = cap_loc - 1
-    steps = int((((slot[placed].long() - (u32_wide(base[placed]) & mask))
-                  & mask) + 1).sum())
+    base = probe.loc_base(fpid, fhi, flo)
+    lane_steps = ((slot[placed].long() - (u32_wide(base[placed]) & mask))
+                  & mask) + 1
+    steps = int(lane_steps.sum())
+    step_hist = torch.bincount(lane_steps).tolist()[1:]
     keys = torch.stack([u32_wide(x[live]) for x in (fpid, fhi, flo)], 1)
+    del lt_plain, entry, e, base, lane_steps
     saved = (dict(probe.LAUNCHES), dict(row_hash.LAUNCHES))
     rh_ms = time_ms(lambda: row_hash.row_hash(shi, slo, pid, ulen, klen),
                     20)
     rh_plain_ms = time_ms(
         lambda: row_hash.row_hash_plain(shi, slo, pid, ulen, klen), 2)
-    lt_ms = time_ms(lambda: probe.build_loc_table(fpid, fhi, flo, base,
-                                                  cap_loc), 10)
+    lt_ms = time_ms(lambda: probe.build_loc_table(fpid, fhi, flo, None,
+                                                  cap_loc, l_cap), 10)
     lt_plain_ms = time_ms(lambda: probe.build_loc_table_plain(
-        fpid, fhi, flo, base, cap_loc), 1)
+        fpid, fhi, flo, None, cap_loc, l_cap), 1)
     lib_ms = time_ms(lambda: torch.unique(keys, dim=0, return_inverse=True),
                      2)
     probe.LAUNCHES.update(saved[0])
@@ -680,15 +880,19 @@ def phase_one_shot(dev, snap, want) -> dict:
     # of hashes written; 2 families x 2 lanes x (multiply + add) a frame.
     rh_bytes = 8 * frames + 20 * n_pad
     rh_bound, rh_by = bound(rh_bytes, 8 * frames + 20 * n_pad)
-    # loc_table: a live lane reads its 16 B and writes its 4 B slot, a
-    # dead lane reads its pid and writes -1 (8 B); 12 B a slot out; ~8
-    # integer ops a probe step (load compare x3, advance, mask, loop).
+    # loc_table: a live lane reads its 12 B key, a dead lane its 4 B pid,
+    # every lane writes its 4 B slot, and each of the l_cap dense entries
+    # is 16 B written (the table is scratch); ~12 integer ops a live lane
+    # for its base hash and ~8 a probe step (CAS, compare x3, advance,
+    # mask, loop).
     live_lanes = int(live.sum())
-    lt_bytes = 20 * live_lanes + 8 * (f_cap - live_lanes) + 12 * cap_loc
-    lt_bound, lt_by = bound(lt_bytes, 8 * steps)
+    lt_bytes = 12 * live_lanes + 4 * (f_cap - live_lanes) + 4 * f_cap \
+        + 16 * l_cap
+    lt_bound, lt_by = bound(lt_bytes, 12 * live_lanes + 8 * steps)
     emit("one_shot_kernels", rows=n_pad, live_frames=frames,
          lanes=f_cap, live_lanes=live_lanes, table_slots=cap_loc,
-         distinct_keys=n_entries, probe_steps=steps,
+         l_cap=l_cap, distinct_keys=n_entries, probe_steps=steps,
+         probe_step_hist=step_hist,
          row_hash={"equal": True, "ms": rh_ms, "plain_ms": rh_plain_ms,
                    "bound_ms": rh_bound, "bound_by": rh_by,
                    "bytes": rh_bytes, "library_ms": None},
@@ -700,7 +904,7 @@ def phase_one_shot(dev, snap, want) -> dict:
                                "multilinear hash mod 2^32 of each row",
          loc_table_library="torch.unique of the live keys as int64 [n, 3], "
                            "dim=0, return_inverse=True")
-    del args, rh, rh_plain, out_shi, out_slo, lt, lt_plain, keys
+    del args, rh, rh_plain, out_shi, out_slo, lt, keys
 
     # (d) The CLI entry on the card.
     with tempfile.TemporaryDirectory() as tmp:
@@ -753,6 +957,11 @@ def phase_one_shot(dev, snap, want) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
+                    help="another source with csrc/feed_probe.cu's C "
+                         "interface, built and timed in turns with K1")
+    opts = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -781,13 +990,34 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = kernels.build()
-    emit("build", s=time.perf_counter() - t0, arch=list(kernels.ARCH_FLAGS),
+    build_s = time.perf_counter() - t0
+    nvcc = kernels.nvcc_path()
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60, check=True).stdout
+    # The location table's claim: which compare-and-swap the build emitted
+    # (a 128-bit one shows as a CAS of .128 in the SASS).
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    cas_sass = None
+    if cuobjdump.exists():
+        sass = subprocess.run(
+            [str(cuobjdump), "--dump-sass",
+             str(kernels.library_path("loc_table"))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        cas_sass = sorted({ln.split("*/")[1].strip().split(" ")[0]
+                           for ln in sass.splitlines()
+                           if "CAS" in ln and "*/" in ln})
+    emit("build", s=build_s, arch=list(kernels.ARCH_FLAGS),
+         nvcc=version.strip().splitlines()[-2:], loc_table_cas=cas_sass,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln
                     or "Compiling" in ln] for k, v in report.items()})
 
-    rows = phase_kernels(dev)
+    ref = None
+    if opts.k1_reference:
+        ref = load_k1_reference(opts.k1_reference)
+        emit("k1_reference", source=opts.k1_reference)
+    rows = phase_kernels(dev, ref)
     snap, want = window_setup()
-    launches = phase_main_path(dev, snap, want)
+    launches = phase_main_path(dev, snap, want, ref=ref)
     for name, row in rows.items():
         row["launches"] = launches[name]
     rows.update(phase_one_shot(dev, snap, want))

@@ -14,11 +14,14 @@ version beside it:
       the probe fused with the feed's accumulate: every live row
       (cnt > 0) that hits adds cnt to acc[id] and sets touch[id // blk].
       acc and touch are updated in place.
-  build_loc_table(kpid, khi, klo, base, cap_l) -> (slot, tpid, thi, tlo)
+  build_loc_table(kpid, khi, klo, base, cap_l, l_cap)
+      -> (slot, epid, ehi, elo, eslot, n_entries)
       every live (kpid != U32_MAX) 96-bit key finds or claims one slot of
       an open-addressing table of cap_l slots, walking linearly from
-      base & (cap_l - 1); slot = -1 for dead lanes and for lanes that
-      could not place (the table is too small).
+      base & (cap_l - 1) (base None: loc_base of the key); slot = -1 for
+      dead lanes and for lanes that could not place (the table is too
+      small). The table's keys come back as a dense list of l_cap entries
+      (key e sits in slot eslot[e]) and their count.
 
 Dispatch is by the tensors' device, and only by it: CUDA tensors launch
 the kernel of csrc/feed_probe.cu or csrc/loc_table.cu (a failed build or
@@ -35,10 +38,14 @@ from __future__ import annotations
 import torch
 
 from parca_agent_tpu_torch.ops import kernels
+from parca_agent_tpu_torch.ops.hashing import hash_params, multilinear_hash_u32
 
 # Linear-probe bound (csrc/feed_probe.cu kProbes; the JAX package's _PROBES).
 PROBES = 16
 _U32 = 0xFFFFFFFF
+# The location table's probe base: the first three coefficients of hash
+# family 3 and its bias (csrc/loc_table.cu hashes [pid, hi, lo] with them).
+_LOC_COEFS, _LOC_BIASES = hash_params(4, 0)
 
 # Kernel launches per entry point: each wrapper adds one where it launches
 # its CUDA kernel and nowhere else (the plain version counts nothing).
@@ -103,20 +110,50 @@ def feed_accumulate_plain(table, acc, touch, blk: int, h1, h2, h3,
     return found
 
 
+def loc_base(kpid: torch.Tensor, khi: torch.Tensor,
+             klo: torch.Tensor) -> torch.Tensor:
+    """The location table's probe base: hash family 3 over [pid, hi, lo]
+    (int32 bits), as _window_kernel computes it."""
+    return multilinear_hash_u32(torch.stack([kpid, khi, klo], dim=-1), 3)
+
+
+def _dense_entries(tpid, thi, tlo, l_cap: int):
+    """The table's live slots in ascending slot order as the kernel's
+    dense list: (epid, ehi, elo, eslot) [l_cap], padded with (U32_MAX, 0,
+    0, cap_l), and the live count as int32 [1] (may exceed l_cap)."""
+    cap_l = tpid.shape[0]
+    live = (tpid != -1).nonzero().squeeze(1)
+    n_live = live.numel()
+    k = min(n_live, l_cap)
+    dev = tpid.device
+    epid = torch.full((l_cap,), -1, dtype=torch.int32, device=dev)
+    ehi = torch.zeros(l_cap, dtype=torch.int32, device=dev)
+    elo = torch.zeros(l_cap, dtype=torch.int32, device=dev)
+    eslot = torch.full((l_cap,), cap_l, dtype=torch.int32, device=dev)
+    epid[:k], ehi[:k], elo[:k] = tpid[live[:k]], thi[live[:k]], tlo[live[:k]]
+    eslot[:k] = live[:k].to(torch.int32)
+    n_entries = torch.tensor([n_live], dtype=torch.int32, device=dev)
+    return epid, ehi, elo, eslot, n_entries
+
+
 def build_loc_table_plain(kpid: torch.Tensor, khi: torch.Tensor,
-                          klo: torch.Tensor, base: torch.Tensor,
-                          cap_l: int):
+                          klo: torch.Tensor, base: torch.Tensor | None,
+                          cap_l: int, l_cap: int):
     """The location table in plain PyTorch ops: make_loc_table_builder's
-    loop, iteration for iteration, so slot and table equal the Pallas
+    loop, iteration for iteration, so slot and the table equal the Pallas
     kernel's bit for bit. Each iteration, every unplaced lane reads its
     slot: a match places it; on an empty slot the lowest lane that wants
     it claims it (the others re-read it next iteration); a lane advances
     only past an occupied mismatch. At most 2 * cap_l + 2 iterations.
     Placed lanes do nothing in that loop, so only the unplaced ones are
-    carried from one iteration to the next."""
+    carried from one iteration to the next. Returns build_loc_table's
+    tuple: the table's live slots, in ascending slot order, as the dense
+    list."""
     dev = kpid.device
     n = kpid.shape[0]
     mask = cap_l - 1
+    if base is None:
+        base = loc_base(kpid, khi, klo)
     slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
     # The table and the claim buffer carry a dump slot at cap_l for lanes
     # that claim nothing (the JAX scatters' mode="drop").
@@ -146,7 +183,8 @@ def build_loc_table_plain(kpid: torch.Tensor, khi: torch.Tensor,
         pos = torch.where(occ & ~match, (pos + 1) & mask, pos)
         keep = ~placed
         lane, pos, kp, kh, kl = (x[keep] for x in (lane, pos, kp, kh, kl))
-    return slot, tpid[:cap_l], thi[:cap_l], tlo[:cap_l]
+    return (slot, *_dense_entries(tpid[:cap_l], thi[:cap_l], tlo[:cap_l],
+                                  l_cap))
 
 
 # -- CUDA kernel wrappers ----------------------------------------------------
@@ -212,17 +250,24 @@ def feed_accumulate(table: torch.Tensor, acc: torch.Tensor,
 
 
 def build_loc_table(kpid: torch.Tensor, khi: torch.Tensor,
-                    klo: torch.Tensor, base: torch.Tensor, cap_l: int):
-    """(slot int32 [n], tpid, thi, tlo int32 [cap_l] uint32 bits); CUDA
-    tensors launch the kernel of csrc/loc_table.cu, CPU tensors run
-    build_loc_table_plain.
+                    klo: torch.Tensor, base: torch.Tensor | None,
+                    cap_l: int, l_cap: int):
+    """(slot int32 [n], epid, ehi, elo, eslot int32 [l_cap], n_entries
+    int32 [1]); key lanes are uint32 bits. CUDA tensors launch the kernel
+    of csrc/loc_table.cu, CPU tensors run build_loc_table_plain.
 
-    The kernel claims slots by compare-and-swap, so a key may land in
-    another slot than the plain version gives it; what both keep is one
-    slot per distinct live key, each live lane's slot holding its key, and
-    a live -1 exactly when cap_l slots cannot hold every key."""
+    base None: each lane's probe base is loc_base of its key (the kernel
+    hashes it itself). Every key the table holds is one dense entry: key
+    (epid[e], ehi[e], elo[e]) sits in slot eslot[e] for e < n_entries;
+    entries past it are (U32_MAX, 0, 0, cap_l), and n_entries > l_cap
+    means some were dropped. The kernel claims slots by compare-and-swap,
+    so a key may land in another slot, and the list come in another order,
+    than the plain version gives; what both keep is one slot per distinct
+    live key, each live lane's slot holding its key, the same set of
+    listed keys, and a live -1 exactly when cap_l slots cannot hold every
+    key."""
     n = kpid.shape[0]
-    for x in (kpid, khi, klo, base):
+    for x in (kpid, khi, klo) + (() if base is None else (base,)):
         if x.dtype != torch.int32 or x.dim() != 1 or x.shape[0] != n \
                 or not x.is_contiguous() or x.device != kpid.device:
             raise ValueError("key lanes must be contiguous int32 [n] tensors "
@@ -230,21 +275,28 @@ def build_loc_table(kpid: torch.Tensor, khi: torch.Tensor,
     if cap_l < 1 or cap_l & (cap_l - 1) or cap_l > 1 << 31:
         raise ValueError(f"table capacity {cap_l} is not a power of two "
                          "<= 2^31")
+    if l_cap < 1:
+        raise ValueError(f"dense list length {l_cap} is not positive")
     dev = kpid.device
     if dev.type == "cpu":
-        return build_loc_table_plain(kpid, khi, klo, base, cap_l)
+        return build_loc_table_plain(kpid, khi, klo, base, cap_l, l_cap)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = kernels.load("loc_table")
+    # Scratch: the table of 16-byte slot records and the entry counter,
+    # both initialised by the kernel's first launch.
+    table = torch.empty((cap_l, 4), dtype=torch.int32, device=dev)
+    n_entries = torch.empty(1, dtype=torch.int32, device=dev)
     slot = torch.empty(n, dtype=torch.int32, device=dev)
-    tpid = torch.full((cap_l,), -1, dtype=torch.int32, device=dev)
-    thi = torch.zeros(cap_l, dtype=torch.int32, device=dev)
-    tlo = torch.zeros(cap_l, dtype=torch.int32, device=dev)
-    state = torch.zeros(cap_l, dtype=torch.int32, device=dev)
+    epid, ehi, elo, eslot = (torch.empty(l_cap, dtype=torch.int32,
+                                         device=dev) for _ in range(4))
+    c0, c1, c2 = (int(c) for c in _LOC_COEFS[3])
     code = lib.pa_loc_table(
-        kpid.data_ptr(), khi.data_ptr(), klo.data_ptr(), base.data_ptr(), n,
-        cap_l, slot.data_ptr(), tpid.data_ptr(), thi.data_ptr(),
-        tlo.data_ptr(), state.data_ptr(), _stream_ptr(dev))
+        kpid.data_ptr(), khi.data_ptr(), klo.data_ptr(),
+        None if base is None else base.data_ptr(), c0, c1, c2,
+        int(_LOC_BIASES[3]), n, cap_l, table.data_ptr(),
+        n_entries.data_ptr(), slot.data_ptr(), l_cap, epid.data_ptr(),
+        ehi.data_ptr(), elo.data_ptr(), eslot.data_ptr(), _stream_ptr(dev))
     kernels.check_launch(lib, code, "loc_table")
     LAUNCHES["loc_table"] += 1
-    return slot, tpid, thi, tlo
+    return slot, epid, ehi, elo, eslot, n_entries

@@ -17,8 +17,8 @@ runs on the CUDA card unless the caller asks for the CPU. The program:
                      into per-pid 1-based location ids and a bounded
                      [l_cap] table, either through the location-table
                      CUDA kernel (dedup="hash", aggregator/probe.py) and a
-                     sort of the table, or through a sort of every frame
-                     (dedup="sort");
+                     sort of the dense list of keys it returns, or through
+                     a sort of every frame (dedup="sort");
   4. mapping join  — a lockstep binary search of every location against
                      the (pid, start)-sorted mapping table.
 
@@ -57,7 +57,7 @@ from parca_agent_tpu_torch.capture.formats import (
     WindowSnapshot,
     fold_rows_first_seen,
 )
-from parca_agent_tpu_torch.ops.hashing import multilinear_hash_u32, u32_wide
+from parca_agent_tpu_torch.ops.hashing import u32_wide
 from parca_agent_tpu_torch.ops.row_hash import row_hash
 from parca_agent_tpu_torch.utils.device import resolve_device
 
@@ -193,12 +193,6 @@ def compact_frames(out_pid, out_shi, out_slo, depth, group_live, *, f_cap):
     return fpid, fhi, flo, fsrc
 
 
-def loc_base(fpid, fhi, flo):
-    """The location table's probe base: hash family 3 over [fpid, fhi,
-    flo] (int32 bits)."""
-    return multilinear_hash_u32(torch.stack([fpid, fhi, flo], dim=-1), 3)
-
-
 def _ranks(kpid, klive, loc_seq, num_segments):
     """Per-pid 1-based location rank of each live sorted entry (0 for
     dead ones), from the global 1-based location sequence number."""
@@ -212,32 +206,34 @@ def _ranks(kpid, klive, loc_seq, num_segments):
 
 
 def _hash_dedup(fpid, fhi, flo, fsrc, n_flat, l_cap, clock):
-    """Step 3b, dedup="hash": the location table (the CUDA kernel), then a
-    sort of its cap_loc = 2 * l_cap entries, which restores the sort
-    arm's exact order."""
+    """Step 3b, dedup="hash": the location table (the CUDA kernel, which
+    hashes each key's probe base itself), then a sort of its dense list of
+    l_cap keys, which restores the sort arm's exact order."""
     cap_loc = 2 * l_cap
-    base = loc_base(fpid, fhi, flo)
-    clock.mark("base_hash")
-    slot, tpid, thi, tlo = probe.build_loc_table(fpid, fhi, flo, base,
-                                                 cap_loc)
+    slot, epid, ehi, elo, eslot, n_entries = probe.build_loc_table(
+        fpid, fhi, flo, None, cap_loc, l_cap)
     clock.mark("loc_table")
     # A live frame that could not place means the table is full (l_cap
     # too small): n_locs = l_cap + 1 makes the caller retry, as the sort
-    # arm's overflow does.
+    # arm's overflow does. Otherwise n_locs is the table's key count, as
+    # _window_kernel counts its live slots; above l_cap (entries dropped)
+    # the caller retries too.
     overflowed = ((fpid != -1) & (slot < 0)).any()
-    sslot = argsort3(tpid, thi, tlo)
-    spid, shi2, slo2 = tpid[sslot], thi[sslot], tlo[sslot]
+    n_locs = torch.where(overflowed, l_cap + 1, n_entries[0]).to(torch.int32)
+    perm = argsort3(epid, ehi, elo)
+    spid, shi2, slo2, sslot = epid[perm], ehi[perm], elo[perm], eslot[perm]
     tlive = spid != -1
-    n_locs = torch.where(overflowed, l_cap + 1, tlive.sum()).to(torch.int32)
-    rank_sorted = _ranks(spid, tlive, torch.cumsum(tlive, 0), cap_loc)
-    rank_by_slot = torch.zeros(cap_loc, dtype=torch.int32,
+    rank_sorted = _ranks(spid, tlive, torch.cumsum(tlive, 0), l_cap)
+    # Padding entries carry slot cap_loc: one dump entry past the table,
+    # so their rank 0 never overwrites a live slot's.
+    rank_by_slot = torch.zeros(cap_loc + 1, dtype=torch.int32,
                                device=fpid.device)
-    rank_by_slot[sslot] = rank_sorted
+    rank_by_slot[sslot.long()] = rank_sorted
     frame_rank = torch.where(slot >= 0, rank_by_slot[slot.clamp_min(0).long()],
                              0)
     loc_ids = _scatter_drop(n_flat, fsrc.long(), frame_rank, 0)
     clock.mark("table_sort_ranks")
-    return n_locs, loc_ids, spid[:l_cap], shi2[:l_cap], slo2[:l_cap]
+    return n_locs, loc_ids, spid, shi2, slo2
 
 
 def _sort_dedup(fpid, fhi, flo, fsrc, n_flat, l_cap, n_pad, clock):

@@ -39,8 +39,9 @@ SIGNATURES = {
         "pa_cuda_error_string": _ERR,
     },
     "loc_table": {
-        "pa_loc_table": ([_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
-                          _P], ctypes.c_int),
+        "pa_loc_table": ([_P, _P, _P, _P, _U32, _U32, _U32, _U32, _I64,
+                          _I64, _P, _P, _P, _I64, _P, _P, _P, _P, _P],
+                         ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
     "row_hash": {
@@ -75,10 +76,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _nvcc_command(name: str, out: Path) -> list[str]:
+def nvcc_command(source: Path, out: Path) -> list[str]:
+    """nvcc's command line that builds `source` into the library `out`."""
     return [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            str(source)]
 
 
 def build(names=None) -> dict[str, str]:
@@ -95,7 +97,7 @@ def build(names=None) -> dict[str, str]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            nvcc_command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     reports, failed = {}, []
     for name, (proc, tmp, out) in procs.items():

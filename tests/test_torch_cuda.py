@@ -67,6 +67,55 @@ def test_batch_probe_kernel_equals_plain(cuda, cap):
     assert (got >= 0).any() and (got < 0).any()
 
 
+def _chain_case(cap: int, seed: int):
+    """Rows whose walk stops (a hit, or an empty slot) at chosen steps k:
+    slots home .. home + k - 1 hold other keys, one of them sharing the
+    row's h1; the first chain starts 5 slots before the table's end, so
+    it wraps past cap - 1. The kernel reads the home slot (step 0) alone,
+    then G = 8 slots a round from step 1 (steps 1-8, then 9-15): steps
+    7 and 8 are G - 1 and G, 8 and 9 sit on the rounds' boundary, 15 is
+    the last step inside the bound, 16 and 17 past it (misses). 47 rows:
+    the last group is partial."""
+    rng = np.random.default_rng(seed)
+    table = np.zeros((cap, 4), np.uint32)
+    rows, steps = [], []
+    for c, k in enumerate(([9, 15, 16, 17, 0, 1, 2, 4, 7, 8, 12, 13]
+                           * 4)[:47]):
+        home = (cap - 5 + 20 * c) % cap
+        h1 = np.uint32(home | (int(rng.integers(1, 1 << 20)) << 12))
+        h2, h3 = rng.integers(1, 2**32, 2, dtype=np.uint64).astype(np.uint32)
+        for j in range(k):
+            fill_h1 = h1 if j == k // 2 else np.uint32(rng.integers(2**32))
+            table[(home + j) % cap] = (fill_h1, h2 ^ np.uint32(1), h3,
+                                       1000 + 32 * c + j)
+        if c % 2 == 0:  # a hit at step k; else the empty slot stops it
+            table[(home + k) % cap] = (h1, h2, h3, 1 + c)
+        rows.append((h1, h2, h3))
+        steps.append(k)
+    q = np.array(rows, np.uint32)
+    return table, q[:, 0].copy(), q[:, 1].copy(), q[:, 2].copy(), steps
+
+
+def test_probe_kernel_chain_stops_and_wraps(cuda):
+    table, h1, h2, h3, steps = _chain_case(1 << 10, 8)
+    cnt = np.arange(1, len(h1) + 1, dtype=np.uint32)
+    tab, d1, d2, d3, dc = (_t(x, cuda) for x in (table, h1, h2, h3, cnt))
+    got = probe.batch_probe(tab, d1, d2, d3)
+    want = probe.batch_probe_plain(tab, d1, d2, d3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    hit = [c % 2 == 0 and k < probe.PROBES for c, k in enumerate(steps)]
+    assert ((want >= 0).cpu().numpy() == np.array(hit)).all()
+    outs = []
+    for fn in (probe.feed_accumulate, probe.feed_accumulate_plain):
+        acc = torch.zeros(64, dtype=torch.int32, device=cuda)
+        touch = torch.zeros(8, dtype=torch.int32, device=cuda)
+        outs.append((fn(tab, acc, touch, 8, d1, d2, d3, dc), acc, touch))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("blk", [0, 128])
 def test_feed_accumulate_kernel_equals_plain(cuda, blk):
     cap, id_cap = 1 << 14, 1 << 13
@@ -137,40 +186,100 @@ def test_row_hash_kernel_equals_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("cap_l", [1 << 12, 1 << 8])
-def test_loc_table_kernel_keeps_the_plain_versions_invariants(cuda, cap_l):
-    """Slots may differ (compare-and-swap claims); what must not: the
-    -1 set, each placed lane's key in its slot, one slot per distinct key
-    and the table sorted by key. 2^8 slots cannot hold the 1,500 keys:
-    there some live lane must come back -1."""
-    rng = np.random.default_rng(cap_l)
-    n = 6000
-    uniq = rng.integers(0, 2**31, size=(1500, 3), dtype=np.uint64)
-    keys = uniq[rng.integers(0, 1500, n)].astype(np.uint32)
+def _loc_keys(kind: str, n: int, seed: int):
+    """Key lanes (uint32): 1,500 distinct keys with 20% dead lanes; most
+    lanes on one key (its home slot's CAS contended); or keys (p, 0, 0)
+    beside (p, 0, 1) and (p, 1, 0)."""
+    rng = np.random.default_rng(seed)
+    if kind == "spread":
+        uniq = rng.integers(0, 2**31, size=(1500, 3), dtype=np.uint64)
+        keys = uniq[rng.integers(0, 1500, n)].astype(np.uint32)
+    elif kind == "heavy_dup":
+        uniq = rng.integers(0, 2**31, size=(40, 3), dtype=np.uint64)
+        keys = uniq[np.where(rng.random(n) < 0.9, 0,
+                             rng.integers(1, 40, n))].astype(np.uint32)
+    else:
+        p = rng.integers(0, 2**31, 300, dtype=np.uint64)
+        uniq = np.array([(q, h, lo) for q in p
+                         for h, lo in ((0, 0), (0, 1), (1, 0))], np.uint32)
+        keys = uniq[rng.integers(0, len(uniq), n)]
     keys[rng.random(n) < 0.2, 0] = np.uint32(0xFFFFFFFF)
+    return keys
+
+
+@pytest.mark.parametrize("kind,cap_l", [
+    ("spread", 1 << 12), ("spread", 1 << 8), ("spread", 1 << 11),
+    ("heavy_dup", 1 << 7), ("p00", 1 << 11), ("p00", 1 << 9)])
+def test_loc_table_kernel_keeps_the_plain_versions_invariants(cuda, kind,
+                                                              cap_l):
+    """Slots and the list's order may differ (compare-and-swap claims);
+    what must not: the -1 set, each placed lane's slot holding its key in
+    the dense list, one slot per distinct key, the padding, the count and
+    the sorted list. 2^8 slots cannot hold the 1,500 keys, and 2^9 not
+    the 900 (p, h, lo) keys: there some live lane must come back -1. With
+    2^11 slots the 1,500 keys place, but the list keeps 2^10 of them and
+    counts them all."""
+    keys = _loc_keys(kind, 6000, cap_l)
     kpid, khi, klo = (_t(np.ascontiguousarray(keys[:, j]), cuda)
                       for j in range(3))
-    base = tpu.loc_base(kpid, khi, klo)
+    l_cap = cap_l // 2
     before = probe.LAUNCHES["loc_table"]
-    slot, tp, th, tl = probe.build_loc_table(kpid, khi, klo, base, cap_l)
+    got = probe.build_loc_table(kpid, khi, klo, None, cap_l, l_cap)
     torch.cuda.synchronize()
     assert probe.LAUNCHES["loc_table"] == before + 1
-    want = probe.build_loc_table_plain(kpid, khi, klo, base, cap_l)
+    want = probe.build_loc_table_plain(kpid, khi, klo, None, cap_l, l_cap)
+    slot, epid, ehi, elo, eslot, n_entries = got
     live, placed = kpid != -1, slot >= 0
     assert not (placed & ~live).any()
-    s = slot[placed].long()
-    assert torch.equal(tp[s], kpid[placed]) and torch.equal(th[s], khi[placed])
-    assert torch.equal(tl[s], klo[placed])
-    if cap_l < 1500:
-        assert (live & ~placed).any() and (live & (want[0] < 0)).any()
-        return
-    assert torch.equal(placed, want[0] >= 0)
+    n = int(n_entries[0])
+    k = min(n, l_cap)
+    assert torch.equal(eslot[k:], torch.full_like(eslot[k:], cap_l))
+    assert not (epid[k:] + 1).any() and not ehi[k:].any() \
+        and not elo[k:].any()
+    assert torch.unique(eslot[:k]).numel() == k
+    assert int(eslot[:k].min()) >= 0 and int(eslot[:k].max()) < cap_l
+    # Each placed lane whose slot is listed finds its key at that entry.
+    entry = torch.full((cap_l + 1,), -1, dtype=torch.int64, device=cuda)
+    entry[eslot[:k].long()] = torch.arange(k, device=cuda)
+    e = entry[slot[placed].long()]
+    listed = e >= 0
+    assert listed.any()
+    for lst, lane in ((epid, kpid), (ehi, khi), (elo, klo)):
+        assert torch.equal(lst[e[listed]], lane[placed][listed])
     n_keys = torch.unique(torch.stack([kpid, khi, klo], 1)[live],
                           dim=0).shape[0]
-    assert int((tp != -1).sum()) == n_keys
-    got_order, want_order = tpu.argsort3(tp, th, tl), tpu.argsort3(*want[1:])
-    for x, y in zip((tp, th, tl), want[1:]):
+    if n_keys > cap_l:  # the table fills up
+        assert (live & ~placed).any() and (live & (want[0] < 0)).any()
+        assert n == int(want[5][0]) == cap_l
+        return
+    assert torch.equal(placed, want[0] >= 0) and torch.equal(placed, live)
+    assert n == int(want[5][0]) == n_keys
+    if n > l_cap:  # the list keeps l_cap of the keys
+        assert not listed.all()
+        return
+    assert listed.all()
+    got_order = tpu.argsort3(epid, ehi, elo)
+    want_order = tpu.argsort3(*want[1:4])
+    for x, y in zip((epid, ehi, elo), want[1:4]):
         assert torch.equal(x[got_order], y[want_order])
+
+
+def test_loc_table_kernel_base_none_equals_loc_base(cuda):
+    """The kernel's own base hash: the -1 set and the sorted list equal
+    those of a run given loc_base explicitly, and the explicit bases
+    equal the plain ones."""
+    keys = _loc_keys("spread", 6000, 3)
+    kpid, khi, klo = (_t(np.ascontiguousarray(keys[:, j]), cuda)
+                      for j in range(3))
+    base = probe.loc_base(kpid, khi, klo)
+    outs = [probe.build_loc_table(kpid, khi, klo, b, 1 << 12, 1 << 11)
+            for b in (None, base)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0] >= 0, outs[1][0] >= 0)
+    assert torch.equal(outs[0][5], outs[1][5])
+    orders = [tpu.argsort3(*o[1:4]) for o in outs]
+    for j in (1, 2, 3):
+        assert torch.equal(outs[0][j][orders[0]], outs[1][j][orders[1]])
 
 
 @pytest.mark.parametrize("dedup", ["hash", "sort"])

@@ -146,6 +146,7 @@ def test_plain_versions_count_no_launches():
     probe.feed_accumulate(_t(table), torch.zeros(128, dtype=torch.int32),
                           None, 0, _t(h1), _t(h2), _t(h3),
                           _t(np.ones(len(h1), np.uint32)))
-    probe.build_loc_table(_t(h1), _t(h2), _t(h3), _t(h1), 1 << 8)
+    probe.build_loc_table(_t(h1), _t(h2), _t(h3), _t(h1), 1 << 8,
+                          1 << 7)
     assert probe.LAUNCHES == {"batch_probe": 0, "feed_accumulate": 0,
                               "loc_table": 0}

@@ -144,7 +144,9 @@ def test_row_hash_plain_chunks_agree_and_count_no_launches(monkeypatch):
 def _loc_case(kind: str):
     """make_loc_table_builder's test cases (test_close_overlap.py): keys
     whose probe bases collide mod 8 with 25% dead lanes, an 8-slot table
-    that overflows, and a window-like case with family-3 bases."""
+    that overflows, and a window-like case with family-3 bases; and two
+    more: most lanes on one key (its home slot's claim contended), and
+    keys (p, 0, 0) beside (p, 0, 1) and (p, 1, 0) on one chain."""
     if kind == "collide_mod8":
         rng = np.random.default_rng(7)
         f_cap, cap_l = 256, 64
@@ -159,6 +161,24 @@ def _loc_case(kind: str):
         kpid, khi, klo = (rng.integers(1, 2**31, size=f_cap).astype(
             np.uint32) for _ in range(3))
         base = (kpid & np.uint32(cap_l - 1)).astype(np.uint32)
+    elif kind == "heavy_dup":
+        rng = np.random.default_rng(13)
+        f_cap, cap_l = 512, 32
+        uniq = rng.integers(0, 2**31, size=(6, 3), dtype=np.uint64)
+        pick = np.where(rng.random(f_cap) < 0.9, 0,
+                        rng.integers(1, 6, size=f_cap))
+        kpid, khi, klo = (uniq[pick, j].astype(np.uint32) for j in range(3))
+        kpid[rng.random(f_cap) < 0.1] = np.uint32(0xFFFFFFFF)
+        base = np.asarray(jax_hashing.multilinear_hash_u32(
+            jnp.asarray(np.stack([kpid, khi, klo], -1)), 3))
+    elif kind == "p00":
+        rng = np.random.default_rng(17)
+        f_cap, cap_l = 128, 32
+        uniq = np.array([(p, h, lo) for p in (5, 6, 0x7FFFFFFF)
+                         for h, lo in ((0, 0), (0, 1), (1, 0))], np.uint32)
+        pick = rng.integers(0, len(uniq), size=f_cap)
+        kpid, khi, klo = (uniq[pick, j].copy() for j in range(3))
+        base = np.zeros(f_cap, np.uint32)  # one chain for every key
     else:
         rng = np.random.default_rng(11)
         f_cap, cap_l = 2048, 1024
@@ -172,36 +192,109 @@ def _loc_case(kind: str):
     return kpid, khi, klo, base, f_cap, cap_l
 
 
-@pytest.mark.parametrize("kind", ["collide_mod8", "overflow", "family3"])
+LOC_KINDS = ["collide_mod8", "overflow", "family3", "heavy_dup", "p00"]
+
+
+@pytest.mark.parametrize("kind", LOC_KINDS)
 def test_loc_table_plain_matches_pallas(kind):
+    """The plain version's slots equal the Pallas kernel's, and its dense
+    list is the Pallas table's live keys in slot order (dropped past
+    l_cap = cap_l / 2), each beside its slot, then (U32_MAX, 0, 0, cap_l)
+    padding; n_entries counts the table's keys."""
     kpid, khi, klo, base, f_cap, cap_l = _loc_case(kind)
-    want = [np.asarray(x) for x in make_loc_table_builder(
-        f_cap, cap_l, interpret=True)(kpid, khi, klo, base)]
+    l_cap = cap_l // 2
+    slot_w, tpid, thi, tlo = (np.asarray(x) for x in make_loc_table_builder(
+        f_cap, cap_l, interpret=True)(kpid, khi, klo, base))
     before = dict(probe.LAUNCHES)
-    got = probe.build_loc_table(_t(kpid), _t(khi), _t(klo), _t(base), cap_l)
+    got = probe.build_loc_table(_t(kpid), _t(khi), _t(klo), _t(base), cap_l,
+                                l_cap)
     assert probe.LAUNCHES == before
-    assert np.array_equal(got[0].numpy(), want[0])
-    for g, w in zip(got[1:], want[1:]):
-        assert np.array_equal(_u32(g), w)
-    slot = want[0]
+    slot, epid, ehi, elo, eslot, n_entries = (x.numpy() for x in got)
+    assert np.array_equal(slot, slot_w)
+    live_slots = np.flatnonzero(tpid != np.uint32(0xFFFFFFFF))
+    n = len(live_slots)
+    assert n_entries.tolist() == [n]
+    k = min(n, l_cap)
+    assert np.array_equal(eslot[:k], live_slots[:k])
+    for g, w in ((epid, tpid), (ehi, thi), (elo, tlo)):
+        assert np.array_equal(g.view(np.uint32)[:k], w[live_slots[:k]])
+    assert (epid[k:] == -1).all() and (ehi[k:] == 0).all()
+    assert (elo[k:] == 0).all() and (eslot[k:] == cap_l).all()
     live = kpid != np.uint32(0xFFFFFFFF)
     assert (slot[~live] == -1).all()
+    keys = {(a, b, c) for a, b, c in zip(kpid[live], khi[live], klo[live])}
     if kind == "overflow":
-        assert (slot[live] < 0).any()
+        assert (slot[live] < 0).any() and n > l_cap
     else:
         assert (slot[live] >= 0).all()
-        assert len(np.unique(slot[live])) == len(
-            {(a, b, c) for a, b, c in zip(kpid[live], khi[live], klo[live])})
+        assert len(np.unique(slot[live])) == len(keys) == n <= l_cap
+
+
+@pytest.mark.parametrize("kind", ["family3", "heavy_dup"])
+def test_loc_table_base_none_hashes_family3(kind):
+    """base=None probes from loc_base of each key: the same tuple as the
+    family-3 bases passed in, and as the JAX program's own."""
+    kpid, khi, klo, base, _f_cap, cap_l = _loc_case(kind)
+    lanes = [_t(x) for x in (kpid, khi, klo)]
+    assert np.array_equal(_u32(probe.loc_base(*lanes)), base)
+    want = probe.build_loc_table(*lanes, _t(base), cap_l, cap_l // 2)
+    got = probe.build_loc_table(*lanes, None, cap_l, cap_l // 2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_loc_table_rejects_bad_inputs():
     lane = torch.zeros(16, dtype=torch.int32)
     with pytest.raises(ValueError):
-        probe.build_loc_table(lane, lane, lane, lane, 24)
+        probe.build_loc_table(lane, lane, lane, lane, 24, 12)
     with pytest.raises(ValueError):
-        probe.build_loc_table(lane, lane, lane[:8], lane, 32)
+        probe.build_loc_table(lane, lane, lane[:8], lane, 32, 16)
     with pytest.raises(ValueError):
-        probe.build_loc_table(lane.to(torch.int64), lane, lane, lane, 32)
+        probe.build_loc_table(lane.to(torch.int64), lane, lane, lane, 32, 16)
+    with pytest.raises(ValueError):
+        probe.build_loc_table(lane, lane, lane, None, 32, 0)
+
+
+def test_hash_dedup_padding_keeps_live_ranks():
+    """A window whose location table has live keys in slot 0 and in the
+    last slot, with l_cap four times the locations: the dense list's
+    padding (slot cap_loc, the dump entry) leaves every live slot's rank
+    as the JAX program has it."""
+    snap, jsnap = _snaps("snap61")
+    l_cap = 4 * tpu.pack_window_inputs(snap)[1]["l_cap"]
+    cap_loc = 2 * l_cap
+    # Two frames of row 0 get addresses whose keys' homes are slot 0 and
+    # slot cap_loc - 1.
+    pid = int(snap.pids[0])
+    lo = torch.arange(1, 1 << 20, dtype=torch.int32)
+    home = hashing.u32_wide(probe.loc_base(
+        torch.full_like(lo, pid), torch.full_like(lo, 0x55), lo)) \
+        & (cap_loc - 1)
+    addrs = [(0x55 << 32) | int(lo[(home == h).nonzero()[0, 0]])
+             for h in (0, cap_loc - 1)]
+    assert snap.user_len[0] >= 2
+    stacks = snap.stacks.copy()
+    stacks[0, :2] = addrs
+    snap = dataclasses.replace(snap, stacks=stacks)
+    jsnap = dataclasses.replace(jsnap, stacks=stacks.copy())
+    host, dims = jax_tpu.pack_window_inputs(
+        jax_tpu._coalesce_snapshot_rows(jsnap), l_cap)
+    want = [np.asarray(x) for x in jax_tpu._jitted_kernel()(
+        *host, hash_locs=True, interpret=True, **dims)]
+    got = tpu.window_program(*tpu.to_device(host, CPU), dedup="hash",
+                             **dims)
+    for g, w, dt in zip(got, want, tpu.OUTPUT_DTYPES):
+        assert np.array_equal(g.numpy().view(dt), w)
+    # The table really has both end slots live and padding in its list.
+    depth = snap.user_len.astype(np.int64) + snap.kernel_len
+    rows = np.repeat(np.arange(len(snap)), depth)
+    cols = np.arange(depth.sum()) - np.repeat(np.cumsum(depth) - depth, depth)
+    frames = snap.stacks[rows, cols]
+    _slot, _p, _h, _l, eslot, n_entries = probe.build_loc_table(
+        _t(snap.pids[rows].astype(np.uint32)),
+        _t((frames >> np.uint64(32)).astype(np.uint32)),
+        _t(frames.astype(np.uint32)), None, cap_loc, l_cap)
+    assert int(n_entries[0]) < l_cap
+    assert {0, cap_loc - 1, cap_loc} <= set(eslot.tolist())
 
 
 # -- the window program, both arms, against _window_kernel --------------------
@@ -250,9 +343,8 @@ def test_tpu_aggregator_matches_jax(name):
     assert tpu.shadow_compare(got, CPUAggregator().aggregate(snap))
     assert agg.stats["n_groups"] == sum(len(p.values) for p in got)
     assert set(agg.device_ms) == {"row_hash", "stack_sort_dedup",
-                                  "frame_compaction", "base_hash",
-                                  "loc_table", "table_sort_ranks",
-                                  "mapping_join"}
+                                  "frame_compaction", "loc_table",
+                                  "table_sort_ranks", "mapping_join"}
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
