@@ -2,6 +2,7 @@
 """Smoke run of parca_agent_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--k1-reference FEED_PROBE_CU]
+                          [--rh-reference ROW_HASH_CU ...]
 
 Needs one CUDA device, nvcc and this checkout; imports nothing of jax or
 of parca_agent_tpu. Phases, each printing one JSON line:
@@ -36,13 +37,18 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                outputs and a sample's pprof bytes equal to the hash arm's;
                both kernels against their plain versions at the window's
                shapes (the location table's dense list re-sorted), timed,
-               with their bounds and the table's probe-step histogram;
-               the CLI entry; and each dedup arm's device time on two
+               with their bounds, the bytes the row hash fetches, the
+               host cost of its wrapper and the table's probe-step
+               histogram; the CLI entry; and each dedup arm's device time,
+               and the row hash against its plain version, timed, on two
                windows below the aggregator's location warning threshold.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
-against the kernel and timed in turns with it, in phases 3 and 4.
+against the kernel and timed in turns with it, in phases 3 and 4. With
+--rh-reference (repeatable), each source with csrc/row_hash.cu's C
+interface is built, held against the plain version and timed in turns
+with the row hash kernel at phase 5's three windows.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -151,31 +157,41 @@ def bound(nbytes: int, ops: int):
     return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
 
-# -- a reference build of K1 ------------------------------------------------
+# -- reference builds ------------------------------------------------------
 
 
-def load_k1_reference(path: str):
-    """(batch_probe, feed_accumulate) of another source with
-    csrc/feed_probe.cu's C interface, built as csrc/ is built, called as
-    the port's wrappers call theirs; launches are not counted."""
+def load_reference(name: str, path: str):
+    """The library built from `path`, another source with csrc/<name>.cu's
+    C interface (kernels.SIGNATURES[name], e.g. an earlier commit's), built
+    as csrc/ is built and typed as the port's own."""
     import ctypes
     import hashlib
-
-    import torch
 
     from parca_agent_tpu_torch.ops import kernels
 
     src = Path(path).resolve()
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    out = kernels.BUILD_DIR / f"libk1ref-{digest}.so"
+    out = kernels.BUILD_DIR / f"lib{name}-ref-{digest}.so"
     if not out.exists():
         kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run(kernels.nvcc_command(src, out), check=True,
                        capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
-    for fn, (argtypes, restype) in kernels.SIGNATURES["feed_probe"].items():
+    for fn, (argtypes, restype) in kernels.SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
+    return lib
+
+
+def load_k1_reference(path: str):
+    """(batch_probe, feed_accumulate) of a reference build of
+    csrc/feed_probe.cu, called as the port's wrappers call theirs;
+    launches are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels
+
+    lib = load_reference("feed_probe", path)
 
     def stream(t):
         return torch.cuda.current_stream(t.device).cuda_stream
@@ -200,6 +216,31 @@ def load_k1_reference(path: str):
         return found
 
     return batch_probe, feed_accumulate
+
+
+def load_rh_reference(path: str):
+    """row_hash of a reference build of csrc/row_hash.cu, called as the
+    port's wrapper calls its own; launches are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels, row_hash
+
+    lib = load_reference("row_hash", path)
+
+    def rh(shi, slo, pid, ulen, klen):
+        n, slots = shi.shape
+        coefs, b0, b1 = row_hash._coef_table(shi.device, slots)
+        h1 = torch.empty(n, dtype=torch.int32, device=shi.device)
+        h2 = torch.empty(n, dtype=torch.int32, device=shi.device)
+        kernels.check_launch(lib, lib.pa_row_hash(
+            shi.data_ptr(), slo.data_ptr(), pid.data_ptr(), ulen.data_ptr(),
+            klen.data_ptr(), n, slots, coefs.data_ptr(), b0, b1,
+            h1.data_ptr(), h2.data_ptr(),
+            torch.cuda.current_stream(shi.device).cuda_stream),
+            "reference row_hash")
+        return h1, h2
+
+    return rh
 
 
 # -- phase 3 inputs ----------------------------------------------------------
@@ -683,11 +724,156 @@ def drain_k1(dev, agg, table, snap, hashes, lo: int, hi: int,
 # -- phase 5 -----------------------------------------------------------------
 
 
-def dedup_arms(dev, spec, reps: int = None) -> dict:
+def row_hash_fetch(depth, slots: int) -> dict:
+    """Bytes each row hash design fetches at these depths, in 32-byte
+    sectors of 8 frames: "live_sectors" reads only the sectors that hold
+    a row's live frames (the parent kernel; the header-first variant),
+    "step0_whole" reads frames 0-31 of both halves of every row before it
+    knows the depth, then the live sectors past them (the shipped
+    kernel). Both add 12 B of header and 8 B of hashes a row."""
+    d = depth.long().clamp(0, slots)
+    head = 20 * d.numel()
+    first = min(slots, 32)
+    return {
+        "live_sectors": head + 64 * int(((d + 7) // 8).sum()),
+        "step0_whole": head + d.numel() * 8 * first
+        + 64 * int((((d - first).clamp_min(0) + 7) // 8).sum()),
+    }
+
+
+def row_hash_turns(args, impls: dict, reps: int) -> dict:
+    """Every row hash build of `impls` (label -> fn) held bit for bit
+    against row_hash_plain on one window's operands (pack_window_inputs'
+    order), then timed in turns, with the bound and the bytes each
+    design fetches. Launches made here are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.ops import row_hash
+
+    pid, _cnt, ulen, klen, shi, slo = args[:6]
+    want = row_hash.row_hash_plain(shi, slo, pid, ulen, klen)
+    saved = dict(row_hash.LAUNCHES)
+    for label, fn in impls.items():
+        got = fn(shi, slo, pid, ulen, klen)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"row_hash {label} != plain version "
+                                 f"({shi.shape[0]} rows)")
+    timed = time_turns({label: (lambda fn=fn: fn(shi, slo, pid, ulen, klen))
+                        for label, fn in impls.items()}, reps)
+    row_hash.LAUNCHES.update(saved)
+    depth = ulen.long() + klen.long()
+    frames, n = int(depth.sum()), shi.shape[0]
+    # Each row's live frames (8 B) and header (12 B) read, 8 B of hashes
+    # written; 2 families x 2 lanes x (multiply + add) a frame.
+    nbytes = 8 * frames + 20 * n
+    b_ms, b_by = bound(nbytes, 8 * frames + 20 * n)
+    return {"rows": n, "live_frames": frames, "equal": list(impls),
+            "ms": {label: min(v) for label, v in timed.items()},
+            "ms_turns": timed, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes,
+            "fetched_bytes": row_hash_fetch(depth, shi.shape[1])}
+
+
+def row_hash_host_cost(dev, args, reps: int = 200) -> dict:
+    """What window_program's row_hash stage holds besides the kernel. The
+    program records the stage's start event with the card idle, so the
+    stage is the wrapper's host cost up to the launch, then the kernel.
+
+    host_us: host microseconds a call of the wrapper and of each of its
+    parts, each loop of `reps` calls queued behind a spin kernel, so the
+    card never waits on the host and the host clock times the host alone
+    (`covered`: the spin outlasted every loop). Then CUDA events around
+    calls made after the card idled 20 ms (medians of 9): stage_idle_ms,
+    one wrapper call, as the program reads it (host_us_after_idle: that
+    call's host time); stage_idle_raw_ms, the bare C launch instead of the wrapper
+    (host_us_raw_after_idle); wake_ms, a spin of 1,000 cycles instead, and
+    stage_after_wake_ms, a wrapper call behind that spin; stage_busy_ms,
+    a wrapper call behind a spin that outlasts the host's call. Launches
+    made here are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels, row_hash
+
+    pid, _cnt, ulen, klen, shi, slo = args[:6]
+    n, slots = shi.shape
+    lib = kernels.load("row_hash")
+    coefs, b0, b1 = row_hash._coef_table(dev, slots)
+    h1, h2 = (torch.empty(n, dtype=torch.int32, device=dev)
+              for _ in range(2))
+    ptrs = [x.data_ptr() for x in (shi, slo, pid, ulen, klen)]
+    out_ptrs = [h1.data_ptr(), h2.data_ptr()]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        row_hash.row_hash(shi, slo, pid, ulen, klen)
+
+    def raw():
+        lib.pa_row_hash(*ptrs, n, slots, coefs.data_ptr(), b0, b1,
+                        *out_ptrs, stream)
+
+    parts = {
+        "row_hash": call,
+        "check": lambda: row_hash._check(shi, slo, pid, ulen, klen),
+        "load": lambda: kernels.load("row_hash"),
+        "coef_table": lambda: row_hash._coef_table(dev, slots),
+        "empty_x2": lambda: (torch.empty(n, dtype=torch.int32, device=dev),
+                             torch.empty(n, dtype=torch.int32, device=dev)),
+        "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes_launch": raw,
+    }
+    saved = dict(row_hash.LAUNCHES)
+    host_us, covered = {}, True
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        spin = torch.cuda.Event()
+        spin.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us[name] = (time.perf_counter() - t0) / reps * 1e6
+        covered &= not spin.query()
+        torch.cuda.synchronize()
+
+    def after_idle(first, second):
+        t1, t2, host = [], [], []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            t0 = time.perf_counter()
+            first()
+            host.append((time.perf_counter() - t0) * 1e6)
+            ev[1].record()
+            second()
+            ev[2].record()
+            ev[2].synchronize()
+            t1.append(ev[0].elapsed_time(ev[1]))
+            t2.append(ev[1].elapsed_time(ev[2]))
+        return sorted(t1)[4], sorted(t2)[4], sorted(host)[4]
+
+    out = {"host_us": host_us, "covered": covered, "reps": reps}
+    out["stage_idle_ms"], _, out["host_us_after_idle"] = after_idle(
+        call, lambda: None)
+    out["stage_idle_raw_ms"], _, out["host_us_raw_after_idle"] = \
+        after_idle(raw, lambda: None)
+    out["wake_ms"], out["stage_after_wake_ms"], _ = after_idle(
+        lambda: torch.cuda._sleep(1000), call)
+    _, out["stage_busy_ms"], _ = after_idle(
+        lambda: torch.cuda._sleep(5_000_000), call)
+    row_hash.LAUNCHES.update(saved)
+    return out
+
+
+def dedup_arms(dev, spec, rh_impls: dict, reps: int = None) -> dict:
     """window_program's device time with dedup "hash" and "sort" on one
     packed window, the arms alternating, after one untimed run of each
     whose 10 outputs must be equal. Per arm: the median of the stage
-    sums, every run's sum, and the stages of the median run."""
+    sums, every run's sum, and the stages of the median run. Then the
+    row hash builds of `rh_impls` on the window (row_hash_turns)."""
     import numpy as np
     import torch
 
@@ -729,16 +915,20 @@ def dedup_arms(dev, spec, reps: int = None) -> dict:
                       "stages_ms": stages[mid]}
     row["faster_arm"] = min(("hash", "sort"),
                             key=lambda d: row[d]["device_ms"])
+    row["row_hash"] = row_hash_turns(args, rh_impls, 50)
     return row
 
 
-def phase_one_shot(dev, snap, want) -> dict:
+def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     """The one-shot aggregator (--aggregator tpu) on `dev` over the same
     window: (b) the hash arm twice, the second run checked against the
     oracle with its kernel launches counted; (c) the sort arm's outputs
     and pprof against the hash arm's; (a) both kernels against their
-    plain versions at the window's shapes, timed; (d) the CLI entry.
-    Returns the kernel rows of row_hash and loc_table."""
+    plain versions at the window's shapes, timed (the row hash in turns
+    with the reference builds `rh_refs`, label -> fn, at this window and
+    at (e)'s two), with the row hash stage's host cost; (d) the CLI
+    entry; (e) the dedup arms on two windows below the location warning
+    threshold. Returns the kernel rows of row_hash and loc_table."""
     import tempfile
 
     import numpy as np
@@ -805,11 +995,11 @@ def phase_one_shot(dev, snap, want) -> dict:
     host, dims = tpu.pack_window_inputs(snap_h, l_cap=stats["l_cap"])
     args = tpu.to_device(host, dev)
     pid, cnt, ulen, klen, shi, slo, valid = args[:7]
+    rh_impls = {"kernel": row_hash.row_hash, **(rh_refs or {})}
+    rh_row = row_hash_turns(args, rh_impls, 20)
+    rh_row["host"] = row_hash_host_cost(dev, args)
+    rh_row["program_stage_ms"] = agg.device_ms["row_hash"]
     rh = row_hash.row_hash(shi, slo, pid, ulen, klen)
-    rh_plain = row_hash.row_hash_plain(shi, slo, pid, ulen, klen)
-    sync()
-    if not all(torch.equal(a, b) for a, b in zip(rh, rh_plain)):
-        raise AssertionError("row_hash kernel != plain version")
     (_, out_pid, out_ulen, out_klen, out_shi, out_slo, _values,
      group_live) = tpu.stack_dedup(pid, cnt, ulen, klen, shi, slo, valid,
                                    *rh, n_pad=dims["n_pad"])
@@ -861,8 +1051,6 @@ def phase_one_shot(dev, snap, want) -> dict:
     keys = torch.stack([u32_wide(x[live]) for x in (fpid, fhi, flo)], 1)
     del lt_plain, entry, e, base, lane_steps
     saved = (dict(probe.LAUNCHES), dict(row_hash.LAUNCHES))
-    rh_ms = time_ms(lambda: row_hash.row_hash(shi, slo, pid, ulen, klen),
-                    20)
     rh_plain_ms = time_ms(
         lambda: row_hash.row_hash_plain(shi, slo, pid, ulen, klen), 2)
     lt_ms = time_ms(lambda: probe.build_loc_table(fpid, fhi, flo, None,
@@ -875,11 +1063,7 @@ def phase_one_shot(dev, snap, want) -> dict:
     row_hash.LAUNCHES.update(saved[1])
 
     n_pad, f_cap = dims["n_pad"], dims["f_cap"]
-    frames = int((ulen.long() + klen.long()).sum())
-    # row_hash: each row's live frames (8 B) and header (12 B) read, 8 B
-    # of hashes written; 2 families x 2 lanes x (multiply + add) a frame.
-    rh_bytes = 8 * frames + 20 * n_pad
-    rh_bound, rh_by = bound(rh_bytes, 8 * frames + 20 * n_pad)
+    rh_ms = rh_row["ms"]["kernel"]
     # loc_table: a live lane reads its 12 B key, a dead lane its 4 B pid,
     # every lane writes its 4 B slot, and each of the l_cap dense entries
     # is 16 B written (the table is scratch); ~12 integer ops a live lane
@@ -889,13 +1073,11 @@ def phase_one_shot(dev, snap, want) -> dict:
     lt_bytes = 12 * live_lanes + 4 * (f_cap - live_lanes) + 4 * f_cap \
         + 16 * l_cap
     lt_bound, lt_by = bound(lt_bytes, 12 * live_lanes + 8 * steps)
-    emit("one_shot_kernels", rows=n_pad, live_frames=frames,
+    emit("one_shot_kernels", rows=n_pad, live_frames=rh_row["live_frames"],
          lanes=f_cap, live_lanes=live_lanes, table_slots=cap_loc,
          l_cap=l_cap, distinct_keys=n_entries, probe_steps=steps,
          probe_step_hist=step_hist,
-         row_hash={"equal": True, "ms": rh_ms, "plain_ms": rh_plain_ms,
-                   "bound_ms": rh_bound, "bound_by": rh_by,
-                   "bytes": rh_bytes, "library_ms": None},
+         row_hash={**rh_row, "plain_ms": rh_plain_ms, "library_ms": None},
          loc_table={"invariants_hold": True, "ms": lt_ms,
                     "plain_ms": lt_plain_ms, "bound_ms": lt_bound,
                     "bound_by": lt_by, "bytes": lt_bytes,
@@ -904,7 +1086,7 @@ def phase_one_shot(dev, snap, want) -> dict:
                                "multilinear hash mod 2^32 of each row",
          loc_table_library="torch.unique of the live keys as int64 [n, 3], "
                            "dim=0, return_inverse=True")
-    del args, rh, rh_plain, out_shi, out_slo, lt, keys
+    del args, rh, out_shi, out_slo, lt, keys
 
     # (d) The CLI entry on the card.
     with tempfile.TemporaryDirectory() as tmp:
@@ -927,11 +1109,11 @@ def phase_one_shot(dev, snap, want) -> dict:
     from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec
 
     arms = {
-        "cli_window": dedup_arms(dev, SyntheticSpec(seed=1)),
+        "cli_window": dedup_arms(dev, SyntheticSpec(seed=1), rh_impls),
         "bench_2e17_rows": dedup_arms(dev, SyntheticSpec(
             n_pids=PIDS, n_unique_stacks=1 << 17, n_rows=1 << 17,
             total_samples=SAMPLES, mean_depth=24, kernel_fraction=0.2,
-            seed=42)),
+            seed=42), rh_impls),
     }
     emit("one_shot_arms", threshold=tpu.TPUAggregator.LOC_WARN_THRESHOLD,
          reps=ARM_REPS, **arms)
@@ -942,8 +1124,9 @@ def phase_one_shot(dev, snap, want) -> dict:
             "source": "parca_agent_tpu_torch/csrc/row_hash.cu",
             "replaces": "parca_agent_tpu/aggregator/tpu.py:109",
             "launches": launches["row_hash"], "max_abs_err": 0,
-            "ms": rh_ms, "plain_ms": rh_plain_ms, "bound_ms": rh_bound,
-            "bound_by": rh_by, "library_ms": None,
+            "ms": rh_ms, "plain_ms": rh_plain_ms,
+            "bound_ms": rh_row["bound_ms"], "bound_by": rh_row["bound_by"],
+            "library_ms": None,
         },
         "loc_table": {
             "name": "loc_table", "route": "cuda",
@@ -961,6 +1144,11 @@ def main() -> int:
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
                     help="another source with csrc/feed_probe.cu's C "
                          "interface, built and timed in turns with K1")
+    ap.add_argument("--rh-reference", metavar="ROW_HASH_CU",
+                    action="append", default=[],
+                    help="another source with csrc/row_hash.cu's C "
+                         "interface, built and timed in turns with the row "
+                         "hash kernel (may be given more than once)")
     opts = ap.parse_args()
     try:
         import torch
@@ -1015,12 +1203,16 @@ def main() -> int:
     if opts.k1_reference:
         ref = load_k1_reference(opts.k1_reference)
         emit("k1_reference", source=opts.k1_reference)
+    rh_refs = {Path(path).stem: load_rh_reference(path)
+               for path in opts.rh_reference}
+    if rh_refs:
+        emit("rh_reference", sources=opts.rh_reference)
     rows = phase_kernels(dev, ref)
     snap, want = window_setup()
     launches = phase_main_path(dev, snap, want, ref=ref)
     for name, row in rows.items():
         row["launches"] = launches[name]
-    rows.update(phase_one_shot(dev, snap, want))
+    rows.update(phase_one_shot(dev, snap, want, rh_refs))
     for name, row in rows.items():
         if row["launches"] < 1:
             raise AssertionError(f"{name} never launched on the main path")

@@ -10,9 +10,12 @@ lanes [hi x S | lo x S | pid | ulen | klen]:
 
 Dispatch is by the tensors' device, and only by it: CUDA tensors launch
 the kernel of csrc/row_hash.cu (a failed build or launch raises), CPU
-tensors run row_hash_plain. Nothing falls back.
+tensors run row_hash_plain. Nothing falls back. The kernel reads four
+frames of a row with one 16-byte load, so on the card S must be a
+multiple of 4 and shi/slo 16-byte aligned (STACK_SLOTS = 128 and
+PyTorch's allocations are); the wrapper raises on anything else.
 
-The kernel reads each row only up to its depth (ulen + klen): zero lanes
+The kernel sums each row only up to its depth (ulen + klen): zero lanes
 add nothing to a multilinear hash, so it equals the full-width hash of
 the plain version for every row that is zero past its depth, which is
 what WindowSnapshot's padding contract and pack_window_inputs keep.
@@ -96,8 +99,12 @@ def row_hash(shi: torch.Tensor, slo: torch.Tensor, pid: torch.Tensor,
         return row_hash_plain(shi, slo, pid, ulen, klen)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    lib = kernels.load("row_hash")
     n, slots = shi.shape
+    if slots % 4 or shi.data_ptr() % 16 or slo.data_ptr() % 16:
+        raise ValueError("the row hash kernel reads 4 frames a load: S "
+                         f"must be a multiple of 4 (is {slots}) and "
+                         "shi/slo 16-byte aligned")
+    lib = kernels.load("row_hash")
     coefs, b0, b1 = _coef_table(dev, slots)
     h1 = torch.empty(n, dtype=torch.int32, device=dev)
     h2 = torch.empty(n, dtype=torch.int32, device=dev)

@@ -186,6 +186,63 @@ def test_row_hash_kernel_equals_plain(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+# Depths at the kernel's edges: none, one frame, either side of its
+# 32-frame step, two steps, and a row one short of full and full.
+EDGE_DEPTHS = (0, 1, 31, 32, 33, 64, 127, 128)
+
+
+def _edge_rows(n: int, seed: int, slots: int = 128):
+    """(shi, slo, pid, ulen, klen) as numpy: rows cycling through
+    EDGE_DEPTHS, split at random between ulen and klen, random uint32
+    frames (top bit included) up to the depth and zero past it; every
+    fifth row is padding (pid U32_MAX, depth 0, all zero)."""
+    rng = np.random.default_rng(seed)
+    depth = np.array(EDGE_DEPTHS)[(np.arange(n) + 6) % len(EDGE_DEPTHS)]
+    depth = np.minimum(depth, slots)
+    pad = np.arange(n) % 5 == 4
+    depth[pad] = 0
+    klen = (rng.random(n) * (depth + 1)).astype(np.int32)
+    ulen = (depth - klen).astype(np.int32)
+    live = np.arange(slots)[None, :] < depth[:, None]
+    shi, slo = (np.where(live, rng.integers(0, 2**32, (n, slots),
+                                            dtype=np.uint64), 0)
+                .astype(np.uint32) for _ in range(2))
+    pid = rng.integers(0, 2**32 - 1, n, dtype=np.uint64).astype(np.uint32)
+    pid[pad] = 0xFFFFFFFF
+    return shi, slo, pid, ulen, klen
+
+
+@pytest.mark.parametrize("n", [1, 5, 4097])
+def test_row_hash_kernel_edge_rows(cuda, n):
+    """Depths 0 to 128 across the kernel's steps, padding rows, and row
+    counts that leave the last warp's quad of rows partial."""
+    args = [_t(a, cuda) for a in _edge_rows(n, seed=n)]
+    before = row_hash.LAUNCHES["row_hash"]
+    got = row_hash.row_hash(*args)
+    torch.cuda.synchronize()
+    assert row_hash.LAUNCHES["row_hash"] == before + 1
+    want = row_hash.row_hash_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_row_hash_kernel_rejects_what_it_cannot_load(cuda):
+    """The kernel reads 4 frames a 16-byte load: S = 130 and a shi view
+    4 bytes off alignment raise, and launch nothing."""
+    shi, slo, pid, ulen, klen = (_t(a, cuda) for a in _edge_rows(
+        64, seed=2, slots=130))
+    before = row_hash.LAUNCHES["row_hash"]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        row_hash.row_hash(shi, slo, pid, ulen, klen)
+    n, s = 64, 128
+    flat = torch.zeros(n * s + 1, dtype=torch.int32, device=cuda)
+    shifted = flat[1:].view(n, s)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    args = [_t(a, cuda) for a in _edge_rows(n, seed=3)]
+    with pytest.raises(ValueError, match="aligned"):
+        row_hash.row_hash(shifted, *args[1:])
+    assert row_hash.LAUNCHES["row_hash"] == before
+
+
 def _loc_keys(kind: str, n: int, seed: int):
     """Key lanes (uint32): 1,500 distinct keys with 20% dead lanes; most
     lanes on one key (its home slot's CAS contended); or keys (p, 0, 0)

@@ -29,6 +29,7 @@ from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.ops import hashing, row_hash
 from parca_agent_tpu_torch.pprof.builder import build_pprof
+from tests.test_torch_cuda import EDGE_DEPTHS, _edge_rows
 
 CPU = torch.device("cpu")
 
@@ -119,6 +120,25 @@ def test_row_hash_plain_matches_window_kernel_hash_and_numpy(name):
     stacks = (shi.astype(np.uint64) << np.uint64(32)) | slo
     np_hashes = hashing.row_hash_np(stacks, pid, ulen, klen)
     assert all(np.array_equal(_u32(g), w) for g, w in zip(got, np_hashes))
+
+
+@pytest.mark.parametrize("n", [1, 5, 4097])
+def test_row_hash_plain_matches_window_kernel_hash_on_edge_rows(n):
+    """The rows the CUDA kernel's edge tests use (depths EDGE_DEPTHS,
+    padding rows, n not a multiple of 4), hashed by _window_kernel's
+    step 1 (jnp) and by the port's CPU dispatch."""
+    shi, slo, pid, ulen, klen = _edge_rows(n, seed=n)
+    assert n < len(EDGE_DEPTHS) or \
+        set(EDGE_DEPTHS) <= set((ulen + klen).tolist())
+    lanes = jax_hashing.fold_u64_rows(
+        jnp.asarray(shi), jnp.asarray(slo),
+        extra=[jnp.asarray(pid), jnp.asarray(ulen).astype(jnp.uint32),
+               jnp.asarray(klen).astype(jnp.uint32)])
+    want = [np.asarray(jax_hashing.multilinear_hash_u32(lanes, k))
+            for k in (0, 1)]
+    got = row_hash.row_hash(_t(shi), _t(slo), _t(pid),
+                            torch.from_numpy(ulen), torch.from_numpy(klen))
+    assert all(np.array_equal(_u32(g), w) for g, w in zip(got, want))
 
 
 def test_row_hash_plain_chunks_agree_and_count_no_launches(monkeypatch):
