@@ -20,16 +20,23 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                equal. Prints the kernel's time (queued back to back, and
                with the L2 flushed before each call), the plain version's
                time and the bound (the least time the card could take for
-               the same work, from this run's data) at both shapes
+               the same work, from this run's data) at both shapes. Then
+               the close kernels B2 (close_pack) and B3 (close_pack_delta)
+               against their plain versions at id_cap 2^20: widths 4, 8
+               and 16, n_fetch 2^18 and 2^20, with and without sideband
+               and touched-block overruns and guard mass (every word
+               equal, every guard nonzero once and zero once), then each
+               timed with its bound
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
                window, then steady windows fed as 10 drains each and closed,
                then pprof for every pid of the last one. Totals and
                per-pid masses must equal the numpy CPUAggregator's on the
                same snapshot; every feed must launch the fused probe
-               kernel. Then the probe-step histogram of the window's rows
-               in the table, and K1 on that table at one drain's rows,
-               against its plain version, timed, with its bound.
+               kernel, every close the close kernel. Then the probe-step
+               histogram of the window's rows in the table, and K1 on
+               that table at one drain's rows, against its plain version,
+               timed, with its bound.
   5. one shot  the port's TPUAggregator (--aggregator tpu) on the same
                window: the hash arm twice, the second run checked against
                the same oracle (with per-pid location counts) and its
@@ -42,6 +49,19 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                histogram; the CLI entry; and each dedup arm's device time,
                and the row hash against its plain version, timed, on two
                windows below the aggregator's location warning threshold.
+  6. bounded   --aggregator dict+cm: DictAggregator(overflow="sketch") on
+               the card, started by load_state from phase 4's full
+               dictionary (2^20 ids), 9 windows of the bench window's
+               first 200,000 rows plus 65,536 new stacks (a bench row's
+               leaf moved inside its mapping), 10 drains each: new stacks
+               absorbed into the count-min sketch while full (delta
+               closes), the rotation once the cold ids are 6 windows
+               unseen, exact windows after it, pid invalidation at once
+               and deferred. Every window: exact + absorbed mass equals
+               the window's, the sketch never underestimates an absorbed
+               row, and a CPU twin from the same state gives the same
+               counts, ids and sketch. B2 and B3 timed on its own
+               accumulators.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -500,6 +520,162 @@ def phase_kernels(dev, ref=None) -> dict:
     }
 
 
+# -- phase 3, the close kernels -----------------------------------------------
+
+# The dictionary's id space at the CLI's default capacity (2^21 slots).
+ID_CAP = CAP // 2
+BLK = 128
+
+
+def close_case(seed: int, n_fetch: int, width: int, n_big: int, tail: bool,
+               n_touch: int = 0, untouched_mass: bool = False):
+    """An accumulator int32 [ID_CAP] of small counts with `n_big` counts at
+    or above the width's sentinel (and the sentinel's edges), mass past
+    n_fetch only when `tail` (7 x 2^30: the u32 guard wraps, to nonzero).
+    With `n_touch`: touch flags int32 [ID_CAP / 128] for that many prefix
+    blocks (two more past the prefix, which count for nothing), the big
+    counts inside them, and mass in untouched prefix blocks only when
+    `untouched_mass`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acc = np.where(rng.random(ID_CAP) < 0.3,
+                   rng.integers(1, 15, ID_CAP), 0).astype(np.int32)
+    acc[n_fetch:] = 0
+    touch, cand = None, np.arange(n_fetch)
+    if n_touch:
+        nb_prefix, n_blocks = n_fetch // BLK, ID_CAP // BLK
+        hit = np.sort(rng.choice(nb_prefix, n_touch, replace=False))
+        touch = np.zeros(n_blocks, np.int32)
+        touch[hit] = rng.integers(1, 3, n_touch)
+        if n_blocks > nb_prefix:
+            touch[nb_prefix + rng.choice(n_blocks - nb_prefix, 2)] = 1
+        if not untouched_mass:
+            blocks = acc[:n_fetch].reshape(nb_prefix, BLK)
+            cold = np.ones(nb_prefix, bool)
+            cold[hit] = False
+            blocks[cold] = 0
+        cand = (hit[:, None] * BLK + np.arange(BLK)).ravel()
+    big = rng.choice(cand, n_big, replace=False)
+    acc[big] = rng.integers((1 << width) - 1, 1 << 24, n_big)
+    edge = rng.choice(np.setdiff1d(cand, big), 3, replace=False)
+    acc[edge] = (1 << width) - 2 + np.arange(3)
+    if tail:
+        acc[n_fetch + rng.choice(ID_CAP - n_fetch, 7, replace=False)] = 1 << 30
+    return acc, touch
+
+
+def close_bound(out_words: int, nb_prefix: int = 0, unfetched: int = 0):
+    """(bound ms, by) of one close: acc read once, except the touched
+    blocks past n_blk_buf (no output depends on them), the touch flags of
+    the prefix read once, the buffer written once; ~4 integer operations
+    an id (compare, select, shift, add)."""
+    acc_bytes = 4 * (ID_CAP - BLK * unfetched)
+    return bound(acc_bytes + 4 * nb_prefix + 4 * out_words, 4 * ID_CAP)
+
+
+def phase_close_kernels(dev) -> None:
+    """B2 and B3 against their plain versions on the card at id_cap 2^20:
+    widths 4, 8, 16 and n_fetch 2^18, 2^20; each with a sideband that
+    overruns its buffer (delta: also more touched blocks than n_blk_buf,
+    mass in untouched blocks) and mass past n_fetch, and each without.
+    Every word must be equal, and every guard must read nonzero once and
+    zero once. Then each kernel timed against its plain version at
+    n_fetch 2^20, width 8, with its bound."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close
+
+    def to_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    saved = dict(close.LAUNCHES)
+    t0 = time.perf_counter()
+    seen = {"n_over_full": set(), "tail_full": set(), "n_touched": set(),
+            "n_over_delta": set(), "untouched": set(), "tail_delta": set()}
+    cases = 0
+    for width in (4, 8, 16):
+        for n_fetch in (1 << 18, 1 << 20):
+            for overrun in (False, True):
+                tail = overrun and n_fetch < ID_CAP
+                n_over_buf = 1 << 10
+                acc, _ = close_case(width + n_fetch, n_fetch, width,
+                                    n_over_buf + 100 if overrun
+                                    else n_over_buf // 2, tail)
+                a = to_dev(acc)
+                got = close.close_pack(a, n_fetch, width, n_over_buf)
+                want = close.close_pack_plain(a, n_fetch, width, n_over_buf)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"close_pack != plain (width {width},"
+                                         f" n_fetch {n_fetch}, overrun "
+                                         f"{overrun})")
+                host = got.cpu().numpy().view(np.uint32)
+                seen["n_over_full"].add(int(host[-2]) > n_over_buf)
+                seen["tail_full"].add(int(host[-1]) != 0)
+                nb_prefix = n_fetch // BLK
+                n_blk_buf = nb_prefix // 8
+                acc, touch = close_case(
+                    width + n_fetch + 1, n_fetch, width, 192, tail,
+                    n_touch=n_blk_buf + 5 if overrun else n_blk_buf // 2,
+                    untouched_mass=overrun)
+                n_over_buf = 64 if overrun else 1 << 12
+                a, t = to_dev(acc), to_dev(touch)
+                got = close.close_pack_delta(a, t, n_fetch, width, n_over_buf,
+                                             n_blk_buf, BLK)
+                want = close.close_pack_delta_plain(
+                    a, t, n_fetch, width, n_over_buf, n_blk_buf, BLK)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"close_pack_delta != plain (width "
+                                         f"{width}, n_fetch {n_fetch}, "
+                                         f"overrun {overrun})")
+                host = got.cpu().numpy().view(np.uint32)
+                seen["n_touched"].add(int(host[-4]) > n_blk_buf)
+                seen["n_over_delta"].add(int(host[-3]) > n_over_buf)
+                seen["untouched"].add(int(host[-2]) != 0)
+                seen["tail_delta"].add(int(host[-1]) != 0)
+                cases += 2
+    for name, vals in seen.items():
+        if vals != {False, True}:
+            raise AssertionError(f"close guard {name} read only {vals}")
+    check_s = time.perf_counter() - t0
+
+    # Timing at the main path's largest prefix: width 8, n_fetch 2^20; the
+    # delta form with 4,096 fetched blocks, phase 6's shape.
+    n_fetch, width = ID_CAP, 8
+    acc, _ = close_case(1, n_fetch, width, 512, False)
+    a = to_dev(acc)
+    full = {"ms": time_ms(lambda: close.close_pack(a, n_fetch, width, 4096),
+                          50),
+            "plain_ms": time_ms(lambda: close.close_pack_plain(
+                a, n_fetch, width, 4096), 5)}
+    full["bound_ms"], full["bound_by"] = close_bound(
+        n_fetch * width // 32 + 2 * 4096 + 2)
+    n_blk_buf = 4096
+    acc, touch = close_case(2, n_fetch, width, 512, False, n_touch=1563)
+    a, t = to_dev(acc), to_dev(touch)
+    delta = {"ms": time_ms(lambda: close.close_pack_delta(
+        a, t, n_fetch, width, 1024, n_blk_buf, BLK), 50),
+        "plain_ms": time_ms(lambda: close.close_pack_delta_plain(
+            a, t, n_fetch, width, 1024, n_blk_buf, BLK), 5)}
+    delta["bound_ms"], delta["bound_by"] = close_bound(
+        n_blk_buf * BLK * width // 32 + n_blk_buf + 2 * 1024 + 4,
+        n_fetch // BLK)
+    close.LAUNCHES.update(saved)
+    emit("close_kernels", equal_cases=cases, guards_nonzero_and_zero=True,
+         check_s=check_s, id_cap=ID_CAP,
+         close_pack={"n_fetch": n_fetch, "width": width, "n_over_buf": 4096,
+                     **full},
+         close_pack_delta={"n_fetch": n_fetch, "width": width,
+                           "n_blk_buf": n_blk_buf, "touched": 1563,
+                           "n_over_buf": 1024, **delta},
+         library_ms=None,
+         library_note="no single PyTorch call packs with an ordered "
+                      "sideband")
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -552,13 +728,15 @@ def check_profiles(label: str, snap, want, profiles, sample: int = 500,
 
 
 def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
-                    ref=None) -> dict:
+                    ref=None):
     """The dict main path on `dev` over `snap`; returns its kernels'
-    launch counts. Raises on any disagreement with the numpy oracle."""
+    launch counts, the dictionary's exported state after its last window
+    and the window's hashes. Raises on any disagreement with the numpy
+    oracle."""
     import numpy as np
     import torch
 
-    from parca_agent_tpu_torch.aggregator import probe
+    from parca_agent_tpu_torch.aggregator import close, probe
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
 
@@ -580,6 +758,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
 
     # Every count to 0 just before the main path; read just after.
     probe.reset_launches()
+    close.reset_launches()
     launches_per_feed = []
 
     t0 = time.perf_counter()
@@ -639,10 +818,14 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
             "timings_ms": {k: v * 1e3 for k, v in agg.timings.items()},
         })
         emit("steady_window", **steady_rows[-1])
-    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"]}
+    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                "close_pack": close.LAUNCHES["close_pack"]}
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
                              f"{launches_per_feed}")
+    if launches["close_pack"] < 1 + steady:
+        raise AssertionError(f"the windows' closes launched the close "
+                             f"kernel {launches['close_pack']} times")
     # How far the window's rows walk in the dictionary's table (the host
     # mirror of the device table, at this window's load): slots read a
     # row, and rounds of the probe kernel's group a row.
@@ -656,7 +839,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
          probe_step_hist=np.bincount(steps).tolist())
     drain_k1(dev, agg, table, snap, hashes, int(bounds[0]), int(bounds[1]),
              ref)
-    return launches
+    return launches, agg.export_state(), hashes
 
 
 def drain_k1(dev, agg, table, snap, hashes, lo: int, hi: int,
@@ -1139,6 +1322,300 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     }
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+# The bounded-memory dictionary (--aggregator dict+cm) at the CLI's
+# defaults: capacity 2^21 (id_cap 2^20), rotation after 6 windows unseen,
+# 10 drains a window; per window the bench window's first HOT rows (ids
+# 0..HOT-1 in phase 4's dictionary) and FRESH new stacks.
+HOT = 200_000
+FRESH = 65_536
+ROTATE_MIN_AGE = 6
+BOUNDED_WINDOWS = 9
+INVALIDATE_NOW = 6      # after this window's close: N_INVALIDATE hot pids
+INVALIDATE_DEFERRED = 7  # during this window's close: one pid, deferred
+# Each immediate invalidate_pid compacts the whole id space, as in
+# parca_agent_tpu.
+N_INVALIDATE = 500
+
+
+def window_rows(snap, idx, leaf_shift: int = 0):
+    """The snapshot's rows `idx`; with `leaf_shift`, every row's leaf frame
+    moves that many bytes inside its mapping (a new stack, a new
+    location)."""
+    import dataclasses
+
+    import numpy as np
+
+    stacks = snap.stacks[idx]
+    if leaf_shift:
+        stacks[:, 0] += np.uint64(leaf_shift)
+    return dataclasses.replace(
+        snap, pids=snap.pids[idx], tids=snap.tids[idx],
+        counts=snap.counts[idx], user_len=snap.user_len[idx],
+        kernel_len=snap.kernel_len[idx], stacks=stacks)
+
+
+def bounded_window(snap, hashes, w: int):
+    """Window w of phase 6: the hot rows, then FRESH rows of the bench
+    window past them (another slice each window), leaf moved by 4 (w + 1)
+    bytes; the window's snapshot and its (h1, h2, h3)."""
+    import dataclasses
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.ops.hashing import row_hash_np
+
+    f0 = HOT + w * FRESH
+    fresh = window_rows(snap, np.arange(f0, f0 + FRESH), 4 * (w + 1))
+    fh = row_hash_np(fresh.stacks, fresh.pids, fresh.user_len,
+                     fresh.kernel_len, n_hashes=3)
+    win = dataclasses.replace(
+        fresh, **{k: np.concatenate([getattr(snap, k)[:HOT],
+                                     getattr(fresh, k)])
+                  for k in ("pids", "tids", "counts", "user_len",
+                            "kernel_len", "stacks")})
+    return win, tuple(np.concatenate([h[:HOT], f]) for h, f in
+                      zip(hashes, fh))
+
+
+def reinsert_turns(agg) -> dict:
+    """A compaction's re-insertion of the dictionary's keys as it stands
+    (in id order, into an empty table): the vectorized placement the
+    dictionary uses against one _probe_free call a key, as
+    parca_agent_tpu re-inserts them. Fails unless the slots are equal."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator.dict import _fcfs_slots, _probe_free
+
+    occ = np.flatnonzero(agg._occ)
+    home = np.empty(agg._next_id, np.int64)
+    home[agg._ids[occ]] = agg._h1[occ].astype(np.int64) & (agg._cap - 1)
+    t0 = time.perf_counter()
+    got = _fcfs_slots(home, agg._cap)
+    vec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = np.zeros(agg._cap, bool)
+    want = np.empty(len(home), np.int64)
+    for i, h in enumerate(home.tolist()):
+        want[i] = _probe_free(table, h)
+        table[want[i]] = True
+    one_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError("vectorized re-insertion != one key at a time")
+    return {"keys": len(home), "vectorized_ms": vec_s * 1e3,
+            "one_by_one_ms": one_s * 1e3}
+
+
+def phase_bounded(dev, snap, hashes, state) -> dict:
+    """The dict+cm path on the card from phase 4's full dictionary
+    (load_state), window by window, beside the same windows on the CPU
+    from the same state: absorption while full, the rotation once the
+    cold ids are ROTATE_MIN_AGE windows unseen, exact windows after it,
+    pid invalidation at once and deferred. Returns the kernel rows of the
+    close kernels, timed on this path's own accumulators, and the path's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+
+    aggs = {}
+    t0 = time.perf_counter()
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        aggs[name] = DictAggregator(capacity=CAP, overflow="sketch",
+                                    rotate_min_age=ROTATE_MIN_AGE, device=d)
+        aggs[name].load_state(state)
+    load_s = time.perf_counter() - t0
+    agg, twin = aggs["cuda"], aggs["cpu"]
+    if agg._next_id != agg._id_cap:
+        raise AssertionError(f"phase 4's dictionary holds {agg._next_id} "
+                             f"ids, not id_cap {agg._id_cap}")
+    hot_pids = np.unique(snap.pids[:HOT])
+    inv_now = [int(p) for p in hot_pids[:N_INVALIDATE]]
+    inv_later = int(hot_pids[N_INVALIDATE])
+    emit("bounded_setup", load_state_s_both=load_s, id_cap=agg._id_cap,
+         hot=HOT, fresh=FRESH, rotate_min_age=ROTATE_MIN_AGE,
+         windows=BOUNDED_WINDOWS, windows_before=agg.stats["windows"])
+
+    timed = {}
+
+    def run_window(d, win, whashes, w, record):
+        """Feed the window as DRAINS drains, close it (a deferred
+        invalidation while the close is in flight at INVALIDATE_DEFERRED);
+        returns (counts, per-window host timings)."""
+        keys = ("feed_dispatch", "feed_settle", "feed_miss", "compact",
+                "sketch_absorb", "close_dispatch", "close_fetch",
+                "close_unpack")
+        t = dict.fromkeys(keys, 0.0)
+
+        def take():
+            for k in keys:
+                t[k] += d.timings.pop(k, 0.0)
+
+        for k in keys:  # a boundary's invalidation is not this window's
+            d.timings.pop(k, None)
+        bounds = np.linspace(0, len(win), DRAINS + 1).astype(int)
+        t_win = time.perf_counter()
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            d.feed(win, whashes, lo=int(lo), hi=int(hi))
+            take()
+        t_close = time.perf_counter()
+        h = d.close_dispatch()
+        if w == INVALIDATE_DEFERRED and d.invalidate_pid(inv_later):
+            raise AssertionError("invalidate_pid applied during a close")
+        counts = d.close_collect(h, copy=True)
+        if d.device.type == "cuda":
+            torch.cuda.synchronize(d.device)
+        t["close"] = time.perf_counter() - t_close
+        t["window"] = time.perf_counter() - t_win
+        take()
+        if record is not None and h.acc is not None:
+            record(h)
+        return counts, {k: v * 1e3 for k, v in t.items()}
+
+    def record(h):
+        """Time this window's close kernel on its own accumulator against
+        the plain version (first full and first delta close)."""
+        name = "close_pack_delta" if h.delta_blks else "close_pack"
+        if name in timed:
+            return
+        saved = dict(close.LAUNCHES)
+        if h.delta_blks:
+            args = (h.acc, h.touch, h.n_fetch, h.width, h.n_over_buf,
+                    h.delta_blks, BLK)
+            fn, plain = close.close_pack_delta, close.close_pack_delta_plain
+            n_touched = int((h.touch[:h.n_fetch // BLK] > 0).sum())
+            out_words = (h.delta_blks * BLK * h.width // 32 + h.delta_blks
+                         + 2 * h.n_over_buf + 4)
+            b_ms, b_by = close_bound(out_words, h.n_fetch // BLK,
+                                     max(0, n_touched - h.delta_blks))
+        else:
+            args = (h.acc, h.n_fetch, h.width, h.n_over_buf)
+            fn, plain = close.close_pack, close.close_pack_plain
+            n_touched = None
+            b_ms, b_by = close_bound(h.n_fetch * h.width // 32
+                                     + 2 * h.n_over_buf + 2)
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} != plain on phase 6's accumulator")
+        timed[name] = {"ms": time_ms(lambda: fn(*args), 50),
+                       "plain_ms": time_ms(lambda: plain(*args), 5),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "n_fetch": h.n_fetch, "width": h.width,
+                       "n_over_buf": h.n_over_buf,
+                       "n_blk_buf": h.delta_blks, "touched": n_touched}
+        close.LAUNCHES.update(saved)
+
+    # Every count to 0 just before the path; read just after.
+    probe.reset_launches()
+    close.reset_launches()
+    twin_s, rows = 0.0, []
+    for w in range(BOUNDED_WINDOWS):
+        t0 = time.perf_counter()
+        win, whashes = bounded_window(snap, hashes, w)
+        build_s = time.perf_counter() - t0
+        total = win.total_samples()
+        before = {k: agg.stats.get(k, 0) for k in (
+            "sketch_rows", "sketch_samples", "rotations", "delta_closes",
+            "full_closes", "pid_invalidations")}
+        counts, ms = run_window(agg, win, whashes, w, record)
+        t0 = time.perf_counter()
+        counts_cpu, _ = run_window(twin, win, whashes, w, None)
+        twin_s += time.perf_counter() - t0
+        diff = {k: agg.stats.get(k, 0) - v for k, v in before.items()}
+        absorbed = diff["sketch_samples"]
+        if int(counts.sum()) + absorbed != total:
+            raise AssertionError(f"window {w}: exact {int(counts.sum())} + "
+                                 f"absorbed {absorbed} != {total}")
+        fresh_h1 = whashes[0][HOT:]
+        if diff["sketch_rows"]:
+            if diff["sketch_rows"] != FRESH:
+                raise AssertionError(f"window {w} absorbed "
+                                     f"{diff['sketch_rows']} rows")
+            est = agg.sketch_estimate(fresh_h1)
+            if bool((est < win.counts[HOT:]).any()):
+                raise AssertionError(f"window {w}: the sketch underestimates "
+                                     "an absorbed row")
+        if agg.stats.get("rotations", 0) and absorbed:
+            raise AssertionError(f"window {w} absorbed after the rotation")
+        # The CPU twin, from the same state through the same windows.
+        if not np.array_equal(counts, counts_cpu) \
+                or agg._next_id != twin._next_id \
+                or agg._key_to_id != twin._key_to_id \
+                or agg.sketch_info() != twin.sketch_info() \
+                or not np.array_equal(agg._cm, twin._cm) \
+                or not np.array_equal(agg._over_hll, twin._over_hll):
+            raise AssertionError(f"window {w}: the card and the CPU differ")
+        inv = None
+        if w == INVALIDATE_NOW:
+            reinsert = reinsert_turns(agg)
+            t0 = time.perf_counter()
+            for d in (agg, twin):
+                if not all(d.invalidate_pid(p) for p in inv_now):
+                    raise AssertionError("invalidate_pid at a boundary "
+                                         "was deferred")
+            inv_s = time.perf_counter() - t0
+            inv = {"pids": len(inv_now), "s_both": inv_s,
+                   "ms_per_call": inv_s / (2 * len(inv_now)) * 1e3,
+                   "ids_after": agg._next_id, "reinsert": reinsert}
+            if bool(np.isin(agg._id_pid[:agg._next_id], inv_now).any()) \
+                    or any(p in agg._pids for p in inv_now):
+                raise AssertionError("invalidated pids still hold ids")
+            if agg._key_to_id != twin._key_to_id:
+                raise AssertionError("invalidation: card and CPU differ")
+        if w == INVALIDATE_NOW + 1 and not all(p in agg._pids
+                                               for p in inv_now):
+            raise AssertionError("invalidated pids did not re-register")
+        if w == INVALIDATE_DEFERRED + 1 and (
+                inv_later not in agg._pids
+                or agg.stats.get("pid_invalidations") != N_INVALIDATE + 1):
+            raise AssertionError("the deferred invalidation did not apply")
+        form = "delta" if diff["delta_closes"] else "full"
+        rows.append({
+            "window": w, "rows": len(win), "samples": total,
+            "exact": int(counts.sum()), "absorbed_samples": absorbed,
+            "absorbed_rows": diff["sketch_rows"],
+            "rotated": bool(diff["rotations"]), "ids": agg._next_id,
+            "close_form": form,
+            "fetch_bytes": agg.stats.get("fetch_bytes_last"),
+            "build_s": build_s, "host_ms": ms, "invalidated": inv,
+        })
+        emit("bounded_window", **rows[-1])
+    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                "close_pack": close.LAUNCHES["close_pack"],
+                "close_pack_delta": close.LAUNCHES["close_pack_delta"]}
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"phase 6 never launched {name}")
+    st = agg.stats
+    if not (st.get("rotations", 0) >= 1 and st.get("delta_closes", 0) >= 1
+            and st.get("full_closes", 0) >= 1
+            and st.get("pid_invalidations") == N_INVALIDATE + 1):
+        raise AssertionError(f"phase 6 stats: {st}")
+    if set(timed) != {"close_pack", "close_pack_delta"}:
+        raise AssertionError(f"phase 6 timed only {sorted(timed)}")
+    emit("bounded_path", launches=launches, cpu_twin_s=twin_s,
+         sketch_info=agg.sketch_info(),
+         stats={k: st.get(k) for k in (
+             "windows", "rotations", "pid_invalidations",
+             "invalidation_compactions", "sketch_rows", "sketch_samples",
+             "delta_closes", "full_closes", "delta_retries",
+             "delta_fallbacks", "close_retries", "inserts")},
+         close_kernels=timed)
+    source = "parca_agent_tpu_torch/csrc/close_pack.cu"
+    return {name: {"name": name, "route": "cuda", "source": source,
+                   "replaces": "parca_agent_tpu/aggregator/dict.py:" + line,
+                   "max_abs_err": 0, "ms": timed[name]["ms"],
+                   "plain_ms": timed[name]["plain_ms"],
+                   "bound_ms": timed[name]["bound_ms"],
+                   "bound_by": timed[name]["bound_by"], "library_ms": None}
+            for name, line in (("close_pack", "170"),
+                               ("close_pack_delta", "232"))}, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
@@ -1208,20 +1685,36 @@ def main() -> int:
     if rh_refs:
         emit("rh_reference", sources=opts.rh_reference)
     rows = phase_kernels(dev, ref)
+    phase_close_kernels(dev)
     snap, want = window_setup()
-    launches = phase_main_path(dev, snap, want, ref=ref)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
+    launches, state, hashes = phase_main_path(dev, snap, want, ref=ref)
     rows.update(phase_one_shot(dev, snap, want, rh_refs))
+    bounded, launches_cm = phase_bounded(dev, snap, hashes, state)
+    del state
+    rows.update(bounded)
+    # Each path's own launches, counted from 0 just before it: the
+    # dictionary (phase 4), the one-shot aggregator (phase 5) and the
+    # bounded-memory dictionary (phase 6). `launches` is their sum.
+    by_path = {"dict": launches,
+               "one_shot": {k: rows[k]["launches"]
+                            for k in ("row_hash", "loc_table")},
+               "dict_cm": launches_cm}
     for name, row in rows.items():
-        if row["launches"] < 1:
-            raise AssertionError(f"{name} never launched on the main path")
+        row["launches_by_path"] = {path: n[name]
+                                   for path, n in by_path.items()
+                                   if name in n}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if not row["launches_by_path"] \
+                or min(row["launches_by_path"].values()) < 1:
+            raise AssertionError(f"{name} never launched on a path of its: "
+                                 f"{row['launches_by_path']}")
     emit("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
-                             "launches", "max_abs_err", "ms", "plain_ms",
-                             "bound_ms", "bound_by", "library_ms")}
+                             "launches", "launches_by_path", "max_abs_err",
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}
         for row in rows.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,8 @@ seen:
                  stack id into acc int32 [id_cap], touched 128-id blocks
                  flagged; misses compacted in row order by a cumsum
   per close      the accumulator packed at 4, 8 or 16 bits with an exact
-                 overflow sideband (full or delta form), fetched in one
-                 transfer
+                 overflow sideband (full or delta form: the CUDA kernels
+                 of aggregator/close.py), fetched in one transfer
 
 Misses (stacks not yet in the table) come back in a miss buffer; the HOST
 owns insertion: it keeps an exact mirror (the same probe sequence on the
@@ -27,23 +27,34 @@ PidProfile lists the pid's full location registry (every location seen so
 far), a superset of the window's — valid pprof, same samples.
 
 Device tensors carry uint32 values as int32 bit patterns (numpy uint32
-arrays viewed as int32 at the host boundary); where u32 arithmetic is
-needed the close programs widen to int64 and mask to 32 bits.
+arrays viewed as int32 at the host boundary).
 
-Overflow contract: the table is sized for the population (overflow
-"raise"); a window that would exceed it raises before mutating anything.
+Bounded memory: with overflow "sketch" (the default), stacks that arrive
+once the dictionary is full are absorbed into a host count-min sketch and
+HLL (ops/sketch.py: approximate counts with known bounds instead of
+loss), and at the next window boundary stacks unseen for rotate_min_age
+windows are evicted and their ids recycled (_compact_ids), so an
+always-on agent on a host with stack churn runs in bounded memory.
+Overflow "raise" keeps the fail-fast contract: a window that would
+exceed the table raises before mutating anything.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from itertools import compress
 
 import numpy as np
 import torch
 
 from parca_agent_tpu_torch.aggregator import probe
 from parca_agent_tpu_torch.aggregator.base import PidProfile, ProfileMapping
+from parca_agent_tpu_torch.aggregator.close import (
+    _compact_into,
+    close_pack,
+    close_pack_delta,
+)
 from parca_agent_tpu_torch.aggregator.cpu import _pid_mappings
 from parca_agent_tpu_torch.capture.formats import (
     KERNEL_ADDR_START,
@@ -51,7 +62,16 @@ from parca_agent_tpu_torch.capture.formats import (
     WindowSnapshot,
     fold_rows_first_seen,
 )
-from parca_agent_tpu_torch.ops.hashing import row_hash_np, u32_bits
+from parca_agent_tpu_torch.ops.hashing import row_hash_np
+from parca_agent_tpu_torch.ops.sketch import (
+    CountMinSpec,
+    HLLSpec,
+    cm_add,
+    cm_query,
+    hll_build,
+    hll_estimate,
+    hll_merge,
+)
 from parca_agent_tpu_torch.pprof.vec import ragged_gather
 from parca_agent_tpu_torch.utils.device import resolve_device
 
@@ -67,29 +87,75 @@ _PROBES = probe.PROBES
 # below it the scalar loop's constant factors win.
 _VEC_MISS_MIN = 512
 
-_U32 = 0xFFFFFFFF
+
+def _probe_free(occ: np.ndarray, home: int) -> int:
+    """The host table's insert rule: the first free slot at or after
+    `home`, wrapping (linear probing, unbounded on the host)."""
+    mask = len(occ) - 1
+    idx = home
+    while occ[idx]:
+        idx = (idx + 1) & mask
+    return idx
 
 
-def _pack_lanes(vals: torch.Tensor, width: int) -> torch.Tensor:
-    """Pack uint{width} values (int64, already clamped) little-endian into
-    u32 lanes (int64 [n * width / 32], each < 2^32)."""
-    per32 = 32 // width
-    shifts = torch.arange(per32, dtype=torch.int64,
-                          device=vals.device) * width
-    return ((vals & _U32).reshape(-1, per32) << shifts[None, :]).sum(
-        dim=1) & _U32
+def _fcfs_slots(home: np.ndarray, cap: int) -> np.ndarray:
+    """The slots that inserting keys with these home slots one by one, in
+    order, into an empty table of `cap` slots gives by _probe_free, for at
+    most cap // 2 keys, without a Python loop over the keys.
 
+    Linear probing fills the same set of slots in any order. That set is
+    runs of adjacent slots with a free slot between them, and no probe
+    crosses a free slot, so keys of different runs never meet: step t
+    places the t-th key (in insertion order) of every run at once."""
+    m = len(home)
+    if not m:
+        return np.empty(0, np.int64)
+    mask = cap - 1
+    rank = np.arange(m, dtype=np.int64)
 
-def _compact_into(n_buf: int, mask: torch.Tensor, src: torch.Tensor,
-                  fill: int) -> torch.Tensor:
-    """Row-order compaction without a host sync: out[j] = src of the j-th
-    True lane of `mask` for j < n_buf, `fill` past the True count (lanes
-    past n_buf are dropped, as JAX's scatter mode="drop" drops them)."""
-    tgt = torch.cumsum(mask, 0) - 1
-    tgt = torch.where(mask & (tgt < n_buf), tgt, n_buf)
-    out = torch.full((n_buf + 1,), fill, dtype=src.dtype, device=src.device)
-    out.scatter_(0, tgt, src)
-    return out[:n_buf]
+    def park(shift):
+        # The i-th smallest home parks at i + max_{j<=i}(home_j - j) on a
+        # table without wrap-around.
+        rot = (home - shift) & mask
+        return rot, np.maximum.accumulate(np.sort(rot) - rank) + rank
+
+    shift = 0
+    rot, pos = park(0)
+    if pos[-1] >= cap:
+        # Keys parked past the end wrap to slot 0 and take the first free
+        # slots there; the next free slot stays free, so start the table
+        # just after it: then nothing wraps.
+        over = int(np.count_nonzero(pos >= cap))
+        lin = np.zeros(cap, bool)
+        lin[pos[:m - over]] = True
+        shift = int(np.flatnonzero(~lin)[over]) + 1
+        rot, pos = park(shift)
+    # A key's run is the one whose slots hold its home; a key alone in its
+    # run stays home.
+    label = np.zeros(cap, np.int32)
+    label[pos[np.r_[True, pos[1:] != pos[:-1] + 1]]] = 1
+    run = np.cumsum(label, dtype=np.int32)[rot] - 1
+    slots = rot.copy()
+    multi = np.flatnonzero(np.bincount(run)[run] > 1)
+    by_run = multi[np.argsort(run[multi], kind="stable")]
+    rs = run[by_run]
+    start = np.flatnonzero(np.r_[True, rs[1:] != rs[:-1]])
+    step = np.arange(len(rs)) - np.repeat(start, np.diff(np.r_[start,
+                                                              len(rs)]))
+    by_step = by_run[np.argsort(step, kind="stable")]
+    taken = np.zeros(cap, bool)
+    lo = 0
+    for n in np.bincount(step):
+        keys = by_step[lo:lo + n]
+        lo += n
+        idx = rot[keys]
+        busy = np.flatnonzero(taken[idx])
+        while len(busy):
+            idx[busy] += 1
+            busy = busy[taken[idx[busy]]]
+        taken[idx] = True
+        slots[keys] = idx
+    return (slots + shift) & mask
 
 
 def feed_step(table: torch.Tensor, acc: torch.Tensor,
@@ -115,77 +181,6 @@ def feed_step(table: torch.Tensor, acc: torch.Tensor,
     return miss.sum(), miss_rows
 
 
-def close_pack(acc: torch.Tensor, n_fetch: int, width: int,
-               n_over_buf: int) -> torch.Tensor:
-    """Window close, full form: the counterpart of
-    parca_agent_tpu/aggregator/dict.py:make_close, bit for bit. Packs
-    acc[:n_fetch] to uint{width} with an exact (id, count) overflow
-    sideband; acc is left intact. Returns ONE int32 tensor of uint32 bits:
-      [ n_fetch*width/32 lanes : packed counts, little-endian within u32
-      | n_over_buf             : overflow ids (n_fetch = none)
-      | n_over_buf             : overflow counts
-      | 1                      : n_overflow (may exceed n_over_buf: retry)
-      | 1                      : count mass beyond n_fetch (guard; 0) ]"""
-    assert width in (4, 8, 16)
-    sentinel = (1 << width) - 1
-    dev = acc.device
-    head = acc[:n_fetch].to(torch.int64)
-    over = head > sentinel - 1
-    lanes = _pack_lanes(torch.where(over, sentinel, head), width)
-    ids = torch.arange(n_fetch, dtype=torch.int64, device=dev)
-    over_id = _compact_into(n_over_buf, over, ids, n_fetch)
-    over_val = _compact_into(n_over_buf, over, head & _U32, 0)
-    n_over = over.sum().reshape(1)
-    tail = acc[n_fetch:].sum(dtype=torch.int64).reshape(1)
-    return u32_bits(torch.cat([lanes, over_id, over_val, n_over, tail]))
-
-
-def close_pack_delta(acc: torch.Tensor, touch: torch.Tensor, n_fetch: int,
-                     width: int, n_over_buf: int, n_blk_buf: int,
-                     blk: int) -> torch.Tensor:
-    """Window close, delta form: the counterpart of
-    parca_agent_tpu/aggregator/dict.py:make_close_delta, bit for bit.
-    Packs ONLY the touched blocks; acc is left intact. Returns ONE int32
-    tensor of uint32 bits:
-      [ n_blk_buf*blk*width/32 lanes : packed counts of touched blocks
-      | n_blk_buf                    : touched block ids (nb_prefix = none)
-      | n_over_buf                   : overflow GLOBAL ids (n_fetch = none)
-      | n_over_buf                   : overflow counts
-      | 1 : n_touched blocks (may exceed n_blk_buf: grow / full retry)
-      | 1 : n_overflow (may exceed n_over_buf: grow-then-widen retry)
-      | 1 : count mass in UNTOUCHED prefix blocks (exactness guard; 0)
-      | 1 : count mass beyond n_fetch (guard; 0) ]"""
-    assert width in (4, 8, 16)
-    assert n_fetch % blk == 0
-    sentinel = (1 << width) - 1
-    nb_prefix = n_fetch // blk
-    dev = acc.device
-    t = touch[:nb_prefix] > 0
-    n_touched = t.sum().reshape(1)
-    blk_ids = _compact_into(
-        n_blk_buf, t, torch.arange(nb_prefix, dtype=torch.int64, device=dev),
-        nb_prefix)
-    live_b = blk_ids < nb_prefix
-    safe = torch.clamp(blk_ids, max=nb_prefix - 1)
-    gidx = (safe[:, None] * blk
-            + torch.arange(blk, dtype=torch.int64, device=dev)[None, :])
-    vals = torch.where(live_b[:, None], acc[gidx].to(torch.int64),
-                       0).reshape(-1)
-    over = vals > sentinel - 1
-    lanes = _pack_lanes(torch.where(over, sentinel, vals), width)
-    over_id = _compact_into(n_over_buf, over, gidx.reshape(-1), n_fetch)
-    over_val = _compact_into(n_over_buf, over, vals & _U32, 0)
-    n_over = over.sum().reshape(1)
-    # Exactness guards: untouched prefix blocks and the tail beyond
-    # n_fetch must both carry zero mass; a nonzero guard sends the host to
-    # the full fetch.
-    blk_mass = acc[:n_fetch].to(torch.int64).reshape(nb_prefix, blk).sum(1)
-    untouched = torch.where(t, 0, blk_mass).sum().reshape(1)
-    tail = acc[n_fetch:].sum(dtype=torch.int64).reshape(1)
-    return u32_bits(torch.cat([lanes, blk_ids, over_id, over_val,
-                               n_touched, n_over, untouched, tail]))
-
-
 # Overflow sideband caps for the packed close fetch: ids whose window
 # count exceeds the packing sentinel. The accumulator is NOT cleared by
 # close (it resets on the next window's first feed), so a sideband overrun
@@ -203,6 +198,15 @@ _DELTA_BLOCK = 128
 # Delta fetch must move strictly less than half the full fetch's rows to
 # be worth its second buffer dimension; past this the full close is used.
 _DELTA_MAX_FRAC = 0.5
+
+# The stats of the bounded-memory mode that a state carries across
+# (sketch_info reads them).
+_SKETCH_STATS = ("sketch_rows", "sketch_samples", "rotations",
+                 "pid_invalidations", "invalidation_compactions")
+# The overflow sketch's shape, parca_agent_tpu's defaults: a state carried
+# from it always has these.
+_CM_SPEC = CountMinSpec()
+_HLL_SPEC = HLLSpec()
 
 
 class _CloseHandle:
@@ -248,22 +252,31 @@ class _PidRegistry:
 class DictAggregator:
     """Stateful exact aggregation on a device; reuse one instance across
     windows. ``device`` is "cuda" (default; raises without a CUDA device)
-    or "cpu" (the plain PyTorch versions of the kernels)."""
+    or "cpu" (the plain PyTorch versions of the kernels). ``overflow`` is
+    "sketch" (default: degrade to the count-min sideband and rotate cold
+    stacks at capacity) or "raise" (fail fast)."""
 
     name = "dict"
 
-    def __init__(self, capacity: int = 1 << 21, overflow: str = "raise",
+    def __init__(self, capacity: int = 1 << 21, overflow: str = "sketch",
+                 rotate_min_age: int = 6,
                  device: str | torch.device = "cuda"):
         if capacity & (capacity - 1):
             raise ValueError("capacity must be a power of two")
-        if overflow != "raise":
-            raise ValueError(
-                "overflow must be 'raise' (the sketch overflow of "
-                "parca_agent_tpu is not ported yet)")
+        if overflow not in ("sketch", "raise"):
+            raise ValueError("overflow must be 'sketch' or 'raise'")
         self.device = resolve_device(device)
         self._cap = capacity
         self._id_cap = capacity // 2
-        # Per-id window number the id last had samples.
+        self._overflow = overflow
+        self._cm = None                  # lazy [depth, width] int64
+        self._over_hll = None            # lazy [m] int32 registers
+        self._rotate_min_age = rotate_min_age
+        self._rotate_pending = False
+        # Pids whose invalidate_pid arrived while a close or a miss check
+        # was in flight; dropped at the next window boundary.
+        self._invalidate_pending: set[int] = set()
+        # Per-id window number the id last had samples (eviction clock).
         self._last_seen = np.zeros(self._id_cap, np.int32)
         # Host mirror (source of truth).
         self._h1 = np.zeros(capacity, np.uint32)
@@ -271,7 +284,12 @@ class DictAggregator:
         self._h3 = np.zeros(capacity, np.uint32)
         self._occ = np.zeros(capacity, bool)
         self._ids = np.full(capacity, -1, np.int32)
-        self._key_to_id: dict[tuple, int] = {}
+        # Stack keys (h1, h2, h3) in id order: _keys[i] is stack id i's.
+        # The key -> id map (_key_to_id) is built from it on first use
+        # after a compaction, so calls that compact back to back build it
+        # once.
+        self._keys: list[tuple] = []
+        self._key_map: dict[tuple, int] | None = {}
         self._next_id = 0
         # Per-id metadata, ragged numpy (appended at insertion): stack id i
         # has pid _id_pid[i] and 1-based per-pid loc ids
@@ -331,6 +349,12 @@ class DictAggregator:
         self.stats = {"windows": 0, "inserts": 0, "overflow_misses": 0}
         self.timings: dict[str, float] = {}
 
+    @property
+    def _key_to_id(self) -> dict[tuple, int]:
+        if self._key_map is None:
+            self._key_map = dict(zip(self._keys, range(len(self._keys))))
+        return self._key_map
+
     # -- public -------------------------------------------------------------
 
     def aggregate(self, snapshot: WindowSnapshot,
@@ -372,8 +396,11 @@ class DictAggregator:
 
     def export_state(self) -> dict:
         """The dictionary's state as numpy arrays and Python lists:
-        the host mirror, the per-id metadata, the per-pid registries and
-        the unreachable keys. Window-boundary only (no open feed/close)."""
+        the host mirror, the per-id metadata, the per-pid registries, the
+        unreachable keys and the bounded-memory state (the count-min and
+        HLL tables, a pending rotation, pending pid invalidations and the
+        stats sketch_info reads). Window-boundary only (no open
+        feed/close)."""
         self._require_boundary("export_state")
         n = self._next_id
         nl = int(self._loc_off[n])
@@ -397,6 +424,13 @@ class DictAggregator:
                                   m.build_id, m.base) for m in r.mappings],
                 } for pid, r in self._pids.items()},
             "unreachable": [(*k, sid) for k, sid in self._unreachable.items()],
+            "cm": None if self._cm is None else self._cm.copy(),
+            "over_hll": (None if self._over_hll is None
+                         else self._over_hll.copy()),
+            "rotate_pending": self._rotate_pending,
+            "invalidate_pending": sorted(self._invalidate_pending),
+            "sketch_stats": {k: self.stats[k] for k in _SKETCH_STATS
+                             if k in self.stats},
         }
 
     def load_state(self, arrays: dict) -> None:
@@ -422,10 +456,14 @@ class DictAggregator:
         if not np.array_equal(np.sort(self._ids[slots]), np.arange(n)):
             raise ValueError("state mirror does not hold ids 0..next_id-1 "
                              "exactly once")
-        self._key_to_id = dict(zip(
-            zip(self._h1[slots].tolist(), self._h2[slots].tolist(),
-                self._h3[slots].tolist()),
-            self._ids[slots].tolist()))
+        # The keys in id order, the order the dictionary inserts in:
+        # _compact_ids re-inserts keys in this order, so it fixes the
+        # rebuilt table's probe layout.
+        slots = slots[np.argsort(self._ids[slots])]
+        self._keys = list(zip(self._h1[slots].tolist(),
+                              self._h2[slots].tolist(),
+                              self._h3[slots].tolist()))
+        self._key_map = None
         self._next_id = n
         size = max(1024, n)
         self._id_pid = np.empty(size, np.int32)
@@ -464,6 +502,7 @@ class DictAggregator:
         self._unreachable = {(int(a), int(b), int(c)): int(sid)
                              for a, b, c, sid in arrays["unreachable"]}
         self._unreach_h1 = None
+        self._load_sketch_state(arrays)
         # The device twin follows the mirror; the accumulators, the
         # width/delta history and the open window start fresh.
         self._dev = None
@@ -474,6 +513,29 @@ class DictAggregator:
         self._prev_n_over = 0
         self._prev_touched = None
         self.discard_open_window()
+
+    def _load_sketch_state(self, arrays: dict) -> None:
+        """The bounded-memory half of load_state (absent keys: none of it,
+        as a state taken before anything overflowed)."""
+        cm, hll = arrays.get("cm"), arrays.get("over_hll")
+        if cm is not None and np.shape(cm) != (_CM_SPEC.depth,
+                                               _CM_SPEC.width):
+            raise ValueError(f"state count-min table is {np.shape(cm)}, "
+                             f"this dictionary's ({_CM_SPEC.depth}, "
+                             f"{_CM_SPEC.width})")
+        if hll is not None and len(hll) != _HLL_SPEC.m:
+            raise ValueError(f"state HLL has {len(hll)} registers, this "
+                             f"dictionary {_HLL_SPEC.m}")
+        self._cm = None if cm is None else np.array(cm, np.int64)
+        self._over_hll = None if hll is None else np.array(hll, np.int32)
+        self._rotate_pending = bool(arrays.get("rotate_pending", False))
+        self._invalidate_pending = {
+            int(p) for p in arrays.get("invalidate_pending", ())}
+        for k in _SKETCH_STATS:
+            self.stats.pop(k, None)
+        self.stats.update({k: int(v) for k, v in
+                           arrays.get("sketch_stats", {}).items()
+                           if k in _SKETCH_STATS})
 
     def _require_boundary(self, what: str) -> None:
         if self._close_handle is not None or self._miss_inflight is not None:
@@ -504,6 +566,12 @@ class DictAggregator:
         chunk_total = int(snapshot.counts[lo:hi].sum())
         if self._fed_total + chunk_total >= 2**31:
             raise ValueError("window sample total exceeds int32")
+        if self._needs_reset:
+            # First feed of a new window: the boundary where cold-id
+            # rotation (and any deferred pid invalidation) is safe —
+            # nothing live indexes stack ids.
+            self._apply_pending_invalidations()
+            self._maybe_rotate()
         # Dispatch-row state: `rows_map` maps each dispatch row back to
         # a representative snapshot row (absolute index) for miss
         # resolution; `w64` carries its exact (possibly folded) mass.
@@ -954,6 +1022,173 @@ class DictAggregator:
         self._prev_counts = out
         return out.copy() if copy else out
 
+    # -- bounded-memory degradation ------------------------------------------
+
+    def _sketch_add(self, hashes: np.ndarray, counts: np.ndarray) -> None:
+        """Absorb overflow rows into the count-min table + HLL registers
+        (host numpy; overestimate-only error per CountMinSpec)."""
+        t0 = time.perf_counter()
+        if self._cm is None:
+            self._cm = np.zeros((_CM_SPEC.depth, _CM_SPEC.width), np.int64)
+            self._over_hll = np.zeros(_HLL_SPEC.m, np.int32)
+        cm_add(self._cm, hashes, counts, _CM_SPEC)
+        self._over_hll = hll_merge(self._over_hll,
+                                   hll_build(hashes, _HLL_SPEC))
+        self.stats["sketch_rows"] = \
+            self.stats.get("sketch_rows", 0) + len(hashes)
+        self.stats["sketch_samples"] = \
+            self.stats.get("sketch_samples", 0) + int(counts.sum())
+        self.timings["sketch_absorb"] = \
+            self.timings.get("sketch_absorb", 0.0) + time.perf_counter() - t0
+
+    def sketch_estimate(self, h1_hashes) -> np.ndarray:
+        """Point-query overflow-absorbed counts (CM overestimate bound);
+        zeros when nothing has ever overflowed."""
+        h1_hashes = np.asarray(h1_hashes, np.uint32)
+        if self._cm is None:
+            return np.zeros(len(h1_hashes), np.int64)
+        return cm_query(self._cm, h1_hashes, _CM_SPEC).astype(np.int64)
+
+    def sketch_info(self) -> dict:
+        """Observable degradation state (parca_agent_tpu's keys)."""
+        return {
+            "sketch_rows": self.stats.get("sketch_rows", 0),
+            "sketch_samples": self.stats.get("sketch_samples", 0),
+            "sketch_distinct_est": (
+                round(hll_estimate(self._over_hll, _HLL_SPEC))
+                if self._over_hll is not None else 0),
+            "rotations": self.stats.get("rotations", 0),
+        }
+
+    def _maybe_rotate(self) -> None:
+        """Evict stack ids unseen for rotate_min_age windows and recycle
+        their space. Runs only at a window boundary, before the new window
+        touches the device, so no live accumulator, fetched counts buffer
+        or profile build is ever indexed by a stale id."""
+        if not self._rotate_pending:
+            return
+        if self._close_handle is not None or self._miss_inflight is not None:
+            # An uncollected close still indexes the current id space and
+            # an unsettled feed may still insert: defer to the next
+            # boundary.
+            return
+        self._rotate_pending = False
+        w = self.stats["windows"]
+        n = self._next_id
+        keep = (w - self._last_seen[:n]) < self._rotate_min_age
+        if int(keep.sum()) == n:
+            return  # nothing cold yet; stay in sketch-degraded mode
+        self._compact_ids(keep)
+        self.stats["rotations"] = self.stats.get("rotations", 0) + 1
+
+    def invalidate_pid(self, pid: int) -> bool:
+        """The pid was recycled: every stack id and the location registry
+        it owns describe a dead predecessor, so drop them and let the new
+        process's stacks register afresh. Compaction is safe only at a
+        window boundary, so while a close or a deferred miss check is in
+        flight the pid queues and is dropped at the next first feed of a
+        window. Returns True when applied now, False when deferred."""
+        pid = int(pid)
+        if self._close_handle is not None or self._miss_inflight is not None:
+            self._invalidate_pending.add(pid)
+            return False
+        self._invalidate_pending.discard(pid)
+        self._drop_pids([pid])
+        return True
+
+    def _apply_pending_invalidations(self) -> None:
+        """Deferred invalidate_pid drops, at the window boundary, sorted
+        for a deterministic compaction order."""
+        if not self._invalidate_pending:
+            return
+        if self._close_handle is not None or self._miss_inflight is not None:
+            return
+        pids = sorted(self._invalidate_pending)
+        self._invalidate_pending.clear()
+        self._drop_pids(pids)
+
+    def _drop_pids(self, pids) -> None:
+        n = self._next_id
+        keep = ~np.isin(self._id_pid[:n],
+                        np.asarray(sorted(pids), np.int64).astype(np.int32))
+        for p in pids:
+            self._pids.pop(int(p), None)
+        self.stats["pid_invalidations"] = \
+            self.stats.get("pid_invalidations", 0) + len(pids)
+        if int(keep.sum()) != n:
+            self._compact_ids(keep)
+            self.stats["invalidation_compactions"] = \
+                self.stats.get("invalidation_compactions", 0) + 1
+
+    def _compact_ids(self, keep: np.ndarray) -> None:
+        """Remap the id space to the `keep` survivors and rebuild every
+        structure keyed by stack id (shared by rotation and pid
+        invalidation). Window-boundary only."""
+        t0 = time.perf_counter()
+        n = self._next_id
+        kept = np.flatnonzero(keep)
+        m = len(kept)
+        # Where each survivor sits now, before anything moves.
+        occ = np.flatnonzero(self._occ)
+        slot_of = np.empty(n, np.int64)
+        slot_of[self._ids[occ]] = occ
+        old = slot_of[kept]
+        gone_pids = np.unique(self._id_pid[:n][~keep])
+        # Compact the ragged per-id metadata to the survivors.
+        off = self._loc_off
+        self._loc_flat = self._loc_flat[:off[n]][
+            np.repeat(keep, np.diff(off[:n + 1]))]
+        self._loc_off = np.zeros(m + 1, np.int64)
+        np.cumsum(off[kept + 1] - off[kept], out=self._loc_off[1:])
+        self._id_pid = self._id_pid[:n][kept].copy()
+        self._id_h1 = self._id_h1[:n][kept].copy()
+        self._id_h2 = self._id_h2[:n][kept].copy()
+        new_last = np.zeros(self._id_cap, np.int32)
+        new_last[:m] = self._last_seen[kept]
+        self._last_seen = new_last
+        # Rebuild the host table for the survivors, each re-inserted by
+        # _probe_free in id order, as parca_agent_tpu re-inserts them one
+        # by one. A key that lands where it sat keeps its hashes there;
+        # vacated slots keep their stale hashes.
+        mask = self._cap - 1
+        home = self._id_h1.astype(np.int64) & mask
+        slots = _fcfs_slots(home, self._cap)
+        moved = np.flatnonzero(slots != old)
+        for lane in (self._h1, self._h2, self._h3):
+            lane[slots[moved]] = lane[old[moved]]
+        self._occ[:] = False
+        self._occ[slots] = True
+        self._ids[:] = -1
+        self._ids[slots] = np.arange(m, dtype=np.int32)
+        # Chains change wholesale with the rebuild: the keys past the probe
+        # bound, in id order.
+        keys = list(compress(self._keys, keep.tolist()))
+        self._unreachable = {
+            keys[j]: j for j in
+            np.flatnonzero(((slots - home) & mask) >= _PROBES).tolist()}
+        self._unreach_h1 = None
+        self._keys = keys
+        self._key_map = None
+        self._next_id = m
+        # Per-pid registries with no surviving stacks go too (memory
+        # bound); a registry is made with its pid's first stack, so only a
+        # pid that lost stacks here can be left with none.
+        for p in gone_pids[~np.isin(gone_pids, self._id_pid)].tolist():
+            self._pids.pop(p, None)
+        # The device table is rebuilt from the host mirror at the next
+        # feed. Both accumulator twins and both touch twins index the old
+        # id space, so they go, with the width and delta history.
+        self._dev = None
+        self._acc = None
+        self._acc_spare = None
+        self._touch = None
+        self._touch_spare = None
+        self._prev_touched = None
+        self._prev_counts = None
+        self._prev_n_over = 0
+        self.timings["compact"] = \
+            self.timings.get("compact", 0.0) + time.perf_counter() - t0
+
     # -- miss settle ---------------------------------------------------------
 
     def _resolve_misses(self, snapshot, rows, h1, h2, h3, weights=None
@@ -975,48 +1210,65 @@ class DictAggregator:
                 self.stats.get("miss_vec_fallbacks", 0) + 1
         return self._resolve_misses_scalar(snapshot, rows, h1, h2, h3, wts)
 
-    def _check_capacity(self, n_new: int) -> None:
+    def _over_capacity(self, n_new: int) -> bool:
         worst = self._next_id + n_new
-        if worst > self._id_cap or worst * 2 > self._cap:
-            raise RuntimeError(
-                f"stack dictionary capacity exhausted "
-                f"({self._next_id} ids + {n_new} new stacks vs "
-                f"id_cap {self._id_cap}, table {self._cap}); "
-                f"construct with a larger capacity")
+        return worst > self._id_cap or worst * 2 > self._cap
 
     def _resolve_misses_scalar(self, snapshot, rows, h1, h2, h3, wts
                                ) -> list[tuple[int, int]]:
-        """The reference miss loop. Classify first, mutate second:
-        capacity is validated against the ACTUAL number of new keys before
-        anything is inserted."""
+        """The reference miss loop; it owns every degradation case (the
+        capacity raise, the sketch absorb, the rotation request). Classify
+        first, mutate second: capacity is checked against the ACTUAL
+        number of new keys before anything is inserted."""
         classified: list[tuple[int, int, tuple, int | None]] = []
         n_new = 0
         seen_batch: set = set()
+        key_to_id = self._key_to_id
         for pos, r in enumerate(map(int, rows)):
             key = (int(h1[pos]), int(h2[pos]), int(h3[pos]))
-            existing = self._key_to_id.get(key)
+            existing = key_to_id.get(key)
             if existing is None and key not in seen_batch:
                 seen_batch.add(key)
                 n_new += 1
             classified.append((pos, r, key, existing))
-        self._check_capacity(n_new)
+        budget = n_new
+        if self._over_capacity(n_new):
+            if self._overflow == "raise":
+                raise RuntimeError(
+                    f"stack dictionary capacity exhausted "
+                    f"({self._next_id} ids + {n_new} new stacks vs "
+                    f"id_cap {self._id_cap}, table {self._cap}); "
+                    f"construct with a larger capacity")
+            # Degrade instead of dying: insert what fits, absorb the rest
+            # into the count-min/HLL sideband, and ask for a cold-stack
+            # rotation at the next window boundary.
+            budget = max(0, min(self._id_cap, self._cap // 2) - self._next_id)
+            self._rotate_pending = True
 
         new_slots: list[int] = []
         new_rows: list[int] = []
+        absorb_h: list[int] = []
+        absorb_c: list[int] = []
         pending: list[tuple[int, int]] = []  # (sid, count) corrections
         for pos, r, key, existing in classified:
             w = int(wts[pos])
             if existing is None:
-                existing = self._key_to_id.get(key)  # set earlier this loop?
+                existing = key_to_id.get(key)  # set earlier this loop?
             if existing is not None:
                 # Probe-bound overflow on device; host resolves it.
                 self.stats["overflow_misses"] += 1
                 pending.append((existing, w))
                 continue
+            if budget <= 0:
+                absorb_h.append(key[0])
+                absorb_c.append(w)
+                continue
+            budget -= 1
             slot = self._host_insert_slot(key)
             sid = self._next_id
             self._next_id += 1
-            self._key_to_id[key] = sid
+            key_to_id[key] = sid
+            self._keys.append(key)
             self._occ[slot] = True
             self._h1[slot], self._h2[slot], self._h3[slot] = key
             self._ids[slot] = sid
@@ -1026,6 +1278,10 @@ class DictAggregator:
             new_rows.append(r)
             pending.append((sid, w))
             self.stats["inserts"] += 1
+
+        if absorb_h:
+            self._sketch_add(np.array(absorb_h, np.uint32),
+                             np.array(absorb_c, np.int64))
 
         if new_slots:
             base = self._next_id - len(new_slots)
@@ -1159,7 +1415,8 @@ class DictAggregator:
         n_new = len(new)
         pending: list[tuple[int, int]] = []
         if n_new:
-            self._check_capacity(n_new)
+            if self._over_capacity(n_new):
+                return None  # degradation: the scalar loop owns it
             h1n, h2n, h3n = h1u[new], h2u[new], h3u[new]
             slots = self._place_new_keys_vec(h1n, stop[new])
             if slots is None:
@@ -1170,6 +1427,7 @@ class DictAggregator:
             self._next_id = base_sid + n_new
             keys = list(zip(h1n.tolist(), h2n.tolist(), h3n.tolist()))
             self._key_to_id.update(zip(keys, sids.tolist()))
+            self._keys.extend(keys)
             self._occ[slots] = True
             self._h1[slots] = h1n
             self._h2[slots] = h2n
@@ -1213,15 +1471,10 @@ class DictAggregator:
         return pending
 
     def _host_insert_slot(self, key: tuple) -> int:
-        # Capacity was validated batch-wide by the caller.
-        mask = self._cap - 1
-        idx = key[0] & mask
-        # Unbounded on host (correctness); a key landing beyond the device
-        # probe bound is recorded by the CALLER in _unreachable so later
-        # windows short-circuit it host-side.
-        while self._occ[idx]:
-            idx = (idx + 1) & mask
-        return idx
+        # Capacity was validated batch-wide by the caller. A key landing
+        # beyond the device probe bound is recorded by the CALLER in
+        # _unreachable so later windows short-circuit it host-side.
+        return _probe_free(self._occ, key[0] & (self._cap - 1))
 
     def _mark_if_unreachable(self, key: tuple, slot: int, sid: int) -> None:
         """Keys at probe-chain positions the device lookup cannot reach

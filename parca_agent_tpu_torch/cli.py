@@ -2,8 +2,8 @@
 
 Runs the profile-build loop of parca_agent_tpu's CLI for the subset this
 package carries: a capture source (synthetic or replay) -> window
-aggregation (the device-resident stack dictionary, the one-shot window
-program, or the numpy CPUAggregator) -> per-pid pprof -> the local
+aggregation (the device-resident stack dictionary, fail-fast or in
+bounded memory; the one-shot window program; or the numpy CPUAggregator) -> per-pid pprof -> the local
 store. Flag names are those of parca_agent_tpu's CLI. The aggregation
 runs on the CUDA card unless ``--device cpu`` is given; without a CUDA
 device the run stops with an error that names the missing device.
@@ -34,14 +34,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profiling-duration", type=float, default=10.0,
                    help="aggregation window seconds")
     p.add_argument("--aggregator", default="dict",
-                   choices=["dict", "tpu", "cpu"],
+                   choices=["dict", "dict+cm", "tpu", "cpu"],
                    help="dict = stack dictionary resident on the device "
-                        "(fails fast at capacity); tpu = one-shot window "
-                        "program on the device (the name of "
-                        "parca_agent_tpu's batch aggregator); cpu = numpy "
-                        "aggregation on the host")
+                        "(fails fast at capacity); dict+cm = the same "
+                        "dictionary in bounded memory (overflow degrades "
+                        "to a count-min sketch, cold stacks rotate out); "
+                        "tpu = one-shot window program on the device (the "
+                        "name of parca_agent_tpu's batch aggregator); cpu "
+                        "= numpy aggregation on the host")
     p.add_argument("--aggregator-capacity", type=int, default=1 << 21,
-                   help="dict table slots (power of two)")
+                   help="dict table slots (power of two); dict+cm keeps "
+                        "memory bounded at this size under stack churn")
     p.add_argument("--local-store-directory", default="",
                    help="write each window's per-pid profiles here as "
                         ".pb.gz")
@@ -82,6 +85,7 @@ def run(argv=None) -> int:
     from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator
     from parca_agent_tpu_torch.pprof.builder import build_pprof
     from parca_agent_tpu_torch.utils.device import resolve_device
+    from parca_agent_tpu_torch.utils.window_clock import windows_for
 
     try:
         device = resolve_device(args.device)
@@ -98,9 +102,15 @@ def run(argv=None) -> int:
     else:
         source = SyntheticSource(args.windows)
 
-    if args.aggregator == "dict":
-        aggregator = DictAggregator(capacity=args.aggregator_capacity,
-                                    overflow="raise", device=device)
+    if args.aggregator in ("dict", "dict+cm"):
+        # "dict" fails fast at capacity; "dict+cm" degrades to the
+        # count-min sideband and rotates cold stacks. The rotation age is
+        # 6 reference (10 s) windows of wall time at any cadence.
+        aggregator = DictAggregator(
+            capacity=args.aggregator_capacity,
+            overflow="sketch" if args.aggregator == "dict+cm" else "raise",
+            rotate_min_age=windows_for(6, args.profiling_duration),
+            device=device)
     elif args.aggregator == "tpu":
         aggregator = TPUAggregator(device=device)
     else:

@@ -44,6 +44,14 @@ SIGNATURES = {
                          ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
+    "close_pack": {
+        "pa_close_scratch_words": ([_I64], ctypes.c_int64),
+        "pa_close_pack": ([_P, _I64, _I64, _I64, _I64, _P, _P, _P],
+                          ctypes.c_int),
+        "pa_close_pack_delta": ([_P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+                                 _P, _P], ctypes.c_int),
+        "pa_cuda_error_string": _ERR,
+    },
     "row_hash": {
         "pa_row_hash": ([_P, _P, _P, _P, _P, _I64, _I64, _P, _U32, _U32, _P,
                          _P, _P], ctypes.c_int),

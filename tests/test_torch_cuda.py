@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from parca_agent_tpu_torch.aggregator import probe, tpu
+from parca_agent_tpu_torch.aggregator import close, probe, tpu
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator, feed_step
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.ops import row_hash
@@ -157,8 +157,8 @@ def test_feed_step_cuda_equals_cpu(cuda):
 def test_dict_aggregator_cuda_equals_cpu(cuda):
     snap = generate(SyntheticSpec(n_pids=30, n_unique_stacks=3000,
                                   total_samples=50_000, seed=9))
-    dc = DictAggregator(capacity=1 << 13, device="cuda")
-    dh = DictAggregator(capacity=1 << 13, device="cpu")
+    dc = DictAggregator(capacity=1 << 13, overflow="raise", device="cuda")
+    dh = DictAggregator(capacity=1 << 13, overflow="raise", device="cpu")
     before = probe.LAUNCHES["feed_accumulate"]
     for _ in range(3):
         hashes = dh.hash_rows(snap)
@@ -349,3 +349,171 @@ def test_tpu_aggregator_cuda_equals_cpu(cuda, dedup):
         outs[dev] = agg.window_outputs(snap)[1]
     for a, b in zip(outs["cuda"], outs["cpu"]):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _close_case(seed: int, id_cap: int, n_fetch: int, width: int,
+                n_big: int, tail: bool, blk_n: int = 0, n_touch: int = 0,
+                untouched_mass: bool = False):
+    """An accumulator of small counts with `n_big` counts at or above the
+    width's sentinel (and the sentinel's edges), mass past n_fetch only
+    when `tail` (7 x 2^30: the u32 guard wraps, to nonzero). With
+    `n_touch`: touch flags (of `blk_n`) for that many of the prefix's
+    128-id blocks, the big counts inside them, and mass in untouched
+    prefix blocks only when `untouched_mass`."""
+    rng = np.random.default_rng(seed)
+    acc = np.where(rng.random(id_cap) < 0.3,
+                   rng.integers(1, 15, id_cap), 0).astype(np.int32)
+    acc[n_fetch:] = 0
+    touch, cand = None, np.arange(n_fetch)
+    if blk_n:
+        nb_prefix = n_fetch // 128
+        hit = np.sort(rng.choice(nb_prefix, n_touch, replace=False))
+        touch = np.zeros(blk_n, np.int32)
+        touch[hit] = rng.integers(1, 3, n_touch)
+        if blk_n > nb_prefix:  # flags past the prefix count for nothing
+            touch[nb_prefix + rng.choice(blk_n - nb_prefix, 2)] = 1
+        if not untouched_mass:
+            blocks = acc[:n_fetch].reshape(nb_prefix, 128)
+            cold = np.ones(nb_prefix, bool)
+            cold[hit] = False
+            blocks[cold] = 0
+        cand = (hit[:, None] * 128 + np.arange(128)).ravel()
+    big = rng.choice(cand, n_big, replace=False)
+    acc[big] = rng.integers((1 << width) - 1, 1 << 24, n_big)
+    edge = rng.choice(np.setdiff1d(cand, big), 3, replace=False)
+    acc[edge] = (1 << width) - 2 + np.arange(3)
+    if tail:
+        acc[n_fetch + rng.choice(id_cap - n_fetch, 7, replace=False)] = \
+            1 << 30
+    return acc, touch
+
+
+# (id_cap, n_fetch): a prefix shorter than one tile of the kernel, the
+# dictionary's shapes at id_cap 2^20 (n_fetch 2^18 and 2^20).
+CLOSE_SHAPES = [(1 << 12, 1 << 11), (1 << 20, 1 << 18), (1 << 20, 1 << 20)]
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("id_cap,n_fetch", CLOSE_SHAPES)
+@pytest.mark.parametrize("overrun", [False, True])
+def test_close_pack_kernel_equals_plain(cuda, width, id_cap, n_fetch,
+                                        overrun):
+    """Every word of the full close buffer: the sideband overrun or not,
+    the tail guard nonzero (and wrapping) or zero."""
+    n_over_buf = 1 << 10
+    acc, _ = _close_case(width + n_fetch, id_cap, n_fetch, width,
+                         n_over_buf + 100 if overrun else n_over_buf // 2,
+                         tail=overrun and id_cap > n_fetch)
+    a = _t(acc, cuda)
+    before = close.LAUNCHES["close_pack"]
+    got = close.close_pack(a, n_fetch, width, n_over_buf)
+    torch.cuda.synchronize()
+    assert close.LAUNCHES["close_pack"] == before + 1
+    want = close.close_pack_plain(a, n_fetch, width, n_over_buf)
+    assert torch.equal(got, want)
+    host = got.cpu().numpy().view(np.uint32)
+    assert (int(host[-2]) > n_over_buf) == overrun
+    if id_cap > n_fetch:
+        assert (int(host[-1]) != 0) == overrun
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("id_cap,n_fetch", CLOSE_SHAPES)
+@pytest.mark.parametrize("overrun", [False, True])
+def test_close_pack_delta_kernel_equals_plain(cuda, width, id_cap, n_fetch,
+                                              overrun):
+    """Every word of the delta buffer: touched blocks past n_blk_buf (the
+    sideband then counts the fetched blocks only), a sideband overrun,
+    mass in untouched blocks and past n_fetch, or none of these."""
+    nb_prefix = n_fetch // 128
+    n_blk_buf = max(4, nb_prefix // 8)
+    n_touch = n_blk_buf + 5 if overrun else n_blk_buf // 2
+    n_over_buf = 64 if overrun else 1 << 12
+    acc, touch = _close_case(width + n_fetch + 1, id_cap, n_fetch, width,
+                             192, tail=overrun and id_cap > n_fetch,
+                             blk_n=id_cap // 128, n_touch=n_touch,
+                             untouched_mass=overrun)
+    a, t = _t(acc, cuda), _t(touch, cuda)
+    before = close.LAUNCHES["close_pack_delta"]
+    got = close.close_pack_delta(a, t, n_fetch, width, n_over_buf, n_blk_buf,
+                                 128)
+    torch.cuda.synchronize()
+    assert close.LAUNCHES["close_pack_delta"] == before + 1
+    want = close.close_pack_delta_plain(a, t, n_fetch, width, n_over_buf,
+                                        n_blk_buf, 128)
+    assert torch.equal(got, want)
+    host = got.cpu().numpy().view(np.uint32)
+    assert (int(host[-4]) > n_blk_buf) == overrun
+    assert (int(host[-3]) > n_over_buf) == overrun
+    assert (int(host[-2]) != 0) == overrun
+    if id_cap > n_fetch:
+        assert (int(host[-1]) != 0) == overrun
+
+
+def test_close_kernels_reject_what_they_cannot_pack(cuda):
+    acc = torch.zeros(1 << 12, dtype=torch.int32, device=cuda)
+    touch = torch.zeros(1 << 5, dtype=torch.int32, device=cuda)
+    before = dict(close.LAUNCHES)
+    with pytest.raises(ValueError, match="128-id blocks"):
+        close.close_pack_delta(acc, touch[:16], 1 << 11, 8, 64, 4, 256)
+    with pytest.raises(ValueError, match="multiple of"):
+        close.close_pack(acc, 1 << 11 | 4, 4, 64)
+    assert close.LAUNCHES == before
+
+
+def _churn_windows(n_windows: int, hot: int, fresh: int, seed: int):
+    """A pool of stacks and, per window, the first `hot` rows plus
+    `fresh` rows whose leaf frame moved by a per-window offset (new
+    stacks every window)."""
+    import dataclasses
+
+    pool = generate(SyntheticSpec(n_pids=40, n_unique_stacks=6000,
+                                  n_rows=6000, total_samples=60_000,
+                                  seed=seed))
+
+    def rows(idx):
+        return dataclasses.replace(
+            pool, pids=pool.pids[idx], tids=pool.tids[idx],
+            counts=pool.counts[idx], user_len=pool.user_len[idx],
+            kernel_len=pool.kernel_len[idx], stacks=pool.stacks[idx])
+
+    out = [rows(np.arange(4096))]
+    for w in range(n_windows):
+        f0 = hot + (w * fresh) % (6000 - hot - fresh)
+        idx = np.concatenate([np.arange(hot), np.arange(f0, f0 + fresh)])
+        snap = rows(idx)
+        snap.stacks[hot:, 0] += np.uint64(4 * (w + 1))
+        out.append(snap)
+    return out
+
+
+def test_dict_cm_cuda_equals_cpu(cuda):
+    """overflow="sketch" on the card against the CPU, window by window,
+    through absorption, rotation, delta closes and pid invalidation
+    (immediate and deferred): counts, ids, the sketch tables and stats."""
+    dc = DictAggregator(capacity=1 << 13, rotate_min_age=2, device="cuda")
+    dh = DictAggregator(capacity=1 << 13, rotate_min_age=2, device="cpu")
+    close.reset_launches()
+    windows = _churn_windows(8, hot=600, fresh=200, seed=17)
+    for w, snap in enumerate(windows):
+        hashes = dh.hash_rows(snap)
+        for d in (dc, dh):
+            for lo in range(0, len(snap), 1000):
+                d.feed(snap, hashes, lo=lo, hi=min(len(snap), lo + 1000))
+        handles = [d.close_dispatch() for d in (dc, dh)]
+        if w == 5:  # deferred: a close is in flight
+            assert [d.invalidate_pid(1003) for d in (dc, dh)] == [False] * 2
+        cc, ch = (d.close_collect(h) for d, h in zip((dc, dh), handles))
+        assert np.array_equal(cc, ch)
+        if w == 3:  # immediate, at a boundary
+            assert [d.invalidate_pid(1001) for d in (dc, dh)] == [True] * 2
+        assert dc._key_to_id == dh._key_to_id
+        assert np.array_equal(dc._cm, dh._cm)
+        assert np.array_equal(dc._over_hll, dh._over_hll)
+        assert dc.sketch_info() == dh.sketch_info()
+        assert dc.stats == dh.stats
+    assert dc.stats["rotations"] >= 1 and dc.stats["sketch_rows"] > 0
+    assert dc.stats["pid_invalidations"] == 2
+    assert dc.stats.get("delta_closes", 0) >= 1
+    assert close.LAUNCHES["close_pack"] >= 1
+    assert close.LAUNCHES["close_pack_delta"] >= 1

@@ -28,7 +28,7 @@ CAP = 1 << 12
 
 def _pair():
     return (JaxDict(capacity=CAP, overflow="raise"),
-            DictAggregator(capacity=CAP, device="cpu"))
+            DictAggregator(capacity=CAP, overflow="raise", device="cpu"))
 
 
 def _rows(snap, idx, scale=None):
@@ -129,15 +129,10 @@ def test_capacity_exhaustion_raises_like_jax():
                                   total_samples=1000, seed=3))
     with pytest.raises(RuntimeError, match="capacity exhausted"):
         JaxDict(capacity=1 << 7, overflow="raise").window_counts(snap)
-    d = DictAggregator(capacity=1 << 7, device="cpu")
+    d = DictAggregator(capacity=1 << 7, overflow="raise", device="cpu")
     with pytest.raises(RuntimeError, match="capacity exhausted"):
         d.window_counts(snap)
     assert d._next_id == 0 and not d._key_to_id  # nothing half-inserted
-
-
-def test_port_refuses_unported_overflow_mode():
-    with pytest.raises(ValueError, match="not ported"):
-        DictAggregator(capacity=CAP, overflow="sketch", device="cpu")
 
 
 def test_synthetic_windows_identical_across_packages():
@@ -181,7 +176,7 @@ def test_state_from_jax_then_next_window_identical(seed):
     jd = JaxDict(capacity=CAP, overflow="raise")
     jd.window_counts(w0)
     jd.window_counts(w1)
-    pd_ = DictAggregator(capacity=CAP, device="cpu")
+    pd_ = DictAggregator(capacity=CAP, overflow="raise", device="cpu")
     pd_.load_state(_jax_state(jd))
     _assert_same_dictionary(jd, pd_)
     hashes = pd_.hash_rows(w2)
@@ -197,14 +192,15 @@ def test_state_from_jax_then_next_window_identical(seed):
 
 def test_export_load_round_trip():
     w0, w1, w2 = _windows(51)
-    a = DictAggregator(capacity=CAP, device="cpu")
+    a = DictAggregator(capacity=CAP, overflow="raise", device="cpu")
     a.window_counts(w0)
     a.window_counts(w1)
-    b = DictAggregator(capacity=CAP, device="cpu")
+    b = DictAggregator(capacity=CAP, overflow="raise", device="cpu")
     b.load_state(a.export_state())
     pa, pb = a.aggregate(w2), b.aggregate(w2)
     assert a._key_to_id == b._key_to_id
     assert _pprof_digests(pa, build_pprof) == _pprof_digests(pb, build_pprof)
     with pytest.raises(ValueError):
-        DictAggregator(capacity=CAP * 2, device="cpu").load_state(
+        DictAggregator(capacity=CAP * 2, overflow="raise",
+                       device="cpu").load_state(
             a.export_state())

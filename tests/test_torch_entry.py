@@ -36,6 +36,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "parca_agent_tpu_torch.aggregator.probe" in names
     assert "parca_agent_tpu_torch.aggregator.tpu" in names
     assert "parca_agent_tpu_torch.ops.row_hash" in names
+    assert "parca_agent_tpu_torch.aggregator.close" in names
+    assert "parca_agent_tpu_torch.ops.sketch" in names
+    assert "parca_agent_tpu_torch.utils.window_clock" in names
     code = (
         "import importlib, sys\n"
         f"names = {names!r}\n"
@@ -93,14 +96,47 @@ def test_cli_on_cpu_with_the_one_shot_aggregator(tmp_path):
     assert mass == sum(ln["samples"] for ln in lines)
 
 
+def test_cli_on_cpu_with_the_bounded_memory_dictionary(tmp_path):
+    """--aggregator dict+cm at a capacity below the synthetic windows'
+    10,000 stacks: the dictionary fills, the overflow degrades to the
+    sketch instead of stopping the run, and the exact part lands in the
+    store as profiles."""
+    store = tmp_path / "store"
+    r = subprocess.run(
+        [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--capture", "synthetic", "--aggregator", "dict+cm",
+         "--aggregator-capacity", "4096", "--windows", "3",
+         "--profiling-duration", "0.1",
+         "--local-store-directory", str(store)],
+        env=_env(), cwd=tmp_path, capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    assert [ln["aggregator"] for ln in lines] == ["dict+cm"] * 3
+    files = sorted(store.glob("*.pb.gz"))
+    assert len(files) == sum(ln["profiles"] for ln in lines)
+    mass = sum(v[0] for f in files
+               for _, v, _ in parse_pprof(f.read_bytes()).samples)
+    assert 0 < mass < sum(ln["samples"] for ln in lines)
+
+
 def test_cli_without_cuda_names_the_missing_device(tmp_path):
+    _assert_cli_needs_cuda(tmp_path, "dict")
+
+
+def test_cli_dict_cm_without_cuda_names_the_missing_device(tmp_path):
+    _assert_cli_needs_cuda(tmp_path, "dict+cm")
+
+
+def _assert_cli_needs_cuda(tmp_path, aggregator: str):
     """On a host without a CUDA device the default --device cuda must
     stop with an error, not carry on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
-         "synthetic", "--windows", "1",
+         "synthetic", "--aggregator", aggregator, "--windows", "1",
          "--local-store-directory", str(tmp_path / "store")],
         env=_env(), cwd=tmp_path, capture_output=True, text=True,
         timeout=300)
