@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--k1-reference FEED_PROBE_CU]
                           [--rh-reference ROW_HASH_CU ...]
+                          [--close-reference CLOSE_PACK_CU ...]
 
 Needs one CUDA device, nvcc and this checkout; imports nothing of jax or
 of parca_agent_tpu. Phases, each printing one JSON line:
@@ -26,7 +27,12 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                and 16, n_fetch 2^18 and 2^20, with and without sideband
                and touched-block overruns and guard mass (every word
                equal, every guard nonzero once and zero once), then each
-               timed with its bound
+               timed with its bound, the device kernels one call enqueues
+               (torch.profiler: must be 1) and the wrapper's host cost
+               (with the earlier wrapper's per-call extras timed apart).
+               Last, the library calls for the sketch absorb B6 (count-min
+               index_add_, HLL scatter_reduce_ amax) at a phase-6 window's
+               2^16 rows, beside its plain torch path and its bound
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
                window, then steady windows fed as 10 drains each and closed,
@@ -68,7 +74,11 @@ csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
 against the kernel and timed in turns with it, in phases 3 and 4. With
 --rh-reference (repeatable), each source with csrc/row_hash.cu's C
 interface is built, held against the plain version and timed in turns
-with the row hash kernel at phase 5's three windows.
+with the row hash kernel at phase 5's three windows. With
+--close-reference (repeatable), each source with csrc/close_pack.cu's C
+interface is built, held against the plain versions in phase 3's cases
+and on phase 6's accumulators, and timed in turns with the close kernels
+there.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -261,6 +271,95 @@ def load_rh_reference(path: str):
         return h1, h2
 
     return rh
+
+
+def load_close_reference(path: str):
+    """(close_pack, close_pack_delta) of a reference build of
+    csrc/close_pack.cu, called as the port's wrappers call theirs, with a
+    scratch zeroed once per id_cap and kept (what every design of the
+    close takes: the three-launch one overwrites its scratch, the
+    look-back one needs it zeroed once). Launches are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels
+
+    lib = load_reference("close_pack", path)
+    scratch = {}
+
+    def launch(name, acc, n_out, *args):
+        dev = acc.device
+        key = (dev.index, acc.shape[0])
+        if key not in scratch:
+            scratch[key] = torch.zeros(
+                lib.pa_close_scratch_words(acc.shape[0]), dtype=torch.int32,
+                device=dev)
+        out = torch.empty(n_out, dtype=torch.int32, device=dev)
+        kernels.check_launch(lib, getattr(lib, name)(
+            *args, scratch[key].data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "reference " + name)
+        return out
+
+    def close_pack(acc, n_fetch, width, n_over_buf):
+        return launch("pa_close_pack", acc,
+                      n_fetch * width // 32 + 2 * n_over_buf + 2,
+                      acc.data_ptr(), acc.shape[0], n_fetch, width,
+                      n_over_buf)
+
+    def close_pack_delta(acc, touch, n_fetch, width, n_over_buf, n_blk_buf,
+                         blk):
+        return launch("pa_close_pack_delta", acc,
+                      n_blk_buf * blk * width // 32 + n_blk_buf
+                      + 2 * n_over_buf + 4,
+                      acc.data_ptr(), touch.data_ptr(), acc.shape[0], n_fetch,
+                      width, n_over_buf, n_blk_buf)
+
+    return close_pack, close_pack_delta
+
+
+def device_kernels(fn):
+    """(names, sessions): the device activities (kernels, memsets,
+    copies) that one fn() call enqueues, from torch.profiler, after one
+    untimed call. Each session launches a spin kernel first, as its
+    control: torch.profiler at times returns a session with no device
+    activity at all, and a session whose control does not show is taken
+    again, up to 5 sessions."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for sessions in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if sum("spin_kernel" in n for n in names) == 1:
+            return [n for n in names if "spin_kernel" not in n], sessions
+    raise AssertionError("torch.profiler showed no control kernel in 5 "
+                         "sessions")
+
+
+def host_us(fn, reps: int = 200):
+    """(host microseconds a call, covered): `reps` calls queued behind a
+    spin kernel, so the card never waits on the host and the host clock
+    times the host alone (`covered`: the spin outlasted the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    spin = torch.cuda.Event()
+    spin.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    covered = not spin.query()
+    torch.cuda.synchronize()
+    return us, covered
 
 
 # -- phase 3 inputs ----------------------------------------------------------
@@ -574,14 +673,74 @@ def close_bound(out_words: int, nb_prefix: int = 0, unfetched: int = 0):
     return bound(acc_bytes + 4 * nb_prefix + 4 * out_words, 4 * ID_CAP)
 
 
-def phase_close_kernels(dev) -> None:
+def close_turns(impls: dict, args: tuple, delta: bool, reps: int = 50,
+                count: bool = False):
+    """Each close build of `impls` (label -> (close_pack, close_pack_delta))
+    held bit for bit against the plain version on `args`, then timed in
+    turns. With `count`: the device kernels one call of each enqueues (the
+    kernel must show 1) and the host cost of the wrapper a call. Launches
+    made here are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close
+    from parca_agent_tpu_torch.ops import kernels
+
+    saved = dict(close.LAUNCHES)
+    plain = close.close_pack_delta_plain if delta else close.close_pack_plain
+    want = plain(*args)
+    fns = {label: (lambda f=f[delta]: f(*args))
+           for label, f in impls.items()}
+    for label, fn in fns.items():
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"close {label} != plain "
+                                 f"({'delta' if delta else 'full'})")
+    turns = time_turns(fns, reps)
+    out = {"ms": min(turns["kernel"]), "ms_turns": turns,
+           "plain_ms": time_ms(lambda: plain(*args), 5),
+           **{label + "_ms": min(turns[label]) for label in fns
+              if label != "kernel"}}
+    close.LAUNCHES.update(saved)
+    if not count:
+        return out
+    for label, fn in fns.items():
+        key = "" if label == "kernel" else label + "_"
+        names, sessions = device_kernels(fn)
+        out[key + "device_kernels_per_call"] = len(names)
+        out[key + "device_kernels"] = sorted(set(names))
+        out[key + "profiler_sessions"] = sessions
+    if out["device_kernels_per_call"] != 1:
+        raise AssertionError(f"one close call enqueued "
+                             f"{out['device_kernels']} on the card")
+    # The wrapper's host cost a call; apart, what the earlier wrapper did
+    # besides on every call: allocate the scratch, size it by ctypes.
+    lib = kernels.load("close_pack")
+    n = args[0].shape[0]
+    out["host_us"], covered = {}, True
+    for part, fn in (("wrapper", fns["kernel"]),
+                     ("scratch_alloc", lambda: torch.empty(
+                         lib.pa_close_scratch_words(n), dtype=torch.int32,
+                         device=args[0].device)),
+                     ("scratch_words_ctypes",
+                      lambda: lib.pa_close_scratch_words(n))):
+        out["host_us"][part], ok = host_us(fn)
+        covered &= ok
+    out["host_covered"] = covered
+    close.LAUNCHES.update(saved)
+    return out
+
+
+def phase_close_kernels(dev, close_refs=None) -> None:
     """B2 and B3 against their plain versions on the card at id_cap 2^20:
     widths 4, 8, 16 and n_fetch 2^18, 2^20; each with a sideband that
     overruns its buffer (delta: also more touched blocks than n_blk_buf,
     mass in untouched blocks) and mass past n_fetch, and each without.
-    Every word must be equal, and every guard must read nonzero once and
-    zero once. Then each kernel timed against its plain version at
-    n_fetch 2^20, width 8, with its bound."""
+    Every word must be equal (the reference build's too), and every guard
+    must read nonzero once and zero once. Then each kernel timed against
+    its plain version at n_fetch 2^20, width 8, with its bound, in turns
+    with the reference builds, with the device kernels a call (must be 1)
+    and the wrapper's host cost. Then B6's library calls."""
     import numpy as np
     import torch
 
@@ -590,6 +749,8 @@ def phase_close_kernels(dev) -> None:
     def to_dev(a):
         return torch.from_numpy(a).to(dev)
 
+    impls = {"kernel": (close.close_pack, close.close_pack_delta),
+             **(close_refs or {})}
     saved = dict(close.LAUNCHES)
     t0 = time.perf_counter()
     seen = {"n_over_full": set(), "tail_full": set(), "n_touched": set(),
@@ -604,14 +765,15 @@ def phase_close_kernels(dev) -> None:
                                     n_over_buf + 100 if overrun
                                     else n_over_buf // 2, tail)
                 a = to_dev(acc)
-                got = close.close_pack(a, n_fetch, width, n_over_buf)
                 want = close.close_pack_plain(a, n_fetch, width, n_over_buf)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"close_pack != plain (width {width},"
-                                         f" n_fetch {n_fetch}, overrun "
-                                         f"{overrun})")
-                host = got.cpu().numpy().view(np.uint32)
+                for label, (full, _d) in impls.items():
+                    got = full(a, n_fetch, width, n_over_buf)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"close_pack {label} != plain (width {width}, "
+                            f"n_fetch {n_fetch}, overrun {overrun})")
+                host = want.cpu().numpy().view(np.uint32)
                 seen["n_over_full"].add(int(host[-2]) > n_over_buf)
                 seen["tail_full"].add(int(host[-1]) != 0)
                 nb_prefix = n_fetch // BLK
@@ -622,16 +784,18 @@ def phase_close_kernels(dev) -> None:
                     untouched_mass=overrun)
                 n_over_buf = 64 if overrun else 1 << 12
                 a, t = to_dev(acc), to_dev(touch)
-                got = close.close_pack_delta(a, t, n_fetch, width, n_over_buf,
-                                             n_blk_buf, BLK)
                 want = close.close_pack_delta_plain(
                     a, t, n_fetch, width, n_over_buf, n_blk_buf, BLK)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"close_pack_delta != plain (width "
-                                         f"{width}, n_fetch {n_fetch}, "
-                                         f"overrun {overrun})")
-                host = got.cpu().numpy().view(np.uint32)
+                for label, (_f, delta) in impls.items():
+                    got = delta(a, t, n_fetch, width, n_over_buf, n_blk_buf,
+                                BLK)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"close_pack_delta {label} != plain (width "
+                            f"{width}, n_fetch {n_fetch}, overrun "
+                            f"{overrun})")
+                host = want.cpu().numpy().view(np.uint32)
                 seen["n_touched"].add(int(host[-4]) > n_blk_buf)
                 seen["n_over_delta"].add(int(host[-3]) > n_over_buf)
                 seen["untouched"].add(int(host[-2]) != 0)
@@ -646,26 +810,23 @@ def phase_close_kernels(dev) -> None:
     # delta form with 4,096 fetched blocks, phase 6's shape.
     n_fetch, width = ID_CAP, 8
     acc, _ = close_case(1, n_fetch, width, 512, False)
-    a = to_dev(acc)
-    full = {"ms": time_ms(lambda: close.close_pack(a, n_fetch, width, 4096),
-                          50),
-            "plain_ms": time_ms(lambda: close.close_pack_plain(
-                a, n_fetch, width, 4096), 5)}
+    full = close_turns(impls, (to_dev(acc), n_fetch, width, 4096), False,
+                       count=True)
     full["bound_ms"], full["bound_by"] = close_bound(
         n_fetch * width // 32 + 2 * 4096 + 2)
     n_blk_buf = 4096
     acc, touch = close_case(2, n_fetch, width, 512, False, n_touch=1563)
-    a, t = to_dev(acc), to_dev(touch)
-    delta = {"ms": time_ms(lambda: close.close_pack_delta(
-        a, t, n_fetch, width, 1024, n_blk_buf, BLK), 50),
-        "plain_ms": time_ms(lambda: close.close_pack_delta_plain(
-            a, t, n_fetch, width, 1024, n_blk_buf, BLK), 5)}
+    delta = close_turns(impls, (to_dev(acc), to_dev(touch), n_fetch, width,
+                                1024, n_blk_buf, BLK), True, count=True)
     delta["bound_ms"], delta["bound_by"] = close_bound(
         n_blk_buf * BLK * width // 32 + n_blk_buf + 2 * 1024 + 4,
         n_fetch // BLK)
     close.LAUNCHES.update(saved)
-    emit("close_kernels", equal_cases=cases, guards_nonzero_and_zero=True,
-         check_s=check_s, id_cap=ID_CAP,
+    # What any one launch costs here: an empty kernel, queued back to back.
+    floor_ms = time_ms(lambda: torch.cuda._sleep(1), 50)
+    emit("close_kernels", equal_cases=cases, equal_builds=list(impls),
+         guards_nonzero_and_zero=True, check_s=check_s, id_cap=ID_CAP,
+         launch_floor_ms=floor_ms,
          close_pack={"n_fetch": n_fetch, "width": width, "n_over_buf": 4096,
                      **full},
          close_pack_delta={"n_fetch": n_fetch, "width": width,
@@ -674,6 +835,85 @@ def phase_close_kernels(dev) -> None:
          library_ms=None,
          library_note="no single PyTorch call packs with an ordered "
                       "sideband")
+    sketch_library(dev)
+
+
+# The count-min and HLL of the dict+cm path (ops/sketch.py's shapes) at a
+# phase-6 window's absorb.
+SKETCH_ROWS = 1 << 16
+
+
+def sketch_library(dev) -> None:
+    """B6, the sketch absorb (parca_agent_tpu/ops/sketch.py cm_build,
+    hll_build; the port absorbs on the host): one update of a count-min
+    table of 4 x 2^18 int32 and of 2^12 HLL registers by SKETCH_ROWS rows
+    of random hashes and counts. Times the port's plain torch paths on
+    the card, the library calls given the buckets, registers and ranks
+    (index_add_ into the flattened table; scatter_reduce_ "amax"), and
+    the bound: hashes and counts read once, each cell and register the
+    rows touch read and written once."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.ops import sketch
+    from parca_agent_tpu_torch.ops.hashing import mix32
+
+    cm_spec, hll_spec = sketch.CountMinSpec(), sketch.HLLSpec()
+    rng = np.random.default_rng(6)
+    h = rng.integers(0, 1 << 32, SKETCH_ROWS, dtype=np.uint64).astype(
+        np.uint32)
+    cnt = rng.integers(1, 16, SKETCH_ROWS).astype(np.int32)
+    ht, ct = (torch.from_numpy(x.view(np.int32)).to(dev) for x in (h, cnt))
+    # The library calls' inputs, from the numpy paths.
+    cells = (sketch.cm_buckets(h, cm_spec).astype(np.int64)
+             + np.arange(cm_spec.depth)[:, None] * cm_spec.width).ravel()
+    hm = mix32(h, sketch._HLL_SEED)
+    reg = (hm >> np.uint32(32 - hll_spec.p)).astype(np.int64)
+    suffix = (hm << np.uint32(hll_spec.p)).astype(np.uint64)
+    nbits = 32 - hll_spec.p
+    rank = np.full(SKETCH_ROWS, nbits + 1, np.int32)
+    for b in range(nbits - 1, -1, -1):
+        rank = np.where((suffix >> np.uint64(31 - b)) & np.uint64(1), b + 1,
+                        rank)
+    want = sketch.hll_build(h, hll_spec)
+    regs = np.zeros(hll_spec.m, np.int32)
+    np.maximum.at(regs, reg, rank)
+    if not np.array_equal(regs, want):
+        raise AssertionError("B6: the HLL ranks differ from hll_build's")
+    cells_t, src = torch.from_numpy(cells).to(dev), ct.repeat(cm_spec.depth)
+    reg_t, rank_t = torch.from_numpy(reg).to(dev), torch.from_numpy(
+        rank).to(dev)
+    table = torch.zeros(cm_spec.depth * cm_spec.width, dtype=torch.int32,
+                        device=dev)
+    hll = torch.zeros(hll_spec.m, dtype=torch.int32, device=dev)
+    got_cm = sketch.cm_build(ht, ct, cm_spec)
+    got_hll = sketch.hll_build(ht, hll_spec)
+    if not (np.array_equal(got_cm.cpu().numpy(),
+                           sketch.cm_build(h, cnt, cm_spec))
+            and np.array_equal(got_hll.cpu().numpy(), want)):
+        raise AssertionError("B6: the torch paths on the card differ from "
+                             "the numpy paths")
+    out = {
+        "rows": SKETCH_ROWS, "cm": [cm_spec.depth, cm_spec.width],
+        "hll_p": hll_spec.p,
+        "plain_ms": {"cm_build": time_ms(lambda: sketch.cm_build(
+            ht, ct, cm_spec), 20), "hll_build": time_ms(
+            lambda: sketch.hll_build(ht, hll_spec), 20)},
+        "library_ms": {
+            "cm_index_add": time_ms(lambda: table.index_add_(
+                0, cells_t, src), 50),
+            "hll_scatter_reduce_amax": time_ms(lambda: hll.scatter_reduce_(
+                0, reg_t, rank_t, "amax"), 50)},
+        "touched_cells": int(len(np.unique(cells))),
+        "touched_registers": int(len(np.unique(reg)))}
+    nbytes = 8 * SKETCH_ROWS + 8 * (out["touched_cells"]
+                                    + out["touched_registers"])
+    # fmix32 a row per count-min row and for the HLL (~8 operations each),
+    # an add a cell, the rank's leading-zero count and a max.
+    ops = SKETCH_ROWS * (8 * (cm_spec.depth + 1) + cm_spec.depth + 2)
+    out["bytes"] = nbytes
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+    emit("sketch_b6", **out)
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -807,6 +1047,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
         steady_rows.append({
             "window": w, "feed_dispatch_ms": feed_ms,
             "feed_dispatch_ms_sum": sum(feed_ms), "close_ms": close_ms,
+            "close_dispatch_ms": agg.timings.get("close_dispatch", 0.0) * 1e3,
             "close_to_profiles_ms": profiles_ms,
             "window_to_pprof_ms": to_pprof_ms,
             "pprof_pids": len(blobs), "window_ms": window_ms,
@@ -1006,19 +1247,10 @@ def row_hash_host_cost(dev, args, reps: int = 200) -> dict:
         "ctypes_launch": raw,
     }
     saved = dict(row_hash.LAUNCHES)
-    host_us, covered = {}, True
+    part_us, covered = {}, True
     for name, fn in parts.items():
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)
-        spin = torch.cuda.Event()
-        spin.record()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_us[name] = (time.perf_counter() - t0) / reps * 1e6
-        covered &= not spin.query()
-        torch.cuda.synchronize()
+        part_us[name], ok = host_us(fn, reps)
+        covered &= ok
 
     def after_idle(first, second):
         t1, t2, host = [], [], []
@@ -1038,7 +1270,7 @@ def row_hash_host_cost(dev, args, reps: int = 200) -> dict:
             t2.append(ev[1].elapsed_time(ev[2]))
         return sorted(t1)[4], sorted(t2)[4], sorted(host)[4]
 
-    out = {"host_us": host_us, "covered": covered, "reps": reps}
+    out = {"host_us": part_us, "covered": covered, "reps": reps}
     out["stage_idle_ms"], _, out["host_us_after_idle"] = after_idle(
         call, lambda: None)
     out["stage_idle_raw_ms"], _, out["host_us_raw_after_idle"] = \
@@ -1407,7 +1639,7 @@ def reinsert_turns(agg) -> dict:
             "one_by_one_ms": one_s * 1e3}
 
 
-def phase_bounded(dev, snap, hashes, state) -> dict:
+def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
     """The dict+cm path on the card from phase 4's full dictionary
     (load_state), window by window, beside the same windows on the CPU
     from the same state: absorption while full, the rotation once the
@@ -1475,17 +1707,19 @@ def phase_bounded(dev, snap, hashes, state) -> dict:
             record(h)
         return counts, {k: v * 1e3 for k, v in t.items()}
 
+    impls = {"kernel": (close.close_pack, close.close_pack_delta),
+             **(close_refs or {})}
+
     def record(h):
         """Time this window's close kernel on its own accumulator against
-        the plain version (first full and first delta close)."""
+        the plain version, in turns with the reference builds (first full
+        and first delta close)."""
         name = "close_pack_delta" if h.delta_blks else "close_pack"
         if name in timed:
             return
-        saved = dict(close.LAUNCHES)
         if h.delta_blks:
             args = (h.acc, h.touch, h.n_fetch, h.width, h.n_over_buf,
                     h.delta_blks, BLK)
-            fn, plain = close.close_pack_delta, close.close_pack_delta_plain
             n_touched = int((h.touch[:h.n_fetch // BLK] > 0).sum())
             out_words = (h.delta_blks * BLK * h.width // 32 + h.delta_blks
                          + 2 * h.n_over_buf + 4)
@@ -1493,21 +1727,14 @@ def phase_bounded(dev, snap, hashes, state) -> dict:
                                      max(0, n_touched - h.delta_blks))
         else:
             args = (h.acc, h.n_fetch, h.width, h.n_over_buf)
-            fn, plain = close.close_pack, close.close_pack_plain
             n_touched = None
             b_ms, b_by = close_bound(h.n_fetch * h.width // 32
                                      + 2 * h.n_over_buf + 2)
-        got, want = fn(*args), plain(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} != plain on phase 6's accumulator")
-        timed[name] = {"ms": time_ms(lambda: fn(*args), 50),
-                       "plain_ms": time_ms(lambda: plain(*args), 5),
+        timed[name] = {**close_turns(impls, args, bool(h.delta_blks)),
                        "bound_ms": b_ms, "bound_by": b_by,
                        "n_fetch": h.n_fetch, "width": h.width,
                        "n_over_buf": h.n_over_buf,
                        "n_blk_buf": h.delta_blks, "touched": n_touched}
-        close.LAUNCHES.update(saved)
 
     # Every count to 0 just before the path; read just after.
     probe.reset_launches()
@@ -1626,6 +1853,12 @@ def main() -> int:
                     help="another source with csrc/row_hash.cu's C "
                          "interface, built and timed in turns with the row "
                          "hash kernel (may be given more than once)")
+    ap.add_argument("--close-reference", metavar="CLOSE_PACK_CU",
+                    action="append", default=[],
+                    help="another source with csrc/close_pack.cu's C "
+                         "interface, built, held against the plain versions "
+                         "and timed in turns with the close kernels (may be "
+                         "given more than once)")
     opts = ap.parse_args()
     try:
         import torch
@@ -1684,12 +1917,17 @@ def main() -> int:
                for path in opts.rh_reference}
     if rh_refs:
         emit("rh_reference", sources=opts.rh_reference)
+    close_refs = {Path(path).stem: load_close_reference(path)
+                  for path in opts.close_reference}
+    if close_refs:
+        emit("close_reference", sources=opts.close_reference)
     rows = phase_kernels(dev, ref)
-    phase_close_kernels(dev)
+    phase_close_kernels(dev, close_refs)
     snap, want = window_setup()
     launches, state, hashes = phase_main_path(dev, snap, want, ref=ref)
     rows.update(phase_one_shot(dev, snap, want, rh_refs))
-    bounded, launches_cm = phase_bounded(dev, snap, hashes, state)
+    bounded, launches_cm = phase_bounded(dev, snap, hashes, state,
+                                         close_refs)
     del state
     rows.update(bounded)
     # Each path's own launches, counted from 0 just before it: the

@@ -13,10 +13,10 @@ The buffers' layouts are in the plain versions' docstrings (uint32 bits in
 int32 tensors, the port's device convention).
 
 Dispatch is by the tensors' device, and only by it: CUDA tensors launch
-the kernels of csrc/close_pack.cu (a failed build or launch raises), CPU
-tensors run the plain versions, chains of torch ops. Nothing falls back.
-The kernels take 128-id touch blocks only (the dictionary's); the plain
-delta version takes any block size.
+the kernel of csrc/close_pack.cu, one launch a call (a failed build or
+launch raises), CPU tensors run the plain versions, chains of torch ops.
+Nothing falls back. The delta kernel takes 128-id touch blocks only (the
+dictionary's); the plain delta version takes any block size.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ _U32 = 0xFFFFFFFF
 KERNEL_BLOCK = 128
 
 # Kernel launches per entry point: each wrapper adds one where it launches
-# its CUDA kernels and nowhere else (the plain versions count nothing).
+# its CUDA kernel and nowhere else (the plain versions count nothing).
 LAUNCHES = {"close_pack": 0, "close_pack_delta": 0}
 
 
@@ -154,16 +154,33 @@ def _check(acc: torch.Tensor, touch, n_fetch: int, width: int,
         raise ValueError(f"n_over_buf {n_over_buf} is not positive")
 
 
+# One scratch per (device, stream, id_cap), zeroed once when it is created
+# and kept: the kernel's status records carry an epoch that the scratch
+# holds itself, so it is never cleared between calls. Keyed by the stream,
+# so calls on one scratch are in stream order and never overlap.
+_SCRATCH: dict = {}
+
+
+def _scratch(lib, dev: torch.device, stream, id_cap: int) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream, id_cap)
+    buf = _SCRATCH.get(key)
+    if buf is None:  # zeroed on `stream`, the current one
+        buf = _SCRATCH.setdefault(key, torch.zeros(
+            lib.pa_close_scratch_words(id_cap), dtype=torch.int32,
+            device=dev))
+    return buf
+
+
 def _launch(name: str, acc: torch.Tensor, n_out: int, *args) -> torch.Tensor:
     """Launch the C entry point `name` of csrc/close_pack.cu with `args`,
-    then scratch, an int32 [n_out] output and the stream."""
+    then the cached scratch, an int32 [n_out] output and the stream."""
     lib = kernels.load("close_pack")
     dev = acc.device
+    stream = torch.cuda.current_stream(dev)
+    scratch = _scratch(lib, dev, stream, acc.shape[0])
     out = torch.empty(n_out, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.pa_close_scratch_words(acc.shape[0]),
-                          dtype=torch.int32, device=dev)
     code = getattr(lib, name)(*args, scratch.data_ptr(), out.data_ptr(),
-                              torch.cuda.current_stream(dev).cuda_stream)
+                              stream.cuda_stream)
     kernels.check_launch(lib, code, name)
     return out
 
@@ -171,7 +188,7 @@ def _launch(name: str, acc: torch.Tensor, n_out: int, *args) -> torch.Tensor:
 def close_pack(acc: torch.Tensor, n_fetch: int, width: int,
                n_over_buf: int) -> torch.Tensor:
     """The full close buffer (close_pack_plain's layout); CUDA tensors
-    launch the kernels, CPU tensors run close_pack_plain."""
+    launch the kernel (one a call), CPU tensors run close_pack_plain."""
     _check(acc, None, n_fetch, width, n_over_buf)
     if acc.device.type == "cpu":
         return close_pack_plain(acc, n_fetch, width, n_over_buf)
@@ -188,8 +205,8 @@ def close_pack_delta(acc: torch.Tensor, touch: torch.Tensor, n_fetch: int,
                      width: int, n_over_buf: int, n_blk_buf: int,
                      blk: int) -> torch.Tensor:
     """The delta close buffer (close_pack_delta_plain's layout); CUDA
-    tensors launch the kernels (blk must be 128), CPU tensors run
-    close_pack_delta_plain."""
+    tensors launch the kernel (one a call; blk must be 128), CPU tensors
+    run close_pack_delta_plain."""
     _check(acc, touch, n_fetch, width, n_over_buf)
     if blk < 1 or n_fetch % blk or touch.shape[0] < n_fetch // blk:
         raise ValueError(f"n_fetch {n_fetch} must be a multiple of blk {blk} "

@@ -83,3 +83,65 @@ def test_close_pack_delta_matches_make_close_delta(width, overrun):
     assert (int(got[-3]) > n_over_buf) == overrun  # n_over
     assert (int(got[-2]) != 0) == overrun          # untouched-mass guard
     assert (int(got[-1]) != 0) == overrun          # tail-mass guard
+
+
+def _edge(edge: str, width: int, delta: bool):
+    """(acc, touch, n_over_buf, n_blk_buf) of one buffer edge: exactly
+    n_blk_buf touched blocks ("exact_touched"), exactly n_over_buf over
+    ids ("exact_over"), no touched block in the prefix ("no_touched",
+    flags past it only, mass left in the untouched blocks), an all-zero
+    accumulator ("zero_acc")."""
+    rng = np.random.default_rng(100 + width)
+    nb_prefix, n_blk_buf = N_FETCH // BLK, 6
+    acc = _acc(width + 20, width, 30, tail_mass=False)
+    touch = np.zeros(ID_CAP // BLK, np.int32)
+    touch[nb_prefix + 3] = 1  # past the prefix: counts for nothing
+    n_touch = {"exact_touched": n_blk_buf, "no_touched": 0}.get(edge, 4)
+    hit = rng.choice(nb_prefix, n_touch, replace=False)
+    touch[hit] = 1
+    if delta and edge != "no_touched":
+        cold = np.ones(nb_prefix, bool)
+        cold[hit] = False
+        acc[:N_FETCH].reshape(nb_prefix, BLK)[cold] = 0
+    if edge == "zero_acc":
+        acc[:] = 0
+    over = acc[:N_FETCH] >= (1 << width) - 1
+    n_over = int(over.sum())
+    n_over_buf = n_over if edge == "exact_over" else 64
+    assert n_over_buf > 0 and (edge != "exact_over" or n_over > 0)
+    return acc, touch, n_over_buf, n_blk_buf
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("edge", ["exact_over", "zero_acc"])
+def test_close_pack_edges_match_make_close(width, edge):
+    acc, _, n_over_buf, _ = _edge(edge, width, delta=False)
+    want = np.asarray(make_close(ID_CAP, N_FETCH, width, n_over_buf)(
+        jnp.asarray(acc)))
+    got = close_pack(torch.from_numpy(acc), N_FETCH, width,
+                     n_over_buf).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    n_over = int(got[-2])
+    assert n_over == (n_over_buf if edge == "exact_over" else 0)
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("edge", ["exact_touched", "exact_over",
+                                  "no_touched", "zero_acc"])
+def test_close_pack_delta_edges_match_make_close_delta(width, edge):
+    acc, touch, n_over_buf, n_blk_buf = _edge(edge, width, delta=True)
+    want = np.asarray(make_close_delta(ID_CAP, N_FETCH, width, n_over_buf,
+                                       n_blk_buf, BLK)(
+        jnp.asarray(acc), jnp.asarray(touch)))
+    got = close_pack_delta(torch.from_numpy(acc), torch.from_numpy(touch),
+                           N_FETCH, width, n_over_buf, n_blk_buf,
+                           BLK).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    n_touched, n_over, untouched = (int(x) for x in got[-4:-1])
+    assert n_touched == {"exact_touched": n_blk_buf, "no_touched": 0}.get(
+        edge, 4)
+    if edge == "exact_over":
+        assert n_over == n_over_buf
+    if edge in ("no_touched", "zero_acc"):
+        assert n_over == 0
+    assert (untouched != 0) == (edge == "no_touched")

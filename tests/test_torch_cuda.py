@@ -517,3 +517,140 @@ def test_dict_cm_cuda_equals_cpu(cuda):
     assert dc.stats.get("delta_closes", 0) >= 1
     assert close.LAUNCHES["close_pack"] >= 1
     assert close.LAUNCHES["close_pack_delta"] >= 1
+
+
+def _close_equal(acc, touch, n_fetch, width, n_over_buf, n_blk_buf=0):
+    """Launch the close kernel (delta when `touch` is given) once and
+    hold every word against the plain version; returns the buffer (u32)."""
+    if touch is None:
+        got = close.close_pack(acc, n_fetch, width, n_over_buf)
+        want = close.close_pack_plain(acc, n_fetch, width, n_over_buf)
+    else:
+        got = close.close_pack_delta(acc, touch, n_fetch, width, n_over_buf,
+                                     n_blk_buf, 128)
+        want = close.close_pack_delta_plain(acc, touch, n_fetch, width,
+                                            n_over_buf, n_blk_buf, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return got.cpu().numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("n_fetch", [1 << 23, 1 << 21])
+@pytest.mark.parametrize("delta", [False, True])
+def test_close_kernel_tiles_past_one_wave(cuda, n_fetch, delta):
+    """id_cap 2^23: 2,048 tiles of 4,096 ids, more than the card holds at
+    once, so tiles look back at tiles of an earlier wave."""
+    id_cap = 1 << 23
+    nb_prefix = n_fetch // 128
+    acc, touch = _close_case(3 + n_fetch + delta, id_cap, n_fetch, 8, 5000,
+                             tail=n_fetch < id_cap,
+                             blk_n=id_cap // 128 if delta else 0,
+                             n_touch=nb_prefix // 3 if delta else 0)
+    _close_equal(_t(acc, cuda), None if touch is None else _t(touch, cuda),
+                 n_fetch, 8, 1 << 12, nb_prefix // 2)
+
+
+def test_close_kernel_back_to_back_calls_reuse_the_scratch(cuda):
+    """1,000 calls queued on one stream, alternating the full and delta
+    forms and two id_caps, with no sync between them: each call reuses its
+    id_cap's cached scratch, its status records and its epoch."""
+    cases = []
+    for id_cap in (1 << 16, 1 << 18):
+        n_fetch = id_cap // 2
+        acc, touch = _close_case(id_cap, id_cap, n_fetch, 8, 300, tail=True,
+                                 blk_n=id_cap // 128,
+                                 n_touch=n_fetch // 128 // 4)
+        a, t = _t(acc, cuda), _t(touch, cuda)
+        n_blk_buf = n_fetch // 128 // 8  # the touched blocks overrun it
+        cases.append((lambda a=a, n=n_fetch: close.close_pack(a, n, 8, 256),
+                      close.close_pack_plain(a, n_fetch, 8, 256)))
+        cases.append((lambda a=a, t=t, n=n_fetch, nb=n_blk_buf:
+                      close.close_pack_delta(a, t, n, 8, 256, nb, 128),
+                      close.close_pack_delta_plain(a, t, n_fetch, 8, 256,
+                                                   n_blk_buf, 128)))
+    order = [0, 2, 1, 3]  # full, full, delta, delta; two id_caps each
+    differ = torch.zeros((), dtype=torch.bool, device=cuda)
+    for i in range(1000):
+        fn, want = cases[order[i % 4]]
+        differ |= (fn() != want).any()
+    assert not bool(differ)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert {k[2] for k in close._SCRATCH
+            if k[1] == stream} >= {1 << 16, 1 << 18}
+
+
+def test_close_kernel_on_a_second_stream(cuda):
+    """A call on another CUDA stream takes a scratch of its own."""
+    acc, touch = _close_case(7, 1 << 20, 1 << 20, 8, 2000, tail=False,
+                             blk_n=1 << 13, n_touch=1500)
+    a, t = _t(acc, cuda), _t(touch, cuda)
+    want = close.close_pack_delta_plain(a, t, 1 << 20, 8, 4096, 4096, 128)
+    close.close_pack_delta(a, t, 1 << 20, 8, 4096, 4096, 128)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = close.close_pack_delta(a, t, 1 << 20, 8, 4096, 4096, 128)
+    side.synchronize()
+    assert torch.equal(got, want)
+    assert (cuda.index or 0, side.cuda_stream, 1 << 20) in {
+        (k[0] or 0, k[1], k[2]) for k in close._SCRATCH}
+
+
+def _close_edge(edge: str, width: int, delta: bool, id_cap: int = 1 << 20):
+    """(acc, touch, n_over_buf, n_blk_buf) of one buffer edge at n_fetch =
+    id_cap: exactly n_blk_buf touched blocks ("exact_touched"), exactly
+    n_over_buf over ids ("exact_over"), no touched block ("no_touched",
+    mass left in the untouched blocks), an all-zero accumulator
+    ("zero_acc"), and the touched block of rank n_blk_buf in the middle of
+    a tile ("mid_tile_cut": every other block touched, the cut at block
+    32 * 5 + 16)."""
+    rng = np.random.default_rng(200 + width)
+    nb_prefix, n_blk_buf = id_cap // 128, 512
+    acc = np.where(rng.random(id_cap) < 0.3,
+                   rng.integers(1, 15, id_cap), 0).astype(np.int32)
+    if edge == "mid_tile_cut":
+        hit, n_blk_buf = np.arange(0, nb_prefix, 2), (32 * 5 + 16) // 2
+    else:
+        n_touch = {"exact_touched": n_blk_buf, "no_touched": 0}.get(edge,
+                                                                   300)
+        hit = np.sort(rng.choice(nb_prefix, n_touch, replace=False))
+    touch = np.zeros(nb_prefix, np.int32)
+    touch[hit] = 1
+    if delta and edge != "no_touched":
+        cold = np.ones(nb_prefix, bool)
+        cold[hit] = False
+        acc.reshape(nb_prefix, 128)[cold] = 0
+    big = rng.choice(id_cap, 3000, replace=False)
+    acc[big] = np.where(acc[big] > 0, rng.integers(
+        (1 << width) - 1, 1 << 24, 3000), 0)
+    if edge == "zero_acc":
+        acc[:] = 0
+    n_over = int((acc >= (1 << width) - 1).sum())
+    if delta and edge == "exact_over":
+        assert len(hit) <= n_blk_buf
+    n_over_buf = n_over if edge == "exact_over" else 1 << 12
+    return acc, (touch if delta else None), n_over_buf, n_blk_buf
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("edge,delta", [
+    ("exact_over", False), ("zero_acc", False), ("exact_touched", True),
+    ("exact_over", True), ("no_touched", True), ("zero_acc", True),
+    ("mid_tile_cut", True)])
+def test_close_kernel_buffer_edges(cuda, width, edge, delta):
+    acc, touch, n_over_buf, n_blk_buf = _close_edge(edge, width, delta)
+    host = _close_equal(_t(acc, cuda),
+                        None if touch is None else _t(touch, cuda),
+                        acc.shape[0], width, n_over_buf, n_blk_buf)
+    n_over = int(host[-3] if delta else host[-2])
+    if edge == "exact_over":
+        assert n_over == n_over_buf > 0
+    if edge in ("zero_acc", "no_touched"):
+        assert n_over == 0
+    if delta:
+        assert int(host[-4]) == int((touch > 0).sum())
+        assert (int(host[-2]) != 0) == (edge == "no_touched")
+        if edge == "exact_touched":
+            assert int(host[-4]) == n_blk_buf
+        if edge == "mid_tile_cut":
+            assert int(host[-4]) > n_blk_buf and 0 < n_over < n_over_buf
