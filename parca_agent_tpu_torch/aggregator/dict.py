@@ -1556,8 +1556,13 @@ class DictAggregator:
         np.cumsum(depths64, out=boff[1:])
         flat_vals = np.empty(int(boff[-1]), np.int32)
 
-        for pid in np.unique(pids):
-            sel = np.flatnonzero(pids == pid)
+        # The rows grouped by pid in one stable sort: each group lists its
+        # rows in batch order, the groups come in ascending pid order.
+        order = np.argsort(pids, kind="stable")
+        sp = pids[order]
+        cuts = np.flatnonzero(sp[1:] != sp[:-1]) + 1
+        for sel in np.split(order, cuts) if nb else ():
+            pid = pids[sel[0]]
             reg = self._pids.get(int(pid))
             if reg is None:
                 mappings = _pid_mappings(table, int(pid))
@@ -1573,9 +1578,16 @@ class DictAggregator:
             live = np.arange(STACK_SLOTS)[None, :] < pdepths[:, None]
             addrs = stacks[live]
             uniq = np.unique(addrs)
-            # New addresses for this pid's registry.
-            known = np.array([int(a) in reg.addr_to_loc for a in uniq], bool)
-            fresh = uniq[~known] if len(uniq) else uniq
+            addr_to_loc = reg.addr_to_loc
+            uniq_l = uniq.tolist()
+            # New addresses for this pid's registry (a new registry knows
+            # none yet).
+            if addr_to_loc:
+                known = np.fromiter(map(addr_to_loc.__contains__, uniq_l),
+                                    bool, len(uniq_l))
+                fresh = uniq[~known]
+            else:
+                fresh = uniq
             if len(fresh):
                 is_kernel = fresh >= np.uint64(KERNEL_ADDR_START)
                 mrows = table.rows_for_pid(int(pid))
@@ -1615,16 +1627,18 @@ class DictAggregator:
                         row_to_reg[r] = rid
                     map_id = np.where(hit, row_to_reg[safe], 0)
                 base = len(reg.loc_address)
-                reg.loc_address.extend(fresh.tolist())
+                fresh_l = fresh.tolist()
+                reg.loc_address.extend(fresh_l)
                 reg.loc_normalized.extend(norm.tolist())
                 reg.loc_mapping_id.extend(map_id.tolist())
                 reg.loc_is_kernel.extend(is_kernel.tolist())
-                for k, a in enumerate(fresh.tolist()):
-                    reg.addr_to_loc[a] = base + k + 1
+                addr_to_loc.update(zip(fresh_l, range(base + 1,
+                                                      base + 1 + len(fresh_l))))
 
             # Translate every frame to its 1-based loc id in one pass and
             # scatter the runs to their batch-flat positions directly.
-            lut = np.array([reg.addr_to_loc[int(a)] for a in uniq], np.int32)
+            lut = np.fromiter(map(addr_to_loc.__getitem__, uniq_l), np.int32,
+                              len(uniq_l))
             frame_ids = lut[np.searchsorted(uniq, stacks[live])]
             pd64 = pdepths.astype(np.int64)
             src_starts = np.zeros(len(sel), np.int64)

@@ -119,8 +119,16 @@ class MappingTable:
 
     def rows_for_pid(self, pid: int) -> np.ndarray:
         """Indices of this pid's mappings (contiguous because sorted)."""
-        lo = np.searchsorted(self.pids, pid, side="left")
-        hi = np.searchsorted(self.pids, pid, side="right")
+        # The pid goes in as the column's own dtype: a Python int makes
+        # numpy cast the whole column on every search.
+        col = self.pids
+        info = np.iinfo(col.dtype)
+        pid = int(pid)
+        if not info.min <= pid <= info.max:
+            return np.arange(0)
+        key = col.dtype.type(pid)
+        lo = np.searchsorted(col, key, side="left")
+        hi = np.searchsorted(col, key, side="right")
         return np.arange(lo, hi)
 
 
