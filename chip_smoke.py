@@ -36,13 +36,17 @@ of parca_agent_tpu. Phases, each printing one JSON line:
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
                window, then steady windows fed as 10 drains each and closed,
-               then pprof for every pid of the last one. Totals and
-               per-pid masses must equal the numpy CPUAggregator's on the
-               same snapshot; every feed must launch the fused probe
-               kernel, every close the close kernel. Then the probe-step
-               histogram of the window's rows in the table, and K1 on
-               that table at one drain's rows, against its plain version,
-               timed, with its bound.
+               every window's pprof for every pid through one
+               WindowEncoder (--fast-encode; the cold window pays the
+               statics build), the last window also through the encode
+               pipeline (its bytes equal to the inline encode's). Totals
+               and per-pid masses must equal the numpy CPUAggregator's on
+               the same snapshot; every live pid has one blob, every 64th
+               pid's parses to build_pprof's samples; every feed must
+               launch the fused probe kernel, every close the close
+               kernel. Then the probe-step histogram of the window's rows
+               in the table, and K1 on that table at one drain's rows,
+               against its plain version, timed, with its bound.
   5. one shot  the port's TPUAggregator (--aggregator tpu) on the same
                window: the hash arm twice, the second run checked against
                the same oracle (with per-pid location counts) and its
@@ -52,7 +56,10 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                shapes (the location table's dense list re-sorted), timed,
                with their bounds, the bytes the row hash fetches, the
                host cost of its wrapper and the table's probe-step
-               histogram; the CLI entry; and each dedup arm's device time,
+               histogram; the CLI entry, and the CLI with --fast-encode
+               (dict and dict+cm, through the encode pipeline) against the
+               CLI without it, window by window; and each dedup arm's
+               device time,
                and the row hash against its plain version, timed, on two
                windows below the aggregator's location warning threshold.
   6. bounded   --aggregator dict+cm: DictAggregator(overflow="sketch") on
@@ -66,8 +73,10 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                and deferred. Every window: exact + absorbed mass equals
                the window's, the sketch never underestimates an absorbed
                row, and a CPU twin from the same state gives the same
-               counts, ids and sketch. B2 and B3 timed on its own
-               accumulators.
+               counts, ids and sketch. One WindowEncoder encodes every
+               window; after the rotation and each invalidation its bytes
+               equal a fresh encoder's for every pid and build_pprof's
+               for every 64th. B2 and B3 timed on its own accumulators.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -114,8 +123,10 @@ PIDS = 50_000
 SAMPLES = 5_000_000
 STEADY_WINDOWS = 3
 DRAINS = 10
-# Phase 5: timed runs of each dedup arm on each small window.
+# Phase 5: timed runs of each dedup arm on each small window; windows of
+# each CLI run.
 ARM_REPS = 5
+CLI_WINDOWS = 3
 
 
 def emit(phase: str, **fields) -> None:
@@ -967,18 +978,56 @@ def check_profiles(label: str, snap, want, profiles, sample: int = 500,
                                  f"locations, the oracle {w.n_locations}")
 
 
+def check_encoded(label: str, agg, snap, counts, blobs, every: int = 64,
+                  profiles=None) -> dict:
+    """Raise unless the window encoder's [(pid, bytes)] hold exactly one
+    blob for every pid with samples, and (unless `every` is 0) every
+    `every`-th pid's blob parses to the samples, locations and mappings
+    of build_pprof of _build_profiles. Returns the pids checked and
+    build_pprof's time."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
+
+    pids = [p for p, _ in blobs]
+    live = np.unique(agg._id_pid[:len(counts)][np.asarray(counts) > 0])
+    if len(set(pids)) != len(pids) or sorted(pids) != live.tolist():
+        raise AssertionError(f"{label}: {len(pids)} blobs for {len(live)} "
+                             "live pids")
+    if not every:
+        return {}
+    if profiles is None:
+        profiles = agg._build_profiles(snap, counts)
+    by_pid = dict(blobs)
+    sample = profiles[::every]
+    t0 = time.perf_counter()
+    want = [parse_pprof(build_pprof(p, compress=False)) for p in sample]
+    build_ms = (time.perf_counter() - t0) * 1e3
+    for prof, w in zip(sample, want):
+        have = parse_pprof(bytes(by_pid[prof.pid]))
+        if {k: v for k, v in have.stacks_by_address().items() if v > 0} \
+                != w.stacks_by_address() or have.locations != w.locations \
+                or have.mappings != w.mappings or have.period != w.period:
+            raise AssertionError(f"{label}: pid {prof.pid}'s encoded "
+                                 "profile != build_pprof's")
+    return {"pids_checked": len(sample), "build_pprof_ms": build_ms}
+
+
 def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
                     ref=None):
-    """The dict main path on `dev` over `snap`; returns its kernels'
-    launch counts, the dictionary's exported state after its last window
-    and the window's hashes. Raises on any disagreement with the numpy
-    oracle."""
+    """The dict main path on `dev` over `snap`, every window encoded by
+    one WindowEncoder (--fast-encode), the last one also through the
+    encode pipeline; returns its kernels' launch counts, the
+    dictionary's exported state after its last window and the window's
+    hashes. Raises on any disagreement with the numpy oracle or with
+    build_pprof."""
     import numpy as np
     import torch
 
     from parca_agent_tpu_torch.aggregator import close, probe
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
-    from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
+    from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
+    from parca_agent_tpu_torch.profiler.encode_pipeline import EncodePipeline
 
     def sync():
         if dev.type == "cuda":
@@ -1007,11 +1056,24 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     sync()
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches_per_feed.append(probe.LAUNCHES["feed_accumulate"] - before)
+    # The cold window's pprof: the encoder builds every pid's statics.
+    enc = WindowEncoder(agg)
+    args = (snap.time_ns, snap.window_ns, snap.period_ns)
+    t0 = time.perf_counter()
+    blobs = enc.encode(counts, *args)
+    encode_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     profiles = agg._build_profiles(snap, counts)
+    build_profiles_ms = (time.perf_counter() - t0) * 1e3
     check(counts, profiles, "cold window")
+    checked = check_encoded("cold window", agg, snap, counts, blobs,
+                            profiles=profiles)
     emit("cold_window", ms=cold_ms, inserts=agg.stats["inserts"],
-         build_profiles_ms=(time.perf_counter() - t0) * 1e3,
+         encode_ms=encode_ms, window_to_pprof_ms=cold_ms + encode_ms,
+         encode_timings_ms={k: v * 1e3 for k, v in enc.timings.items()},
+         statics_build_ms=enc.stats["statics_build_s_total"] * 1e3,
+         pprof_pids=len(blobs), pprof_bytes=sum(len(b) for _, b in blobs),
+         build_profiles_ms=build_profiles_ms, **checked,
          hash_s=hash_s, timings_ms={k: v * 1e3
                                     for k, v in agg.timings.items()})
 
@@ -1030,27 +1092,32 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
         counts = agg.close_window(copy=True)
         close_ms = (time.perf_counter() - t_close) * 1e3
         feed_close_s = time.perf_counter() - t_win
-        profiles = agg._build_profiles(snap, counts)
-        profiles_ms = (time.perf_counter() - t_close) * 1e3
-        # pprof for every pid of the last window, for every 64th before.
-        last = w == steady - 1
-        sample = profiles if last else profiles[:: len(profiles) // 64]
-        blobs = [build_pprof(p) for p in sample]
+        # pprof for every pid through the encoder: close start to the last
+        # pid's bytes.
+        t0 = time.perf_counter()
+        blobs = enc.encode(counts, snap.time_ns + w + 1, *args[1:])
+        encode_ms = (time.perf_counter() - t0) * 1e3
         to_pprof_ms = (time.perf_counter() - t_close) * 1e3
         window_ms = (time.perf_counter() - t_win) * 1e3
+        t0 = time.perf_counter()
+        profiles = agg._build_profiles(snap, counts)
+        profiles_ms = (time.perf_counter() - t0) * 1e3
         check(counts, profiles, f"steady window {w}")
-        for b, p in list(zip(blobs, sample))[:: 50]:
-            parsed = parse_pprof(b)
-            if sum(v[0] for _, v, _ in parsed.samples) != p.total():
-                raise AssertionError(f"pprof of pid {p.pid} does not parse "
-                                     "back to its mass")
+        # The yardstick: build_pprof of every 64th pid.
+        checked = check_encoded(f"steady window {w}", agg, snap, counts,
+                                blobs, profiles=profiles)
         steady_rows.append({
             "window": w, "feed_dispatch_ms": feed_ms,
             "feed_dispatch_ms_sum": sum(feed_ms), "close_ms": close_ms,
             "close_dispatch_ms": agg.timings.get("close_dispatch", 0.0) * 1e3,
-            "close_to_profiles_ms": profiles_ms,
+            "encode_ms": encode_ms,
+            "encode_timings_ms": {k: v * 1e3
+                                  for k, v in enc.timings.items()},
             "window_to_pprof_ms": to_pprof_ms,
-            "pprof_pids": len(blobs), "window_ms": window_ms,
+            "pprof_pids": len(blobs),
+            "pprof_bytes": sum(len(b) for _, b in blobs),
+            "build_profiles_ms": profiles_ms, **checked,
+            "window_ms": window_ms,
             "inserts": agg.stats["inserts"],
             "delta_closes": agg.stats.get("delta_closes", 0),
             "fetch_bytes_last": agg.stats.get("fetch_bytes_last"),
@@ -1061,6 +1128,31 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
         emit("steady_window", **steady_rows[-1])
     launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
                 "close_pack": close.LAUNCHES["close_pack"]}
+    # The last window again, handed to the encode pipeline's worker: it
+    # must ship the inline bytes.
+    shipped = []
+    pipe = EncodePipeline(enc, ship=lambda out, prep: shipped.extend(
+        (pid, bytes(b)) for pid, b in out))
+    t0 = time.perf_counter()
+    if pipe.submit(counts, snap.time_ns + steady, *args[1:]) is None:
+        raise AssertionError("the encode pipeline refused the window")
+    handoff_ms = (time.perf_counter() - t0) * 1e3
+    if not pipe.close(600):
+        raise AssertionError("the encode pipeline did not flush")
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    bad = {k: pipe.stats[k] for k in ("backpressure_fallbacks",
+                                      "encoder_exceptions", "windows_lost")
+           if pipe.stats[k]}
+    if bad or pipe.stats["windows_pipelined"] != 1:
+        raise AssertionError(f"encode pipeline stats: {pipe.stats}")
+    if shipped != [(pid, bytes(b)) for pid, b in blobs]:
+        raise AssertionError("pipelined blobs != the inline encode's")
+    emit("main_path_pipeline", handoff_ms=handoff_ms, submit_to_ship_ms=pipe_ms,
+         encode_ms=pipe.stats["last_encode_s"] * 1e3,
+         ship_ms=pipe.stats["last_ship_s"] * 1e3, pids=len(shipped),
+         bytes=sum(len(b) for _, b in shipped),
+         encoder_stats=dict(enc.stats))
+    del shipped, blobs, profiles
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
                              f"{launches_per_feed}")
@@ -1517,6 +1609,7 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
             raise AssertionError("CLI --aggregator tpu wrote an empty "
                                  "profile")
     emit("one_shot_cli", rc=rc, profiles_written=len(files))
+    fast_encode_cli()
 
     # (e) The two dedup arms below LOC_WARN_THRESHOLD, where the one-shot
     # path is meant to run: the CLI's synthetic window, and the bench's
@@ -1552,6 +1645,75 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
             "bound_by": lt_by, "library_ms": lib_ms,
         },
     }
+
+
+def run_cli(store: Path, *flags, period: float = 0.1) -> list:
+    """`python -m parca_agent_tpu_torch` on the card over the CLI's
+    synthetic windows, one every `period` seconds, into `store`; returns
+    its JSON lines by window."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    r = subprocess.run(
+        [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
+         "synthetic", "--windows", str(CLI_WINDOWS), "--profiling-duration",
+         str(period), "--local-store-directory", str(store), *flags],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"CLI {' '.join(flags)}: rc {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    lines = sorted((json.loads(ln) for ln in r.stdout.splitlines()
+                    if ln.startswith("{")), key=lambda ln: ln["window"])
+    if [ln["window"] for ln in lines] != list(range(1, CLI_WINDOWS + 1)):
+        raise AssertionError(f"CLI {' '.join(flags)}: windows "
+                             f"{[ln['window'] for ln in lines]}")
+    return lines
+
+
+def fast_encode_cli() -> None:
+    """The CLI with --fast-encode (through the encode pipeline) on the
+    card, --aggregator dict and dict+cm (a capacity the windows overflow):
+    every stored profile parses, the store holds each window's mass, and
+    each window's mass and profile count equal the same CLI's without
+    --fast-encode."""
+    import tempfile
+
+    from parca_agent_tpu_torch.pprof.builder import parse_pprof
+
+    out = {}
+    for name, flags in (("dict", ("--aggregator", "dict")),
+                        ("dict+cm", ("--aggregator", "dict+cm",
+                                     "--aggregator-capacity",
+                                     str(1 << 15)))):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            # A window a second: the worker ships each window before
+            # the next closes.
+            fast = run_cli(Path(tmp) / "fast", *flags, "--fast-encode",
+                           period=1.0)
+            fast_s = time.perf_counter() - t0
+            scalar = run_cli(Path(tmp) / "scalar", *flags)
+            files = sorted((Path(tmp) / "fast").glob("*.pb.gz"))
+            mass = sum(v[0] for f in files
+                       for _, v, _ in parse_pprof(f.read_bytes()).samples)
+        if "pipeline" not in {ln["encode_path"] for ln in fast}:
+            raise AssertionError(f"CLI {name}: no window went through the "
+                                 "encode pipeline")
+        got = [(ln["mass"], ln["profiles"]) for ln in fast]
+        if got != [(ln["mass"], ln["profiles"]) for ln in scalar]:
+            raise AssertionError(f"CLI {name}: --fast-encode windows {got} "
+                                 "!= the CLI's without it")
+        if len(files) != sum(p for _, p in got) \
+                or mass != sum(m for m, _ in got) or not mass:
+            raise AssertionError(f"CLI {name}: the store holds {len(files)} "
+                                 f"profiles of mass {mass}, the windows "
+                                 f"{got}")
+        out[name] = {"windows": fast, "s": fast_s, "profiles": len(files),
+                     "mass": mass}
+    emit("fast_encode_cli", **out)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1652,6 +1814,7 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
 
     from parca_agent_tpu_torch.aggregator import close, probe
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 
     aggs = {}
     t0 = time.perf_counter()
@@ -1670,6 +1833,9 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
     emit("bounded_setup", load_state_s_both=load_s, id_cap=agg._id_cap,
          hot=HOT, fresh=FRESH, rotate_min_age=ROTATE_MIN_AGE,
          windows=BOUNDED_WINDOWS, windows_before=agg.stats["windows"])
+    # One encoder across every window: absorption, the rotation, both
+    # invalidations' compactions.
+    enc = WindowEncoder(agg)
 
     timed = {}
 
@@ -1749,6 +1915,29 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
             "sketch_rows", "sketch_samples", "rotations", "delta_closes",
             "full_closes", "pid_invalidations")}
         counts, ms = run_window(agg, win, whashes, w, record)
+        args = (win.time_ns + w, win.window_ns, win.period_ns)
+        t0 = time.perf_counter()
+        blobs = enc.encode(counts, *args)
+        encoded = {"encode_ms": (time.perf_counter() - t0) * 1e3,
+                   "registry_epoch": agg.registry_epoch,
+                   "pids": len(blobs),
+                   "bytes": sum(len(b) for _, b in blobs)}
+        if w >= INVALIDATE_NOW:
+            # After the rotation, the immediate invalidation and the
+            # deferred one: a fresh encoder's bytes, and build_pprof.
+            t0 = time.perf_counter()
+            fresh_blobs = WindowEncoder(agg).encode(counts, *args)
+            encoded["fresh_encode_ms"] = (time.perf_counter() - t0) * 1e3
+            if sorted(fresh_blobs) != sorted(blobs):
+                raise AssertionError(f"window {w}: the long-lived encoder "
+                                     "!= a fresh one")
+            del fresh_blobs
+            encoded.update(check_encoded(f"bounded window {w}", agg, win,
+                                         counts, blobs))
+        else:
+            check_encoded(f"bounded window {w}", agg, win, counts, blobs,
+                          every=0)
+        del blobs
         t0 = time.perf_counter()
         counts_cpu, _ = run_window(twin, win, whashes, w, None)
         twin_s += time.perf_counter() - t0
@@ -1809,6 +1998,7 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
             "close_form": form,
             "fetch_bytes": agg.stats.get("fetch_bytes_last"),
             "build_s": build_s, "host_ms": ms, "invalidated": inv,
+            "pprof": encoded,
         })
         emit("bounded_window", **rows[-1])
     launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
@@ -1921,13 +2111,22 @@ def main() -> int:
                   for path in opts.close_reference}
     if close_refs:
         emit("close_reference", sources=opts.close_reference)
-    rows = phase_kernels(dev, ref)
-    phase_close_kernels(dev, close_refs)
-    snap, want = window_setup()
-    launches, state, hashes = phase_main_path(dev, snap, want, ref=ref)
-    rows.update(phase_one_shot(dev, snap, want, rh_refs))
-    bounded, launches_cm = phase_bounded(dev, snap, hashes, state,
-                                         close_refs)
+    phases_s = {"identity_and_build": time.perf_counter() - t_start}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phases_s[name] = time.perf_counter() - t0
+        return out
+
+    rows = timed("kernels", phase_kernels, dev, ref)
+    timed("close_kernels", phase_close_kernels, dev, close_refs)
+    snap, want = timed("main_path_setup", window_setup)
+    launches, state, hashes = timed("main_path", phase_main_path, dev, snap,
+                                    want, STEADY_WINDOWS, ref)
+    rows.update(timed("one_shot", phase_one_shot, dev, snap, want, rh_refs))
+    bounded, launches_cm = timed("bounded", phase_bounded, dev, snap, hashes,
+                                 state, close_refs)
     del state
     rows.update(bounded)
     # Each path's own launches, counted from 0 just before it: the
@@ -1946,7 +2145,7 @@ def main() -> int:
                 or min(row["launches_by_path"].values()) < 1:
             raise AssertionError(f"{name} never launched on a path of its: "
                                  f"{row['launches_by_path']}")
-    emit("done", total_s=time.perf_counter() - t_start)
+    emit("done", total_s=time.perf_counter() - t_start, phases_s=phases_s)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

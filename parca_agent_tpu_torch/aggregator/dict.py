@@ -291,6 +291,13 @@ class DictAggregator:
         self._keys: list[tuple] = []
         self._key_map: dict[tuple, int] | None = {}
         self._next_id = 0
+        # Publication watermark for concurrent readers (the encode
+        # pipeline's worker thread): _next_id advances inside the miss
+        # settle BEFORE the per-id metadata and per-pid registries are
+        # written; _published advances only once _append_id_meta lands
+        # the batch (and at a compaction), so ids [0, _published) always
+        # have complete metadata. The window encoder syncs against it.
+        self._published = 0
         # Per-id metadata, ragged numpy (appended at insertion): stack id i
         # has pid _id_pid[i] and 1-based per-pid loc ids
         # _loc_flat[_loc_off[i]:_loc_off[i+1]] (depth == run length).
@@ -301,6 +308,10 @@ class DictAggregator:
         self._id_h1 = np.empty(1024, np.uint32)
         self._id_h2 = np.empty(1024, np.uint32)
         self._pids: dict[int, _PidRegistry] = {}
+        # Bumped whenever any per-pid registry may have changed (insert
+        # batches, compactions, load_state): the window encoder skips its
+        # O(pids) statics staleness scan while it stands still.
+        self._reg_version = 0
         # Device table (created lazily from the host mirror).
         self._dev = None
         # Streaming-window state (feed/close_window protocol). The
@@ -348,6 +359,14 @@ class DictAggregator:
         self._pending: list[tuple[int, int]] = []  # host-side corrections
         self.stats = {"windows": 0, "inserts": 0, "overflow_misses": 0}
         self.timings: dict[str, float] = {}
+
+    @property
+    def registry_epoch(self) -> int:
+        """Epoch of the id space: bumped whenever a cold-stack rotation OR
+        a pid invalidation's compaction remaps stack ids wholesale. The
+        window encoder keys its per-id mirrors on it."""
+        return (self.stats.get("rotations", 0)
+                + self.stats.get("invalidation_compactions", 0))
 
     @property
     def _key_to_id(self) -> dict[tuple, int]:
@@ -465,6 +484,7 @@ class DictAggregator:
                               self._h3[slots].tolist()))
         self._key_map = None
         self._next_id = n
+        self._published = n
         size = max(1024, n)
         self._id_pid = np.empty(size, np.int32)
         self._id_pid[:n] = np.asarray(arrays["id_pid"])[:n]
@@ -499,6 +519,7 @@ class DictAggregator:
                 mappings=mappings,
                 mapping_index={(m.start, m.end, m.offset): m.id
                                for m in mappings})
+        self._reg_version += 1
         self._unreachable = {(int(a), int(b), int(c)): int(sid)
                              for a, b, c, sid in arrays["unreachable"]}
         self._unreach_h1 = None
@@ -1113,6 +1134,8 @@ class DictAggregator:
                         np.asarray(sorted(pids), np.int64).astype(np.int32))
         for p in pids:
             self._pids.pop(int(p), None)
+        # Registry content changed even when the pid owned no stack ids.
+        self._reg_version += 1
         self.stats["pid_invalidations"] = \
             self.stats.get("pid_invalidations", 0) + len(pids)
         if int(keep.sum()) != n:
@@ -1170,6 +1193,7 @@ class DictAggregator:
         self._keys = keys
         self._key_map = None
         self._next_id = m
+        self._published = m
         # Per-pid registries with no surviving stacks go too (memory
         # bound); a registry is made with its pid's first stack, so only a
         # pid that lost stacks here can be left with none.
@@ -1186,6 +1210,7 @@ class DictAggregator:
         self._prev_touched = None
         self._prev_counts = None
         self._prev_n_over = 0
+        self._reg_version += 1
         self.timings["compact"] = \
             self.timings.get("compact", 0.0) + time.perf_counter() - t0
 
@@ -1540,6 +1565,9 @@ class DictAggregator:
             grown[:base] = self._loc_flat[:base]
             self._loc_flat = grown
         self._loc_flat[base:need_flat] = flat_vals
+        # Metadata (and the per-pid registries, written by the caller
+        # before this) is complete for every id below need_ids: publish.
+        self._published = need_ids
 
     def _register_stacks_bulk(self, snapshot, rows: np.ndarray) -> None:
         """Vectorized per-pid location registration for a batch of newly
@@ -1647,6 +1675,7 @@ class DictAggregator:
                           out=flat_vals, out_starts=boff[sel])
 
         self._append_id_meta(pids.astype(np.int32), depths64, flat_vals)
+        self._reg_version += 1
 
     def _build_profiles(self, snapshot: WindowSnapshot,
                         counts: np.ndarray) -> list[PidProfile]:

@@ -4,9 +4,12 @@ Runs the profile-build loop of parca_agent_tpu's CLI for the subset this
 package carries: a capture source (synthetic or replay) -> window
 aggregation (the device-resident stack dictionary, fail-fast or in
 bounded memory; the one-shot window program; or the numpy CPUAggregator) -> per-pid pprof -> the local
-store. Flag names are those of parca_agent_tpu's CLI. The aggregation
-runs on the CUDA card unless ``--device cpu`` is given; without a CUDA
-device the run stops with an error that names the missing device.
+store. With --fast-encode (dictionary aggregators only) the per-pid pprof
+comes from the vectorized window encoder, on an encode worker thread
+unless --no-encode-pipeline is given (profiler/cpu.py). Flag names are
+those of parca_agent_tpu's CLI. The aggregation runs on the CUDA card
+unless ``--device cpu`` is given; without a CUDA device the run stops
+with an error that names the missing device.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import threading
 import time
 
 
@@ -45,6 +49,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aggregator-capacity", type=int, default=1 << 21,
                    help="dict table slots (power of two); dict+cm keeps "
                         "memory bounded at this size under stack churn")
+    p.add_argument("--fast-encode", action="store_true",
+                   help="dict aggregators only: serialize windows with the "
+                        "vectorized template encoder and ship profiles "
+                        "unsymbolized (the server symbolizes, as with the "
+                        "reference agent); disables local symbolization")
+    p.add_argument("--no-encode-pipeline", action="store_true",
+                   help="disable the background encode pipeline (with "
+                        "--fast-encode the default hands each closed "
+                        "window to a dedicated encoder thread, so capture "
+                        "of window N+1 overlaps encoding/shipping of "
+                        "window N; if the encoder is still busy at the "
+                        "next close, that window waits for it and is "
+                        "encoded inline, and a backpressure counter "
+                        "increments)")
+    p.add_argument("--statics-cache-bytes", type=int, default=256 << 20,
+                   help="byte cap of the encoder's content-addressed "
+                        "statics cache (digest of build inputs -> built "
+                        "bytes; rotation/restart rebuilds become lookups "
+                        "and identical-layout pids share one blob)")
     p.add_argument("--local-store-directory", default="",
                    help="write each window's per-pid profiles here as "
                         ".pb.gz")
@@ -78,12 +101,16 @@ def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.profiling_duration <= 0:
         raise SystemExit("--profiling-duration must be > 0")
+    if args.fast_encode and args.aggregator not in ("dict", "dict+cm"):
+        raise SystemExit(
+            "--fast-encode requires --aggregator dict/dict+cm/sharded")
 
     from parca_agent_tpu_torch.agent.writer import FileProfileWriter
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator
     from parca_agent_tpu_torch.pprof.builder import build_pprof
+    from parca_agent_tpu_torch.profiler.cpu import labels_for
     from parca_agent_tpu_torch.utils.device import resolve_device
     from parca_agent_tpu_torch.utils.window_clock import windows_for
 
@@ -117,6 +144,8 @@ def run(argv=None) -> int:
         aggregator = CPUAggregator()
     writer = (FileProfileWriter(args.local_store_directory)
               if args.local_store_directory else None)
+    if args.fast_encode:
+        return _run_fast(args, source, aggregator, writer, device)
 
     n = 0
     next_window = time.monotonic()
@@ -133,8 +162,7 @@ def run(argv=None) -> int:
         t_agg = time.perf_counter() - t0
         if writer is not None:
             for prof in profiles:
-                writer.write({"__name__": "parca_agent_cpu",
-                              "pid": str(prof.pid)},
+                writer.write(labels_for(prof.pid),
                              build_pprof(prof, compress=False))
         n += 1
         print(json.dumps({
@@ -142,7 +170,54 @@ def run(argv=None) -> int:
             "aggregator": args.aggregator, "rows": len(snapshot),
             "samples": snapshot.total_samples(),
             "profiles": len(profiles),
+            "mass": sum(p.total() for p in profiles),
             "aggregate_ms": round(t_agg * 1e3, 3),
             "window_ms": round((time.perf_counter() - t0) * 1e3, 3),
         }), flush=True)
+    return 0
+
+
+def _run_fast(args, source, aggregator, writer, device) -> int:
+    """The --fast-encode loop: one JSON line a window, printed once the
+    window's profiles are written (by the encode worker for a pipelined
+    window)."""
+    from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
+
+    print_mu = threading.Lock()
+
+    def on_window(rec: dict) -> None:
+        line = {"window": rec["window"], "device": str(device),
+                "aggregator": args.aggregator, "rows": rec["rows"],
+                "samples": rec["samples"], "profiles": rec["profiles"],
+                "mass": rec["mass"],
+                "aggregate_ms": round(rec["aggregate_ms"], 3),
+                "encode_path": rec["path"],
+                "encode_ms": round(rec["encode_ms"], 3),
+                "window_ms": round(rec["window_ms"], 3)}
+        if "handoff_ms" in rec:
+            line["handoff_ms"] = round(rec["handoff_ms"], 3)
+        with print_mu:
+            print(json.dumps(line), flush=True)
+
+    profiler = CPUProfiler(source, aggregator, profile_writer=writer,
+                           encode_pipeline=not args.no_encode_pipeline,
+                           statics_cache_bytes=args.statics_cache_bytes,
+                           on_window=on_window)
+    n = 0
+    next_window = time.monotonic()
+    try:
+        while not args.windows or n < args.windows:
+            time.sleep(max(0.0, next_window - time.monotonic()))
+            next_window = time.monotonic() + args.profiling_duration
+            if not profiler.run_iteration():
+                break
+            n += 1
+    except BaseException:
+        try:
+            profiler.close()
+        except Exception:  # noqa: BLE001 - the loop's error is the one raised
+            pass
+        raise
+    # Flush the in-flight window (and surface a pipelined failure).
+    profiler.close()
     return 0

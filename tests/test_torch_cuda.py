@@ -654,3 +654,41 @@ def test_close_kernel_buffer_edges(cuda, width, edge, delta):
             assert int(host[-4]) == n_blk_buf
         if edge == "mid_tile_cut":
             assert int(host[-4]) > n_blk_buf and 0 < n_over < n_over_buf
+
+
+@pytest.mark.parametrize("overflow", ["raise", "sketch"])
+def test_fast_path_cuda_bytes_equal_cpu(cuda, overflow):
+    """The --fast-encode loop on the card (K1 feeds, B2 closes, then the
+    window encoder, pipelined) writes, pid for pid, the bytes of its
+    device="cpu" twin; across new stacks, and with dict+cm an
+    invalidation's compaction and a rotation."""
+    from parca_agent_tpu_torch.capture.replay import ReplaySource
+    from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
+
+    snaps = [generate(SyntheticSpec(n_pids=40, n_unique_stacks=n,
+                                    n_rows=n, total_samples=20 * n,
+                                    seed=s))
+             for s, n in ((1, 2000), (2, 3000), (1, 2000), (3, 2500))]
+    got = {}
+    for dev in (cuda, "cpu"):
+        agg = DictAggregator(
+            capacity=1 << (13 if overflow == "sketch" else 14),
+            overflow=overflow, rotate_min_age=2, device=dev)
+        out = []
+
+        class Writer:
+            def write(self, labels, blob):
+                out.append((labels["pid"], bytes(blob)))
+
+        p = CPUProfiler(ReplaySource(snaps), agg, profile_writer=Writer())
+        for w in range(len(snaps)):
+            assert p.run_iteration()
+            assert p.pipeline.flush(60)
+            if w == 1:
+                assert agg.invalidate_pid(int(snaps[0].pids[0]))
+        assert not p.run_iteration()
+        p.close()
+        assert p.pipeline.stats["windows_pipelined"] == len(snaps)
+        got[str(dev)] = (out, agg.registry_epoch)
+    assert got[str(cuda)] == got["cpu"]
+    assert got["cpu"][1] >= 1 and got["cpu"][0]

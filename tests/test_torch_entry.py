@@ -39,6 +39,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "parca_agent_tpu_torch.aggregator.close" in names
     assert "parca_agent_tpu_torch.ops.sketch" in names
     assert "parca_agent_tpu_torch.utils.window_clock" in names
+    for mod in ("pprof.window_encoder", "pprof.vec",
+                "profiler.encode_pipeline", "profiler.cpu",
+                "runtime.trace", "utils.log", "tools.cold_window"):
+        assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
         f"names = {names!r}\n"
