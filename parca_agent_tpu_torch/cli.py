@@ -144,80 +144,68 @@ def run(argv=None) -> int:
         aggregator = CPUAggregator()
     writer = (FileProfileWriter(args.local_store_directory)
               if args.local_store_directory else None)
-    if args.fast_encode:
-        return _run_fast(args, source, aggregator, writer, device)
-
-    n = 0
-    next_window = time.monotonic()
-    while not args.windows or n < args.windows:
-        # One window per --profiling-duration: sleep out the remainder of
-        # the previous window's period before taking the next one.
-        time.sleep(max(0.0, next_window - time.monotonic()))
-        next_window = time.monotonic() + args.profiling_duration
-        snapshot = source.poll()
-        if snapshot is None:
-            break
-        t0 = time.perf_counter()
-        profiles = aggregator.aggregate(snapshot)
-        t_agg = time.perf_counter() - t0
-        if writer is not None:
-            for prof in profiles:
-                writer.write(labels_for(prof.pid),
-                             build_pprof(prof, compress=False))
-        n += 1
-        print(json.dumps({
-            "window": n, "device": str(device),
-            "aggregator": args.aggregator, "rows": len(snapshot),
-            "samples": snapshot.total_samples(),
-            "profiles": len(profiles),
-            "mass": sum(p.total() for p in profiles),
-            "aggregate_ms": round(t_agg * 1e3, 3),
-            "window_ms": round((time.perf_counter() - t0) * 1e3, 3),
-        }), flush=True)
-    return 0
-
-
-def _run_fast(args, source, aggregator, writer, device) -> int:
-    """The --fast-encode loop: one JSON line a window, printed once the
-    window's profiles are written (by the encode worker for a pipelined
-    window)."""
-    from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
-
     print_mu = threading.Lock()
 
-    def on_window(rec: dict) -> None:
+    def emit(rec: dict) -> None:
+        """One JSON line a window, once its profiles are written (by the
+        encode worker for a pipelined window)."""
         line = {"window": rec["window"], "device": str(device),
                 "aggregator": args.aggregator, "rows": rec["rows"],
                 "samples": rec["samples"], "profiles": rec["profiles"],
                 "mass": rec["mass"],
-                "aggregate_ms": round(rec["aggregate_ms"], 3),
-                "encode_path": rec["path"],
-                "encode_ms": round(rec["encode_ms"], 3),
-                "window_ms": round(rec["window_ms"], 3)}
+                "aggregate_ms": round(rec["aggregate_ms"], 3)}
+        if args.fast_encode:
+            line["encode_path"] = rec["path"]
+            line["encode_ms"] = round(rec["encode_ms"], 3)
+        line["window_ms"] = round(rec["window_ms"], 3)
         if "handoff_ms" in rec:
             line["handoff_ms"] = round(rec["handoff_ms"], 3)
         with print_mu:
             print(json.dumps(line), flush=True)
 
-    profiler = CPUProfiler(source, aggregator, profile_writer=writer,
-                           encode_pipeline=not args.no_encode_pipeline,
-                           statics_cache_bytes=args.statics_cache_bytes,
-                           on_window=on_window)
+    profiler = None
+    if args.fast_encode:
+        from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
+
+        profiler = CPUProfiler(source, aggregator, profile_writer=writer,
+                               encode_pipeline=not args.no_encode_pipeline,
+                               statics_cache_bytes=args.statics_cache_bytes,
+                               on_window=emit)
+        step = profiler.run_iteration
+    else:
+        def step() -> bool:
+            snapshot = source.poll()
+            if snapshot is None:
+                return False
+            t0 = time.perf_counter()
+            profiles = aggregator.aggregate(snapshot)
+            t_agg = time.perf_counter() - t0
+            if writer is not None:
+                for prof in profiles:
+                    writer.write(labels_for(prof.pid),
+                                 build_pprof(prof, compress=False))
+            emit({"window": n + 1, "rows": len(snapshot),
+                  "samples": snapshot.total_samples(),
+                  "profiles": len(profiles),
+                  "mass": sum(p.total() for p in profiles),
+                  "aggregate_ms": t_agg * 1e3,
+                  "window_ms": (time.perf_counter() - t0) * 1e3})
+            return True
+
     n = 0
     next_window = time.monotonic()
     try:
         while not args.windows or n < args.windows:
+            # One window per --profiling-duration: sleep out the remainder
+            # of the previous window's period before taking the next one.
             time.sleep(max(0.0, next_window - time.monotonic()))
             next_window = time.monotonic() + args.profiling_duration
-            if not profiler.run_iteration():
+            if not step():
                 break
             n += 1
-    except BaseException:
-        try:
+    finally:
+        if profiler is not None:
+            # Flush the in-flight window (and surface a pipelined
+            # failure).
             profiler.close()
-        except Exception:  # noqa: BLE001 - the loop's error is the one raised
-            pass
-        raise
-    # Flush the in-flight window (and surface a pipelined failure).
-    profiler.close()
     return 0

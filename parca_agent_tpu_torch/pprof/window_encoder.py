@@ -4,7 +4,10 @@ The port's copy of parca_agent_tpu's pprof/window_encoder.py, byte for
 byte the same output, with one difference: the per-id mirrors are keyed
 on the aggregator's registry_epoch (rotations plus invalidation
 compactions), where the original keys them on the rotation count alone
-and so keeps stale mirrors across a pid invalidation's compaction.
+and so keeps stale mirrors across a pid invalidation's compaction. An
+invalidation's compaction drops the mirrors and the statics of the
+invalidated pids only; a rotation drops every static, as the original
+does (WindowEncoder._sync).
 
 The "into pprof" half of the north star: after close_window() lands exact
 per-stack counts on the host, every pid with samples needs a serialized
@@ -67,7 +70,8 @@ Thread-ownership contract (the encode pipeline, profiler/encode_pipeline.py):
     under the GIL, id-mirror reads by the watermark, and a compaction
     observed mid-read at worst caches state that the next prepare() (which
     always sees the bumped registry epoch, being sequenced after it)
-    throws away wholesale.
+    throws away: every id mirror, and every static whose registry is no
+    longer its pid's (after a rotation, every static).
 """
 
 from __future__ import annotations
@@ -209,10 +213,10 @@ class _PidStatic:
         self.n_locs = 0
         self.period_ns = -1      # period embedded in tail (staleness guard)
         self.reg = None          # registry these sections were built from
-        #                          (identity guard for the epoch-change
-        #                          cache rescue: a reused pid number with
-        #                          a FRESH registry must not intern the
-        #                          old pid's bytes under new-content keys)
+        #                          (identity guard at an epoch change: a
+        #                          reused pid number with a FRESH registry
+        #                          must neither keep the old pid's bytes
+        #                          nor intern them under new-content keys)
 
 
 def _loc_extend(st: _PidStatic, data) -> None:
@@ -422,6 +426,7 @@ class WindowEncoder:
         self._cache = _ContentCache(statics_cache_bytes)
         self._synced = 0                 # ids with cached sample prefixes
         self._epoch = -1                 # aggregator registry epoch mirror
+        self._rotations = 0              # its rotations at that epoch
         self._pre_flat = np.empty(4096, np.uint8)
         # _pre_off[0.._synced] are valid; capacity grows by doubling (a
         # per-sync concatenate would re-copy ~8 MB of offsets per window
@@ -511,30 +516,45 @@ class WindowEncoder:
 
         The mirrors are keyed on the aggregator's registry_epoch, which
         both id-remapping events bump: a cold-stack rotation and a pid
-        invalidation's compaction."""
+        invalidation's compaction. Neither edits a surviving pid's
+        registry, so the per-pid statics stay exact across both; what
+        differs is what goes with the mirrors. After a rotation every
+        static goes, as in parca_agent_tpu, with its location blob first
+        rescued into the content cache so the rebuild is lookups. After
+        invalidations alone only the statics of the dropped registries
+        go: every other pid keeps its sections, so the window after an
+        invalidation rebuilds nothing for it."""
         agg = self._agg
         epoch = agg.registry_epoch
         if epoch != self._epoch:
-            # A compaction remapped ids wholesale: drop every mirror. But
-            # first rescue the location blobs into the content cache —
-            # neither a rotation nor an invalidation edits a surviving
-            # pid's registry content, so the blobs are still exact and the
-            # imminent rebuild can be lookups instead of re-encodes.
-            # (Head/tail pairs were cached at build time; delta-extended
-            # loc blobs were not.)
-            if self._epoch >= 0:
-                for pid, st in self._static.items():
-                    reg = agg._pids.get(pid)
-                    if (reg is None or reg is not st.reg
-                            or st.n_locs == 0
-                            or len(reg.loc_mapping_id) < st.n_locs):
-                        continue
-                    self._cache_put(_loc_key(reg, st.n_locs),
-                                    bytes(st.loc_bytes), len(st.loc_bytes))
+            rotations = agg.stats.get("rotations", 0)
+            if self._epoch >= 0 and rotations == self._rotations:
+                # Invalidation compactions only: a pid whose registry is
+                # gone, or was made anew since (a recycled pid
+                # re-registered), loses its statics; the rest are exact.
+                for pid in [p for p, st in self._static.items()
+                            if agg._pids.get(p) is not st.reg]:
+                    del self._static[pid]
+            else:
+                # A rotation (or the first sync): rescue the location
+                # blobs into the content cache, then drop every static.
+                # (Head/tail pairs were cached at build time;
+                # delta-extended loc blobs were not.)
+                if self._epoch >= 0:
+                    for pid, st in self._static.items():
+                        reg = agg._pids.get(pid)
+                        if (reg is None or reg is not st.reg
+                                or st.n_locs == 0
+                                or len(reg.loc_mapping_id) < st.n_locs):
+                            continue
+                        self._cache_put(_loc_key(reg, st.n_locs),
+                                        bytes(st.loc_bytes),
+                                        len(st.loc_bytes))
+                self._static.clear()
+                self._rotations = rotations
             self._epoch = epoch
             self._synced = 0
             self._pre_off[0] = 0
-            self._static.clear()
             self._statics_clean = None
             self._order = None
         n = agg._published
@@ -1061,7 +1081,7 @@ class WindowEncoder:
         its input digest (cheap: a handful of mapping rows). Location
         blobs are NOT digested here — adoption is on the startup path
         and already pays one content digest per record for validation;
-        the epoch-change rescue in _sync interns them lazily, exactly
+        the rotation-time rescue in _sync interns them lazily, exactly
         when a rebuild could want them."""
         self._sync()  # pin the registry epoch so the next sync keeps these
         st = self._static.get(pid)

@@ -25,7 +25,8 @@ moves encode + ship onto a dedicated worker thread:
   * A worker exception ships the failed window through the caller's
     fallback, resets the encoder's mirrors, and disables the pipeline —
     the profiler reverts to its inline path; with a fallback no window
-    is lost (without one the loss is counted in windows_lost).
+    is lost (without one the loss is counted in windows_lost). The
+    port's fast loop passes none: profiler/cpu.py raises the error.
   * A warm statics snapshot hook may ride this worker too: every
     snapshot_every-th shipped window, the worker calls it, so a restart
     can adopt instead of rebuilding. Worker-thread-only by design — the

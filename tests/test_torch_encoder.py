@@ -451,3 +451,86 @@ def test_invalidation_compaction_keeps_the_encoder_exact(overflow):
         assert_same_blobs(JaxEncoder(t.jagg).encode(jc, *args), out,
                           ordered=False)
         assert_matches_builder(t.pagg, pair[1], c, out)
+
+
+def test_invalidation_keeps_the_surviving_pids_statics():
+    """An invalidation's compaction edits no surviving registry, so the
+    long-lived encoder keeps those pids' statics (the same objects, no
+    byte built or looked up) and drops only the invalidated pid's; with
+    the pid back, only its statics are made again (served from the
+    content cache, its new registry holding the old content)."""
+    t = Twin()
+    snaps = t.snaps(**_spec_kw(seed=4))
+    t.encode(t.window(snaps), snaps[1])
+    kept = {p: st for p, st in t.penc._static.items() if p != 1000}
+    assert 1000 in t.penc._static and kept
+    for agg in (t.jagg, t.pagg):
+        assert agg.invalidate_pid(1000)
+    before = {k: t.penc.stats[k] for k in (
+        "statics_bytes_built", "statics_bytes_reused", "statics_cache_hits",
+        "statics_cache_misses")}
+    for w, pair in enumerate([tuple(_without_pid(s, 1000) for s in snaps),
+                              snaps]):
+        jc = np.asarray(t.jagg.window_counts(pair[0]))
+        c = t.pagg.window_counts(pair[1])
+        args = (pair[1].time_ns + w, pair[1].window_ns, pair[1].period_ns)
+        out = t.penc.encode(c, *args)
+        assert_same_blobs(JaxEncoder(t.jagg).encode(jc, *args), out,
+                          ordered=False)
+        assert_matches_builder(t.pagg, pair[1], c, out)
+        assert all(t.penc._static[p] is st for p, st in kept.items())
+        if w == 0:
+            assert 1000 not in t.penc._static
+            assert {k: t.penc.stats[k] for k in before} == before
+    st = t.penc._static[1000]
+    assert st.reg is t.pagg._pids[1000]
+    made = sum(t.penc.stats[k] - before[k]
+               for k in ("statics_bytes_built", "statics_bytes_reused"))
+    assert made == len(st.head) + len(st.tail) + len(st.loc_bytes)
+
+
+def test_recycled_pid_registered_again_before_the_encoder_syncs():
+    """invalidate_pid, then a window that brings the pid back, before any
+    encode: the encoder meets the pid's fresh registry at its first sync
+    after the compaction and must not keep the old pid's statics."""
+    t = Twin()
+    snaps = t.snaps(**_spec_kw(seed=4))
+    t.encode(t.window(snaps), snaps[1])
+    old = t.penc._static[1000]
+    for agg in (t.jagg, t.pagg):
+        assert agg.invalidate_pid(1000)
+    jc = np.asarray(t.jagg.window_counts(snaps[0]))
+    c = t.pagg.window_counts(snaps[1])
+    args = (snaps[1].time_ns + 1, snaps[1].window_ns, snaps[1].period_ns)
+    out = t.penc.encode(c, *args)
+    assert t.penc._static[1000] is not old
+    assert t.penc._static[1000].reg is t.pagg._pids[1000]
+    assert_same_blobs(JaxEncoder(t.jagg).encode(jc, *args), out,
+                      ordered=False)
+    assert_matches_builder(t.pagg, snaps[1], c, out)
+
+
+def test_rotation_and_invalidation_between_two_encodes():
+    """A rotation and an invalidation before the same sync: the rotation
+    rule holds (every static dropped, rebuilt from the content cache) and
+    the bytes equal a fresh parca_agent_tpu encoder's."""
+    t = Twin(capacity=1 << 13, rotate_min_age=1)
+    s1 = t.snaps(**_spec_kw(seed=51))
+    s2 = t.snaps(**_spec_kw(seed=52))
+    t.encode(t.window(s1), s1[1])
+    t.encode(t.window(s2), s2[1])
+    pid = int(np.unique(s2[1].pids)[3])
+    for agg in (t.jagg, t.pagg):
+        assert agg.invalidate_pid(pid)
+        agg._rotate_pending = True
+    jc = np.asarray(t.jagg.window_counts(s2[0]))
+    c = t.pagg.window_counts(s2[1])
+    np.testing.assert_array_equal(jc, c)
+    assert t.pagg.stats["rotations"] == 1
+    hits = t.penc.stats["statics_cache_hits"]
+    args = (s2[1].time_ns + 1, s2[1].window_ns, s2[1].period_ns)
+    out = t.penc.encode(c, *args)
+    assert t.penc.stats["statics_cache_hits"] > hits
+    assert_same_blobs(JaxEncoder(t.jagg).encode(jc, *args), out,
+                      ordered=False)
+    assert_matches_builder(t.pagg, s2[1], c, out)

@@ -106,3 +106,23 @@ def test_register_stacks_bulk_interleaved_pids_equal_jax(seed):
                                       pd_.window_counts(ps))
         _assert_same_registries(jd, pd_)
     assert len(pd_._pids) > 300
+
+
+def test_cold_window_tool_on_the_cpu(capsys):
+    """tools/cold_window.py, which times A0's cold window: at a small
+    spec on the CPU it prints one JSON line, and with --invalidate the
+    long-lived encoder's bytes equal a fresh one's (the tool raises if
+    not) while it builds no statics for the surviving pids."""
+    import json
+
+    from parca_agent_tpu_torch.tools import cold_window
+
+    assert cold_window.main(["--device", "cpu", "--rows", "2048",
+                             "--pids", "40", "--capacity", str(1 << 13),
+                             "--encode", "--invalidate", "3"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["rows"] == out["inserts"] == 2048
+    assert out["device"] == "cpu" and out["registry_epoch"] == 3
+    assert out["encode_pids"] == 40
+    assert out["encode_after_stats"]["statics_bytes_built"] == 0
+    assert out["encode_after_stats"]["statics_cache_hits"] == 6
