@@ -35,23 +35,25 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                2^16 rows, beside its plain torch path and its bound
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
-               window, then steady windows fed as 10 drains each and closed,
+               window, then a steady window fed as 10 drains and closed,
                every window's pprof for every pid through one
                WindowEncoder (--fast-encode; the cold window pays the
                statics build), the last window also through the encode
                pipeline (its bytes equal to the inline encode's). Totals
                and per-pid masses must equal the numpy CPUAggregator's on
-               the same snapshot; every live pid has one blob, every 64th
+               the same snapshot, and every 64th pid's sorted stack counts;
+               every live pid has one blob, every 64th
                pid's parses to build_pprof's samples; every feed must
                launch the fused probe kernel, every close the close
                kernel. Then the probe-step histogram of the window's rows
                in the table, and K1 on that table at one drain's rows,
                against its plain version, timed, with its bound.
   5. one shot  the port's TPUAggregator (--aggregator tpu) on the same
-               window: the hash arm twice, the second run checked against
-               the same oracle (with per-pid location counts) and its
+               window: aggregate() with the hash arm once, checked against
+               the same oracle (with per-pid location counts), its
                row_hash and loc_table launches counted; the sort arm's 10
-               outputs and a sample's pprof bytes equal to the hash arm's;
+               outputs equal to those that run computed, and a sample's
+               pprof bytes equal;
                both kernels against their plain versions at the window's
                shapes (the location table's dense list re-sorted), timed,
                with their bounds, the bytes the row hash fetches, the
@@ -64,19 +66,42 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                windows below the aggregator's location warning threshold.
   6. bounded   --aggregator dict+cm: DictAggregator(overflow="sketch") on
                the card, started by load_state from phase 4's full
-               dictionary (2^20 ids), 9 windows of the bench window's
+               dictionary (2^20 ids), 8 windows of the bench window's
                first 200,000 rows plus 65,536 new stacks (a bench row's
                leaf moved inside its mapping), 10 drains each: new stacks
                absorbed into the count-min sketch while full (delta
                closes), the rotation once the cold ids are 6 windows
-               unseen, exact windows after it, pid invalidation at once
-               and deferred. Every window: exact + absorbed mass equals
+               unseen, exact windows after it, 50 pids invalidated at
+               once and one deferred. Every window: exact + absorbed mass
+               equals
                the window's, the sketch never underestimates an absorbed
                row, and a CPU twin from the same state gives the same
                counts, ids and sketch. One WindowEncoder encodes every
-               window; after the rotation and each invalidation its bytes
-               equal a fresh encoder's for every pid and build_pprof's
-               for every 64th. B2 and B3 timed on its own accumulators.
+               window; after the rotation and after the invalidations its
+               bytes equal a fresh encoder's for every pid and
+               build_pprof's for every 64th. B2 and B3 timed on its own
+               accumulators.
+  7. streaming the streaming window: DictAggregator(carry=True) on the
+               card, fed drain by drain by StreamingWindowFeeder inside the
+               fast loop (CPUProfiler with the encode pipeline and a
+               StaticsStore in a temporary directory), the bench window cut
+               into 10 drains on pid boundaries, each drain's mapping
+               table rebuilt from the window's own: a cold window, then 3
+               windows of the same rows plus 65,536 new stacks each
+               (carried rows fold on the host, the rest launch K1; each
+               close launches B2 or, when the touched blocks are few, B3).
+               Every window: per-pid mass equal to the
+               numpy oracle, one blob per live pid, every 64th pid's blob
+               equal to build_pprof's; no window re-aggregated, no carry
+               fallback. The path's kernels against their plain versions
+               at its shapes, timed, with their bounds: the first full and
+               the first delta close on the window's own accumulator (id_cap
+               2^21), and K1 on the dictionary's table (2^22 slots) at the
+               first steady window's last drain, the rows the carry left.
+               The worker writes the statics snapshot after the
+               last window; a fresh dictionary and encoder adopt it and
+               stream the last window again, whose bytes must equal a cold
+               encoder's for every pid.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -121,11 +146,11 @@ N_QUERY = 1 << 20
 ROWS = 1 << 20
 PIDS = 50_000
 SAMPLES = 5_000_000
-STEADY_WINDOWS = 3
+STEADY_WINDOWS = 1
 DRAINS = 10
 # Phase 5: timed runs of each dedup arm on each small window; windows of
 # each CLI run.
-ARM_REPS = 5
+ARM_REPS = 3
 CLI_WINDOWS = 3
 
 
@@ -675,13 +700,14 @@ def close_case(seed: int, n_fetch: int, width: int, n_big: int, tail: bool,
     return acc, touch
 
 
-def close_bound(out_words: int, nb_prefix: int = 0, unfetched: int = 0):
-    """(bound ms, by) of one close: acc read once, except the touched
-    blocks past n_blk_buf (no output depends on them), the touch flags of
-    the prefix read once, the buffer written once; ~4 integer operations
-    an id (compare, select, shift, add)."""
-    acc_bytes = 4 * (ID_CAP - BLK * unfetched)
-    return bound(acc_bytes + 4 * nb_prefix + 4 * out_words, 4 * ID_CAP)
+def close_bound(out_words: int, nb_prefix: int = 0, unfetched: int = 0,
+                id_cap: int = ID_CAP):
+    """(bound ms, by) of one close: acc (`id_cap` ids) read once, except
+    the touched blocks past n_blk_buf (no output depends on them), the
+    touch flags of the prefix read once, the buffer written once; ~4
+    integer operations an id (compare, select, shift, add)."""
+    acc_bytes = 4 * (id_cap - BLK * unfetched)
+    return bound(acc_bytes + 4 * nb_prefix + 4 * out_words, 4 * id_cap)
 
 
 def close_turns(impls: dict, args: tuple, delta: bool, reps: int = 50,
@@ -740,6 +766,38 @@ def close_turns(impls: dict, args: tuple, delta: bool, reps: int = 50,
     out["host_covered"] = covered
     close.LAUNCHES.update(saved)
     return out
+
+
+def handle_close(h, impls: dict) -> dict:
+    """close_turns on a dictionary's closed window (its close handle `h`,
+    taken before the accumulator is reused): the form the close launched
+    first, full or delta, at the handle's shape, with the bound of this
+    accumulator's data. A delta close that grew its block buffer to the
+    touched blocks is taken at the grown buffer, the one that held the
+    window."""
+    id_cap = int(h.acc.shape[0])
+    if h.delta_blks:
+        n_touched = int((h.touch[:h.n_fetch // BLK] > 0).sum())
+        n_blk = h.delta_blks
+        if n_touched > n_blk and (1 << (n_touched - 1).bit_length()) * BLK \
+                <= h.n_fetch // 2:
+            n_blk = 1 << (n_touched - 1).bit_length()
+        args = (h.acc, h.touch, h.n_fetch, h.width, h.n_over_buf, n_blk,
+                BLK)
+        out_words = (n_blk * BLK * h.width // 32 + n_blk
+                     + 2 * h.n_over_buf + 4)
+        b_ms, b_by = close_bound(out_words, h.n_fetch // BLK,
+                                 max(0, n_touched - n_blk), id_cap)
+    else:
+        args = (h.acc, h.n_fetch, h.width, h.n_over_buf)
+        n_touched = n_blk = None
+        b_ms, b_by = close_bound(h.n_fetch * h.width // 32
+                                 + 2 * h.n_over_buf + 2, id_cap=id_cap)
+    return {**close_turns(impls, args, bool(h.delta_blks)),
+            "bound_ms": b_ms, "bound_by": b_by, "id_cap": id_cap,
+            "n_fetch": h.n_fetch, "width": h.width,
+            "n_over_buf": h.n_over_buf, "n_blk_buf": n_blk,
+            "planned_blk_buf": h.delta_blks or None, "touched": n_touched}
 
 
 def phase_close_kernels(dev, close_refs=None) -> None:
@@ -978,12 +1036,49 @@ def check_profiles(label: str, snap, want, profiles, sample: int = 500,
                                  f"locations, the oracle {w.n_locations}")
 
 
+def sample_profiles(agg, snap, counts, every: int = 64):
+    """_build_profiles of every `every`-th live pid (in pid order), built
+    from those pids' counts alone."""
+    import numpy as np
+
+    id_pid = agg._id_pid[:len(counts)]
+    live = np.unique(id_pid[counts > 0])
+    keep = np.isin(id_pid, live[::every]) & (counts > 0)
+    return agg._build_profiles(snap, np.where(keep, counts, 0))
+
+
+def check_window(label: str, agg, snap, counts, blobs, mass: dict,
+                 values, pprof: bool = True) -> dict:
+    """Raise unless `counts` hold the window's total and, for every pid,
+    the oracle's mass (`mass`: pid -> samples), every 64th live pid its
+    oracle's sorted stack counts (`values(pid)`), and the encoder's blobs
+    one for every live pid and (with `pprof`) build_pprof's samples for
+    every 64th. Returns check_encoded's fields."""
+    import numpy as np
+
+    if int(counts.sum()) != snap.total_samples():
+        raise AssertionError(f"{label}: total {int(counts.sum())} != "
+                             f"{snap.total_samples()}")
+    id_pid = agg._id_pid[:len(counts)].astype(np.int64)
+    got = np.bincount(id_pid, weights=counts.astype(np.float64))
+    live = np.flatnonzero(got)
+    if {int(p): int(got[p]) for p in live} != mass:
+        raise AssertionError(f"{label}: per-pid mass differs")
+    profiles = sample_profiles(agg, snap, counts)
+    for p in profiles:
+        if sorted(p.values.tolist()) != sorted(values(p.pid)):
+            raise AssertionError(f"{label}: pid {p.pid} stack counts")
+    return check_encoded(label, agg, snap, counts, blobs,
+                         every=1 if pprof else 0, profiles=profiles)
+
+
 def check_encoded(label: str, agg, snap, counts, blobs, every: int = 64,
                   profiles=None) -> dict:
     """Raise unless the window encoder's [(pid, bytes)] hold exactly one
     blob for every pid with samples, and (unless `every` is 0) every
     `every`-th pid's blob parses to the samples, locations and mappings
-    of build_pprof of _build_profiles. Returns the pids checked and
+    of build_pprof of _build_profiles (`profiles`, all of the window's;
+    by default only those pids' are built). Returns the pids checked and
     build_pprof's time."""
     import numpy as np
 
@@ -997,9 +1092,10 @@ def check_encoded(label: str, agg, snap, counts, blobs, every: int = 64,
     if not every:
         return {}
     if profiles is None:
-        profiles = agg._build_profiles(snap, counts)
+        sample = sample_profiles(agg, snap, counts, every)
+    else:
+        sample = profiles[::every]
     by_pid = dict(blobs)
-    sample = profiles[::every]
     t0 = time.perf_counter()
     want = [parse_pprof(build_pprof(p, compress=False)) for p in sample]
     build_ms = (time.perf_counter() - t0) * 1e3
@@ -1038,12 +1134,11 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     t0 = time.perf_counter()
     hashes = agg.hash_rows(snap)  # the capture-carried identity triple
     hash_s = time.perf_counter() - t0
+    want_mass = {p.pid: p.total() for p in want}
+    want_by_pid = {p.pid: p for p in want}
 
-    def check(counts, profiles, label):
-        if int(counts.sum()) != total:
-            raise AssertionError(f"{label}: total {int(counts.sum())} != "
-                                 f"{total}")
-        check_profiles(label, snap, want, profiles)
+    def want_values(pid):
+        return want_by_pid[pid].values.tolist()
 
     # Every count to 0 just before the main path; read just after.
     probe.reset_launches()
@@ -1062,19 +1157,14 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     t0 = time.perf_counter()
     blobs = enc.encode(counts, *args)
     encode_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    profiles = agg._build_profiles(snap, counts)
-    build_profiles_ms = (time.perf_counter() - t0) * 1e3
-    check(counts, profiles, "cold window")
-    checked = check_encoded("cold window", agg, snap, counts, blobs,
-                            profiles=profiles)
+    checked = check_window("cold window", agg, snap, counts, blobs,
+                           want_mass, want_values)
     emit("cold_window", ms=cold_ms, inserts=agg.stats["inserts"],
          encode_ms=encode_ms, window_to_pprof_ms=cold_ms + encode_ms,
          encode_timings_ms={k: v * 1e3 for k, v in enc.timings.items()},
          statics_build_ms=enc.stats["statics_build_s_total"] * 1e3,
          pprof_pids=len(blobs), pprof_bytes=sum(len(b) for _, b in blobs),
-         build_profiles_ms=build_profiles_ms, **checked,
-         hash_s=hash_s, timings_ms={k: v * 1e3
+         **checked, hash_s=hash_s, timings_ms={k: v * 1e3
                                     for k, v in agg.timings.items()})
 
     bounds = np.linspace(0, len(snap), DRAINS + 1).astype(int)
@@ -1099,13 +1189,9 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
         encode_ms = (time.perf_counter() - t0) * 1e3
         to_pprof_ms = (time.perf_counter() - t_close) * 1e3
         window_ms = (time.perf_counter() - t_win) * 1e3
-        t0 = time.perf_counter()
-        profiles = agg._build_profiles(snap, counts)
-        profiles_ms = (time.perf_counter() - t0) * 1e3
-        check(counts, profiles, f"steady window {w}")
         # The yardstick: build_pprof of every 64th pid.
-        checked = check_encoded(f"steady window {w}", agg, snap, counts,
-                                blobs, profiles=profiles)
+        checked = check_window(f"steady window {w}", agg, snap, counts,
+                               blobs, want_mass, want_values)
         steady_rows.append({
             "window": w, "feed_dispatch_ms": feed_ms,
             "feed_dispatch_ms_sum": sum(feed_ms), "close_ms": close_ms,
@@ -1116,8 +1202,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
             "window_to_pprof_ms": to_pprof_ms,
             "pprof_pids": len(blobs),
             "pprof_bytes": sum(len(b) for _, b in blobs),
-            "build_profiles_ms": profiles_ms, **checked,
-            "window_ms": window_ms,
+            **checked, "window_ms": window_ms,
             "inserts": agg.stats["inserts"],
             "delta_closes": agg.stats.get("delta_closes", 0),
             "fetch_bytes_last": agg.stats.get("fetch_bytes_last"),
@@ -1152,7 +1237,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
          ship_ms=pipe.stats["last_ship_s"] * 1e3, pids=len(shipped),
          bytes=sum(len(b) for _, b in shipped),
          encoder_stats=dict(enc.stats))
-    del shipped, blobs, profiles
+    del shipped, blobs
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
                              f"{launches_per_feed}")
@@ -1162,38 +1247,58 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     # How far the window's rows walk in the dictionary's table (the host
     # mirror of the device table, at this window's load): slots read a
     # row, and rounds of the probe kernel's group a row.
-    table = np.zeros((agg._cap, 4), np.uint32)
-    table[:, 0], table[:, 1], table[:, 2] = agg._h1, agg._h2, agg._h3
-    table[:, 3] = np.where(agg._occ, agg._ids + 1, 0).astype(np.uint32)
+    table = host_table(agg)
     steps, _slots, _found = probe_work(table, *hashes, probe.PROBES)
     emit("main_path", launches=launches, feeds=len(launches_per_feed),
          launches_per_feed=launches_per_feed,
          table_load=float(agg._occ.mean()),
          probe_step_hist=np.bincount(steps).tolist())
-    drain_k1(dev, agg, table, snap, hashes, int(bounds[0]), int(bounds[1]),
-             ref)
+    drain_k1(dev, agg, table,
+             drain_packed(snap, hashes, int(bounds[0]), int(bounds[1])),
+             "main_path_drain_k1", ref)
     return launches, agg.export_state(), hashes
 
 
-def drain_k1(dev, agg, table, snap, hashes, lo: int, hi: int,
-             ref=None) -> None:
-    """K1 (feed_accumulate) on the main path's own device table, at one
-    steady drain: the window's rows lo:hi packed as feed() packs them
-    (padded to a power of two with dead rows). The kernel (and the
-    reference build) against the plain version, then timed (in turns with
-    the reference) beside the plain version and the bound of this drain's
-    data."""
+def drain_packed(snap, hashes, lo: int, hi: int):
+    """The window's rows lo:hi packed as feed() packs a drain: uint32
+    [4, n_pad] (h1, h2, h3, count), padded to a power of two with dead
+    rows."""
+    import numpy as np
+
+    nd = hi - lo
+    packed = np.zeros((4, 1 << max(4, (nd - 1).bit_length())), np.uint32)
+    for k in range(3):
+        packed[k, :nd] = hashes[k][lo:hi]
+    packed[3, :nd] = snap.counts[lo:hi].astype(np.uint32)
+    return packed
+
+
+def host_table(agg):
+    """The host mirror of a dictionary's device table, as the probe reads
+    it: (h1, h2, h3, id + 1, or 0 for a free slot) a slot."""
+    import numpy as np
+
+    table = np.zeros((agg._cap, 4), np.uint32)
+    table[:, 0], table[:, 1], table[:, 2] = agg._h1, agg._h2, agg._h3
+    table[:, 3] = np.where(agg._occ, agg._ids + 1, 0).astype(np.uint32)
+    return table
+
+
+def drain_k1(dev, agg, table, packed, label: str, ref=None) -> dict:
+    """K1 (feed_accumulate) on a dictionary's own device table (`table`
+    its host mirror) at one drain's dispatched rows `packed` (uint32
+    [4, n_pad], as feed() packs them). The kernel (and the reference
+    build) against the plain version, then timed (in turns with the
+    reference) beside the plain version and the bound of this drain's
+    data. Launches made here are not counted. Emits `label` and returns
+    its fields."""
     import numpy as np
     import torch
 
     from parca_agent_tpu_torch.aggregator import probe
 
-    nd = hi - lo
-    n_pad = 1 << max(4, (nd - 1).bit_length())
-    packed = np.zeros((4, n_pad), np.uint32)
-    for k in range(3):
-        packed[k, :nd] = hashes[k][lo:hi]
-    packed[3, :nd] = snap.counts[lo:hi].astype(np.uint32)
+    saved = dict(probe.LAUNCHES)
+    n_pad = packed.shape[1]
     lanes = [torch.from_numpy(packed[k].view(np.int32)).to(dev)
              for k in range(4)]
     blk = agg._blk
@@ -1208,17 +1313,16 @@ def drain_k1(dev, agg, table, snap, hashes, lo: int, hi: int,
     if ref is not None:
         impls["reference"] = ref[1]
     want = run(probe.feed_accumulate_plain)
-    for label, fn in impls.items():
+    for name, fn in impls.items():
         got = run(fn)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"feed_accumulate {label} != plain at the "
-                                 "main path's drain")
+            raise AssertionError(f"feed_accumulate {name} != plain at "
+                                 f"{label}")
     acc = torch.zeros(agg._id_cap, dtype=torch.int32, device=dev)
     touch = torch.zeros(n_blocks, dtype=torch.int32, device=dev)
-    saved = dict(probe.LAUNCHES)
-    timed = time_turns({label: (lambda fn=fn: fn(
-        agg._dev, acc, touch, blk, *lanes)) for label, fn in impls.items()},
+    timed = time_turns({name: (lambda fn=fn: fn(
+        agg._dev, acc, touch, blk, *lanes)) for name, fn in impls.items()},
         50)
     plain_ms = time_ms(lambda: probe.feed_accumulate_plain(
         agg._dev, acc, touch, blk, *lanes), 5)
@@ -1230,11 +1334,16 @@ def drain_k1(dev, agg, table, snap, hashes, lo: int, hi: int,
     nbytes = 16 * n_pad + 4 * int((found >= 0).sum()) + 16 * slots \
         + 8 * len(np.unique(ids)) + 4 * len(np.unique(ids // blk))
     b_ms, b_by = bound(nbytes, 6 * int(steps.sum()) + 2 * int(hit.sum()))
-    emit("main_path_drain_k1", rows=nd, n_pad=n_pad, hits=int(hit.sum()),
-         probe_step_hist=np.bincount(steps).tolist(), ms_turns=timed,
-         ms=min(timed["kernel"]), plain_ms=plain_ms, bound_ms=b_ms,
-         bound_by=b_by, bytes=nbytes, equal=True,
-         **({"reference_ms": min(timed["reference"])} if ref else {}))
+    row = {"rows": int((packed[3] > 0).sum()), "n_pad": n_pad,
+           "hits": int(hit.sum()), "table_slots": len(table),
+           "id_cap": agg._id_cap,
+           "probe_step_hist": np.bincount(steps).tolist(), "ms_turns": timed,
+           "ms": min(timed["kernel"]), "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "equal": True,
+           **({"reference_ms": min(timed["reference"])} if ref else {})}
+    emit(label, **row)
+    return row
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1428,9 +1537,9 @@ def dedup_arms(dev, spec, rh_impls: dict, reps: int = None) -> dict:
 
 def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     """The one-shot aggregator (--aggregator tpu) on `dev` over the same
-    window: (b) the hash arm twice, the second run checked against the
+    window: (b) aggregate() with the hash arm once, checked against the
     oracle with its kernel launches counted; (c) the sort arm's outputs
-    and pprof against the hash arm's; (a) both kernels against their
+    and pprof against that run's; (a) both kernels against their
     plain versions at the window's shapes, timed (the row hash in turns
     with the reference builds `rh_refs`, label -> fn, at this window and
     at (e)'s two), with the row hash stage's host cost; (d) the CLI
@@ -1453,13 +1562,18 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     def ms(seconds: dict) -> dict:
         return {k: v * 1e3 for k, v in seconds.items()}
 
-    # (b) The main path: the first run pays the kernels' load; counts go
-    # to 0 just before the second run and are read just after it.
+    # (b) The main path, once (its kernels were built in phase 2): counts
+    # go to 0 just before the run and are read just after it.
     agg = tpu.TPUAggregator(dedup="hash", device=dev)
-    t0 = time.perf_counter()
-    agg.aggregate(snap)
-    sync()
-    first_ms = (time.perf_counter() - t0) * 1e3
+    # The entry point, keeping the window outputs it computes so that the
+    # sort arm below is held to this run's.
+    kept = []
+
+    def keep_outputs(s, window_outputs=agg.window_outputs):
+        kept.append(window_outputs(s))
+        return kept[-1]
+
+    agg.window_outputs = keep_outputs
     probe.reset_launches()
     row_hash.reset_launches()
     t0 = time.perf_counter()
@@ -1475,12 +1589,12 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     check_profiles("one-shot hash arm", snap, want, profiles,
                    locations=True)
     stats = dict(agg.stats)
-    emit("one_shot_window", first_window_ms=first_ms, window_ms=window_ms,
+    emit("one_shot_window", window_ms=window_ms,
          launches=launches, host_ms=ms(agg.timings),
          device_ms=agg.device_ms, profiles=len(profiles), **stats)
 
     # (c) The sort arm: the same 10 outputs, bit for bit, and pprof bytes.
-    snap_h, outs_h = agg.window_outputs(snap)
+    (snap_h, outs_h), = kept
     agg_s = tpu.TPUAggregator(dedup="sort", device=dev)
     snap_s, outs_s = agg_s.window_outputs(snap)
     for i, (a, b) in enumerate(zip(outs_h, outs_s)):
@@ -1725,12 +1839,12 @@ def fast_encode_cli() -> None:
 HOT = 200_000
 FRESH = 65_536
 ROTATE_MIN_AGE = 6
-BOUNDED_WINDOWS = 9
+BOUNDED_WINDOWS = 8
 INVALIDATE_NOW = 6      # after this window's close: N_INVALIDATE hot pids
-INVALIDATE_DEFERRED = 7  # during this window's close: one pid, deferred
+INVALIDATE_DEFERRED = 6  # during this window's close: one pid, deferred
 # Each immediate invalidate_pid compacts the whole id space, as in
 # parca_agent_tpu.
-N_INVALIDATE = 500
+N_INVALIDATE = 50
 
 
 def window_rows(snap, idx, leaf_shift: int = 0):
@@ -1881,26 +1995,8 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
         the plain version, in turns with the reference builds (first full
         and first delta close)."""
         name = "close_pack_delta" if h.delta_blks else "close_pack"
-        if name in timed:
-            return
-        if h.delta_blks:
-            args = (h.acc, h.touch, h.n_fetch, h.width, h.n_over_buf,
-                    h.delta_blks, BLK)
-            n_touched = int((h.touch[:h.n_fetch // BLK] > 0).sum())
-            out_words = (h.delta_blks * BLK * h.width // 32 + h.delta_blks
-                         + 2 * h.n_over_buf + 4)
-            b_ms, b_by = close_bound(out_words, h.n_fetch // BLK,
-                                     max(0, n_touched - h.delta_blks))
-        else:
-            args = (h.acc, h.n_fetch, h.width, h.n_over_buf)
-            n_touched = None
-            b_ms, b_by = close_bound(h.n_fetch * h.width // 32
-                                     + 2 * h.n_over_buf + 2)
-        timed[name] = {**close_turns(impls, args, bool(h.delta_blks)),
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "n_fetch": h.n_fetch, "width": h.width,
-                       "n_over_buf": h.n_over_buf,
-                       "n_blk_buf": h.delta_blks, "touched": n_touched}
+        if name not in timed:
+            timed[name] = handle_close(h, impls)
 
     # Every count to 0 just before the path; read just after.
     probe.reset_launches()
@@ -1923,8 +2019,8 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
                    "pids": len(blobs),
                    "bytes": sum(len(b) for _, b in blobs)}
         if w >= INVALIDATE_NOW:
-            # After the rotation, the immediate invalidation and the
-            # deferred one: a fresh encoder's bytes, and build_pprof.
+            # After the rotation (window 6), then the immediate
+            # invalidations and the deferred one: a fresh encoder's bytes.
             t0 = time.perf_counter()
             fresh_blobs = WindowEncoder(agg).encode(counts, *args)
             encoded["fresh_encode_ms"] = (time.perf_counter() - t0) * 1e3
@@ -1932,6 +2028,7 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
                 raise AssertionError(f"window {w}: the long-lived encoder "
                                      "!= a fresh one")
             del fresh_blobs
+            # And build_pprof of every 64th pid.
             encoded.update(check_encoded(f"bounded window {w}", agg, win,
                                          counts, blobs))
         else:
@@ -2033,6 +2130,385 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
                                ("close_pack_delta", "232"))}, launches
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+# The streaming window with the cross-drain carry cache (the north star's
+# --streaming-window), on the bench window: a cold window, then steady
+# windows of the same rows plus STREAM_FRESH new stacks each, 10 drains a
+# window cut on pid boundaries (per-pid location registration is
+# batch-local), closed through the feeder; the encode pipeline's worker
+# writes the warm statics snapshot after the last window, and a restart
+# adopts it and streams the last window again. Capacity 2^22: the window's
+# 2^20 stacks plus the steady windows' new ones exceed id_cap 2^20 of the
+# default 2^21 table under overflow "raise".
+STREAM_CAP = 1 << 22
+STREAM_FRESH = 65_536
+STREAM_WINDOWS = 4
+
+
+class MappedObject:
+    """An object file as the mapping table build reads it: its base."""
+
+    __slots__ = ("_base",)
+
+    def __init__(self, base: int):
+        self._base = base
+
+    def base(self) -> int:
+        return self._base
+
+
+class WindowMaps:
+    """The mapping and object caches of a window's own MappingTable (the
+    port has no /proc reader): each pid's rows as ProcMappings, the
+    table's build ids by path, and each row's normalization base."""
+
+    def __init__(self, table):
+        from parca_agent_tpu_torch.process.maps import ProcMapping
+
+        self._rows: dict = {}
+        self._objs: dict = {}
+        for pid, start, end, off, obj, base in zip(
+                table.pids.tolist(), table.starts.tolist(),
+                table.ends.tolist(), table.offsets.tolist(),
+                table.objs.tolist(), table.bases.tolist()):
+            m = ProcMapping(start, end, "r-xp", off, "08:01", 1 + obj,
+                            table.obj_paths[obj])
+            self._rows.setdefault(pid, []).append(m)
+            self._objs[(pid, start)] = MappedObject(base)
+        self._ids = dict(zip(table.obj_paths, table.obj_buildids))
+
+    def executable_mappings(self, pid):
+        if pid not in self._rows:
+            raise OSError(f"pid {pid} has no mappings")
+        return self._rows[pid]
+
+    def build_ids(self, per_pid):
+        return dict(self._ids)
+
+    def get(self, pid, m):
+        return self._objs[(pid, m.start)]
+
+
+def stream_windows(snap):
+    """The phase's windows: the bench window's rows (window 0), then the
+    same rows plus STREAM_FRESH rows of the bench window with the leaf
+    moved by 4 w bytes (new stacks, new locations); each ordered by pid,
+    with its 10 drain bounds on pid boundaries. Returns [(window,
+    bounds, fresh rows or None)]."""
+    import dataclasses
+
+    import numpy as np
+
+    cols = ("pids", "tids", "counts", "user_len", "kernel_len", "stacks")
+    out = []
+    for w in range(STREAM_WINDOWS):
+        fresh = None
+        win = snap
+        if w:
+            fresh = window_rows(snap, np.arange((w - 1) * STREAM_FRESH,
+                                                w * STREAM_FRESH), 4 * w)
+            win = dataclasses.replace(snap, **{
+                k: np.concatenate([getattr(snap, k), getattr(fresh, k)])
+                for k in cols})
+        order = np.argsort(win.pids, kind="stable")
+        win = dataclasses.replace(win, **{k: getattr(win, k)[order]
+                                          for k in cols})
+        edges = np.flatnonzero(np.diff(win.pids)) + 1
+        n = len(win)
+        bounds = [0]
+        for k in range(1, DRAINS):
+            i = int(np.searchsorted(edges, k * n / DRAINS))
+            e = int(edges[min(i, len(edges) - 1)])
+            if e > bounds[-1]:
+                bounds.append(e)
+        bounds.append(n)
+        out.append((win, bounds, fresh))
+    return out
+
+
+def phase_streaming(dev, snap, want) -> dict:
+    """The streaming path on `dev`: DictAggregator(carry=True) fed by the
+    StreamingWindowFeeder through the fast loop (CPUProfiler with the
+    encode pipeline and a StaticsStore), STREAM_WINDOWS windows, then a
+    restart that adopts the snapshot and streams the last window again.
+    Every window's per-pid mass equals the numpy oracle's, every live
+    pid has one blob, every 64th pid's blob parses to build_pprof's
+    samples; the restart's bytes equal a cold encoder's for every pid.
+    Returns the path's kernel launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.pprof.statics_store import StaticsStore
+    from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
+    from parca_agent_tpu_torch.process.maps import build_mapping_table
+    from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
+    from parca_agent_tpu_torch.profiler.streaming import (
+        StreamingWindowFeeder,
+    )
+
+    t0 = time.perf_counter()
+    maps = WindowMaps(snap.mappings)
+    pids = np.unique(snap.mappings.pids).tolist()
+    per_pid = {p: maps.executable_mappings(p) for p in pids}
+    rebuilt = build_mapping_table(per_pid, maps.build_ids(per_pid),
+                                  objcache=maps)
+    for k in ("pids", "starts", "ends", "offsets", "objs", "bases"):
+        if not np.array_equal(getattr(rebuilt, k), getattr(snap.mappings, k)):
+            raise AssertionError(f"the drains' mapping table differs in {k}")
+    if rebuilt.obj_paths != snap.mappings.obj_paths \
+            or rebuilt.obj_buildids != snap.mappings.obj_buildids:
+        raise AssertionError("the drains' mapping table differs in objects")
+    windows = stream_windows(snap)
+    # The oracle: the numpy CPUAggregator's profiles of the bench rows
+    # (phase 4's) and of each window's fresh rows (distinct stacks).
+    base_mass = {p.pid: p.total() for p in want}
+    base_vals = {p.pid: p.values.tolist() for p in want}
+    oracles = []
+    for _win, _bounds, fresh in windows:
+        mass, extra = dict(base_mass), {}
+        if fresh is not None:
+            for p in CPUAggregator().aggregate(fresh):
+                mass[p.pid] = mass.get(p.pid, 0) + p.total()
+                extra[p.pid] = p.values.tolist()
+        oracles.append((mass, extra))
+    emit("streaming_setup", s=time.perf_counter() - t0,
+         windows=STREAM_WINDOWS, rows=[len(w) for w, _, _ in windows],
+         drains=[len(b) - 1 for _, b, _ in windows], fresh=STREAM_FRESH,
+         capacity=STREAM_CAP, mapping_rows=len(rebuilt))
+
+    class KeptAggregator(DictAggregator):
+        """The dictionary, keeping a copy of the last drain's dispatched
+        rows (what the carry left for K1) and the last close's handle, for
+        the kernel checks at this path's shapes."""
+
+        kept_packed = kept_handle = None
+
+        def _feed_dispatch_async(self, packed, reset):
+            self.kept_packed = packed.copy()
+            return super()._feed_dispatch_async(packed, reset)
+
+        def close_dispatch(self):
+            self.kept_handle = super().close_dispatch()
+            return self.kept_handle
+
+    class KeptFeeder(StreamingWindowFeeder):
+        """The feeder, keeping a copy of each streamed window's counts
+        for the checks."""
+
+        kept = None
+
+        def take_window_if_complete(self, snapshot):
+            counts = super().take_window_if_complete(snapshot)
+            self.kept = None if counts is None else counts.copy()
+            return counts
+
+    class Source:
+        """poll() tees the next window's drains to the feeder (as the
+        sampler's drain tee does), then returns the window."""
+
+        def __init__(self, feeder, agg, todo):
+            self.feeder, self.agg, self.todo = feeder, agg, list(todo)
+            self.miss_s = 0.0
+
+        def poll(self):
+            if not self.todo:
+                return None
+            win, bounds, _fresh = self.todo.pop(0)
+            self.miss_s = 0.0
+            for lo, hi in zip(bounds[:-1], bounds[1:]):
+                self.feeder.on_drain((
+                    win.pids[lo:hi], win.tids[lo:hi], win.user_len[lo:hi],
+                    win.kernel_len[lo:hi], win.stacks[lo:hi],
+                    win.counts[lo:hi]))
+                self.miss_s += self.agg.timings.pop("feed_miss", 0.0)
+            return win
+
+    class Writer:
+        def __init__(self):
+            self.blobs = []
+
+        def write(self, labels, blob):
+            self.blobs.append((int(labels["pid"]), bytes(blob)))
+
+    def check(label, agg, win, counts, blobs, oracle, pprof=True):
+        mass, extra = oracle
+        return check_window(
+            label, agg, win, counts, blobs, mass,
+            lambda pid: base_vals.get(pid, []) + extra.get(pid, []), pprof)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_statics_")
+    path = str(Path(tmp.name) / "statics.snap")
+    rows_out = []
+
+    def run(agg, feeder, prof, src, writer, w, record_list):
+        """One window through the fast loop; its record and stats."""
+        before = {k: agg.stats.get(k, 0) for k in (
+            "coalesce_rows_out", "carry_hits", "carry_mass", "inserts")}
+        k1 = probe.LAUNCHES["feed_accumulate"]
+        b2 = close.LAUNCHES["close_pack"]
+        b3 = close.LAUNCHES["close_pack_delta"]
+        prebuilt = feeder.stats["statics_prebuilt"]
+        prebuilds = prof.pipeline.stats["prebuilds"]
+        enc = prof.encoder
+        statics0 = enc.stats["statics_build_s_total"]
+        built0 = enc.stats["statics_bytes_built"]
+        writer.blobs = []
+        t_win = time.perf_counter()
+        if not prof.run_iteration():
+            raise AssertionError("the source ended early")
+        miss_s = src.miss_s + agg.timings.pop("feed_miss", 0.0)
+        if not prof.pipeline.flush(600):
+            raise AssertionError("the encode pipeline did not flush")
+        window_s = time.perf_counter() - t_win
+        rec = record_list[-1]
+        if not rec.get("streamed"):
+            raise AssertionError(f"window {w} did not stream: {rec}")
+        d = {k: agg.stats.get(k, 0) - v for k, v in before.items()}
+        return {
+            "window": w, "rows_in": rec["rows"],
+            "rows_dispatched": d["coalesce_rows_out"] - d["carry_hits"],
+            "carry_hits": d["carry_hits"], "carry_mass": d["carry_mass"],
+            "inserts": d["inserts"],
+            "k1_launches": probe.LAUNCHES["feed_accumulate"] - k1,
+            "b2_launches": close.LAUNCHES["close_pack"] - b2,
+            "b3_launches": close.LAUNCHES["close_pack_delta"] - b3,
+            "feeder_ms": {k: v * 1e3 for k, v in rec["feeder_s"].items()},
+            "miss_settle_ms": miss_s * 1e3,
+            "close_ms": rec["feeder_s"]["close"] * 1e3,
+            "aggregate_ms": rec["aggregate_ms"],
+            "handoff_ms": rec.get("handoff_ms"),
+            "encode_ms": rec["encode_ms"],
+            "statics_build_ms": (enc.stats["statics_build_s_total"]
+                                 - statics0) * 1e3,
+            "statics_bytes_built": enc.stats["statics_bytes_built"] - built0,
+            "statics_prebuilt": feeder.stats["statics_prebuilt"] - prebuilt,
+            "worker_prebuilds": prof.pipeline.stats["prebuilds"] - prebuilds,
+            "window_s": window_s, "pprof_pids": len(writer.blobs),
+            "pprof_bytes": sum(len(b) for _, b in writer.blobs),
+        }
+
+    def stack():
+        agg = KeptAggregator(capacity=STREAM_CAP, overflow="raise",
+                             device=dev, carry=True)
+        feeder = KeptFeeder(agg, maps, maps,
+                            prebuild_period_ns=snap.period_ns)
+        return agg, feeder
+
+    kernel_rows = {}
+    close_impls = {"kernel": (close.close_pack, close.close_pack_delta)}
+    # Every count to 0 just before the path; read just after.
+    probe.reset_launches()
+    close.reset_launches()
+    agg, feeder = stack()
+    src = Source(feeder, agg, windows)
+    writer, records = Writer(), []
+    store = StaticsStore(path)
+    prof = CPUProfiler(src, agg, profile_writer=writer,
+                       statics_store=store,
+                       statics_snapshot_every=STREAM_WINDOWS,
+                       streaming_feeder=feeder, on_window=records.append)
+    for w, (win, _bounds, _fresh) in enumerate(windows):
+        row = run(agg, feeder, prof, src, writer, w, records)
+        row.update(check(f"streaming window {w}", agg, win, feeder.kept,
+                         writer.blobs, oracles[w]))
+        if w and not row["carry_hits"]:
+            raise AssertionError(f"streaming window {w} carried nothing")
+        if row["k1_launches"] < 1 \
+                or row["b2_launches"] + row["b3_launches"] < 1:
+            raise AssertionError(f"streaming window {w} launched K1 "
+                                 f"{row['k1_launches']}, B2 "
+                                 f"{row['b2_launches']}, B3 "
+                                 f"{row['b3_launches']} times")
+        rows_out.append(row)
+        emit("streaming_window", **row)
+        # The path's kernels against their plain versions at its shapes:
+        # the first full and the first delta close on the window's own
+        # accumulator (intact until the next window but one), and K1 on
+        # the dictionary's table at the first steady window's last drain,
+        # the rows the carry left to dispatch.
+        h = agg.kept_handle
+        form = "close_pack_delta" if h and h.delta_blks else "close_pack"
+        if h is not None and h.acc is not None and form not in kernel_rows:
+            kernel_rows[form] = handle_close(h, close_impls)
+            emit("streaming_close_kernel", window=w, kernel=form,
+                 **kernel_rows[form])
+        if w == 1:
+            kernel_rows["feed_accumulate"] = drain_k1(
+                dev, agg, host_table(agg), agg.kept_packed,
+                "streaming_drain_k1")
+    prof.close()
+    fs, st = dict(feeder.stats), dict(agg.stats)
+    if fs["windows_streamed"] != STREAM_WINDOWS or fs["windows_fallback"] \
+            or st.get("carry_fallbacks", 0):
+        raise AssertionError(f"streaming stats: {fs}, "
+                             f"carry_fallbacks {st.get('carry_fallbacks')}")
+    saved = dict(store.stats)
+    if saved["snapshots_written"] != 1 or saved["snapshot_write_errors"]:
+        raise AssertionError(f"statics snapshot: {saved}")
+    emit("streaming_snapshot", **{k: saved[k] for k in (
+        "snapshot_bytes", "snapshot_records", "records_dropped_cap",
+        "snapshot_save_ms")}, file_bytes=Path(path).stat().st_size,
+         pids=len(agg._pids), carry_entries=st.get("carry_entries"),
+         footprint=agg.footprint_bytes())
+    # The first run's dictionary and encoder go before the restart's.
+    del prof, writer, records, src, feeder, agg
+    # The restart: a fresh dictionary and encoder adopt the snapshot, then
+    # the last window streams again.
+    agg2, feeder2 = stack()
+    win, bounds, fresh = windows[-1]
+    src2 = Source(feeder2, agg2, [(win, bounds, fresh)])
+    writer2, records2 = Writer(), []
+    store2 = StaticsStore(path)
+    prof2 = CPUProfiler(src2, agg2, profile_writer=writer2,
+                        statics_store=store2, statics_snapshot_every=1000,
+                        streaming_feeder=feeder2, on_window=records2.append)
+    adopt = store2.adopt(agg2, prof2.encoder, snap.period_ns)
+    if not adopt["adopted"] or adopt["corrupt"]:
+        raise AssertionError(f"adoption: {adopt}")
+    emit("streaming_adopt", adopt_ms=store2.stats["snapshot_adopt_ms"],
+         **adopt, statics_adopted_pids=prof2.encoder.stats[
+             "statics_adopted_pids"], registries=len(agg2._pids))
+    row = run(agg2, feeder2, prof2, src2, writer2, STREAM_WINDOWS, records2)
+    prof2.close()
+    # Its bytes are held to a cold encoder's below, for every pid.
+    row.update(check("restarted window", agg2, win, feeder2.kept,
+                     writer2.blobs, oracles[-1], pprof=False))
+    t0 = time.perf_counter()
+    cold = WindowEncoder(agg2).encode(feeder2.kept, win.time_ns,
+                                      win.window_ns, win.period_ns)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    if sorted((p, bytes(b)) for p, b in cold) != sorted(writer2.blobs):
+        raise AssertionError("the adopted encoder's bytes != a cold "
+                             "encoder's")
+    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                "close_pack": close.LAUNCHES["close_pack"]}
+    if close.LAUNCHES["close_pack_delta"]:
+        launches["close_pack_delta"] = close.LAUNCHES["close_pack_delta"]
+    emit("streaming_restart", **row, cold_encoder_ms=cold_ms,
+         cold_window={k: rows_out[0][k] for k in (
+             "miss_settle_ms", "encode_ms", "statics_build_ms",
+             "statics_bytes_built", "aggregate_ms")},
+         bytes_equal_cold_encoder=True)
+    emit("streaming_path", launches=launches, feeder_stats=fs,
+         carry={k: v for k, v in st.items() if k.startswith("carry_")},
+         kernels={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")}
+                  for k, r in kernel_rows.items()})
+    tmp.cleanup()
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"phase 7 never launched {name}")
+        if name not in kernel_rows:
+            raise AssertionError(f"phase 7 launched {name} but never held "
+                                 "it against its plain version")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
@@ -2129,13 +2605,16 @@ def main() -> int:
                                  state, close_refs)
     del state
     rows.update(bounded)
+    launches_stream = timed("streaming", phase_streaming, dev, snap, want)
     # Each path's own launches, counted from 0 just before it: the
-    # dictionary (phase 4), the one-shot aggregator (phase 5) and the
-    # bounded-memory dictionary (phase 6). `launches` is their sum.
+    # dictionary (phase 4), the one-shot aggregator (phase 5), the
+    # bounded-memory dictionary (phase 6) and the streaming window
+    # (phase 7). `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
-               "dict_cm": launches_cm}
+               "dict_cm": launches_cm,
+               "streaming": launches_stream}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

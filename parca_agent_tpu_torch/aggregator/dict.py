@@ -74,6 +74,9 @@ from parca_agent_tpu_torch.ops.sketch import (
 )
 from parca_agent_tpu_torch.pprof.vec import ragged_gather
 from parca_agent_tpu_torch.utils.device import resolve_device
+from parca_agent_tpu_torch.utils.log import get_logger
+
+_log = get_logger("aggregator.dict")
 
 # Linear-probe bound. The capacity guard keeps load factor <= 0.5, and at
 # the default table sizing (2x the id capacity) it stays <= 0.25, where
@@ -215,19 +218,44 @@ class _CloseHandle:
     retry loop can re-pack any number of times while the next window's
     feeds land in the flipped twin."""
 
-    __slots__ = ("acc", "touch", "pending", "n_ids", "n_fetch", "width",
-                 "n_over_buf", "delta_blks", "out_dev")
+    __slots__ = ("acc", "touch", "pending", "pending_vec", "n_ids",
+                 "n_fetch", "width", "n_over_buf", "delta_blks", "out_dev")
 
     def __init__(self):
         self.acc = None
         self.touch = None
         self.pending = []
+        # The carry cache's window flush: (sids int64, counts int64)
+        # arrays, applied once at collect (same lifecycle as pending).
+        self.pending_vec = None
         self.n_ids = 0
         self.n_fetch = 0
         self.width = 0
         self.n_over_buf = 0
         self.delta_blks = 0
         self.out_dev = None
+
+
+def registry_content_digest(mappings, loc_address, loc_normalized,
+                            loc_mapping_id, loc_is_kernel) -> bytes:
+    """16-byte digest of one pid registry's full content — mappings (all
+    fields, including the normalization base) and every location row. The
+    identity the statics snapshot keys on (pprof/statics_store.py): a
+    record whose stored digest differs from the digest of its decoded
+    content is discarded as corrupt."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for m in mappings:
+        h.update(("%d,%d,%d,%d,%d,%s\0%s\0" % (
+            m.id, m.start, m.end, m.offset, m.base, m.path,
+            m.build_id)).encode())
+    h.update(b";")
+    h.update(np.asarray(loc_address, np.uint64).tobytes())
+    h.update(np.asarray(loc_normalized, np.uint64).tobytes())
+    h.update(np.asarray(loc_mapping_id, np.int32).tobytes())
+    h.update(np.asarray(loc_is_kernel, bool).tobytes())
+    return h.digest()
 
 
 @dataclasses.dataclass
@@ -254,13 +282,16 @@ class DictAggregator:
     windows. ``device`` is "cuda" (default; raises without a CUDA device)
     or "cpu" (the plain PyTorch versions of the kernels). ``overflow`` is
     "sketch" (default: degrade to the count-min sideband and rotate cold
-    stacks at capacity) or "raise" (fail fast)."""
+    stacks at capacity) or "raise" (fail fast). ``carry=True`` turns on
+    the cross-drain carry cache (host numpy): a stack dispatches on its
+    first drain and later drains fold its mass on the host, flushed once
+    at the close."""
 
     name = "dict"
 
     def __init__(self, capacity: int = 1 << 21, overflow: str = "sketch",
                  rotate_min_age: int = 6,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", carry: bool = False):
         if capacity & (capacity - 1):
             raise ValueError("capacity must be a power of two")
         if overflow not in ("sketch", "raise"):
@@ -269,6 +300,27 @@ class DictAggregator:
         self._cap = capacity
         self._id_cap = capacity // 2
         self._overflow = overflow
+        # Cross-drain carry cache: an h1-sorted host map key -> (stack id,
+        # accumulated weight). A stack's FIRST dispatch admits its key;
+        # every later drain that sees the key folds its mass here instead
+        # of shipping a dispatch row, and the close flushes the
+        # accumulated (sid, weight) pairs alongside the pending
+        # corrections. Weights are zeroed at every window boundary (close
+        # flush, discard); the key -> sid entries persist until a
+        # compaction remaps the id space. At most one entry per live id.
+        self._carry = carry
+        self._carry_h1 = np.zeros(0, np.uint32)  # sorted, unique
+        self._carry_h2 = np.zeros(0, np.uint32)
+        self._carry_h3 = np.zeros(0, np.uint32)
+        self._carry_sid = np.zeros(0, np.int64)
+        self._carry_w = np.zeros(0, np.int64)
+        # Prefix-bucket index over _carry_h1: starts[p] .. starts[p+1]
+        # bound the entries whose top (32 - shift) bits equal p (~O(1)
+        # probes a needle at <= 0.5 load). Rebuilt only at admission.
+        self._carry_shift = 32
+        self._carry_starts = np.zeros(2, np.int64)
+        self._carry_open_mass = 0   # mass carried for the open window
+        self._carry_disabled = False  # match failed: off until boundary
         self._cm = None                  # lazy [depth, width] int64
         self._over_hll = None            # lazy [m] int32 registers
         self._rotate_min_age = rotate_min_age
@@ -410,6 +462,89 @@ class DictAggregator:
         self._fed_total = 0
         self._pending = []
         self._needs_reset = True
+        # Carried mass of the aborted window must not leak into the next
+        # one's flush; the cache itself (key -> sid) stays warm.
+        self._carry_disabled = False
+        if self._carry_open_mass:
+            self._carry_w[:] = 0
+            self._carry_open_mass = 0
+            self.stats["carry_discards"] = \
+                self.stats.get("carry_discards", 0) + 1
+
+    # -- registry identity (statics snapshot support) ------------------------
+
+    def footprint_bytes(self) -> dict:
+        """Per-lane host-memory accounting: every lane must go flat (or
+        sit at its construction-time cap) once a stationary workload is
+        warm. Lanes holding Python lists (the per-pid location
+        registries) are counted at a fixed per-entry estimate."""
+        carry = int(self._carry_h1.nbytes + self._carry_h2.nbytes
+                    + self._carry_h3.nbytes + self._carry_sid.nbytes
+                    + self._carry_w.nbytes + self._carry_starts.nbytes)
+        table = int(self._h1.nbytes + self._h2.nbytes + self._h3.nbytes
+                    + self._occ.nbytes + self._ids.nbytes
+                    + self._last_seen.nbytes)
+        id_meta = int(self._id_pid.nbytes + self._loc_off.nbytes
+                      + self._loc_flat.nbytes + self._id_h1.nbytes
+                      + self._id_h2.nbytes)
+        # ~56 B per interned key tuple entry; ~48 B per location list
+        # row across the four parallel lists; ~120 B per mapping row.
+        keys = 56 * len(self._key_to_id)
+        regs = 0
+        for reg in self._pids.values():
+            regs += 48 * len(reg.loc_address) + 120 * len(reg.mappings) \
+                + 56 * len(reg.addr_to_loc)
+        return {
+            "carry_bytes": carry,
+            "table_bytes": table,
+            "id_meta_bytes": id_meta,
+            "key_index_bytes": int(keys),
+            "pid_registry_bytes": int(regs),
+        }
+
+    def registry_digest(self, pid: int, n_mappings: int | None = None,
+                        n_locs: int | None = None) -> bytes | None:
+        """Content digest of one pid's location registry (bounded reads
+        for encoder-thread callers); None for an unknown pid."""
+        reg = self._pids.get(pid)
+        if reg is None:
+            return None
+        nm = len(reg.mappings) if n_mappings is None else n_mappings
+        nl = min(len(reg.loc_address), len(reg.loc_normalized),
+                 len(reg.loc_mapping_id), len(reg.loc_is_kernel))
+        if n_locs is not None:
+            nl = min(nl, n_locs)
+        return registry_content_digest(
+            reg.mappings[:nm], reg.loc_address[:nl],
+            reg.loc_normalized[:nl], reg.loc_mapping_id[:nl],
+            reg.loc_is_kernel[:nl])
+
+    def adopt_registry(self, pid: int, mappings, loc_address,
+                       loc_normalized, loc_mapping_id,
+                       loc_is_kernel) -> bool:
+        """Install a snapshot-restored per-pid location registry (the
+        statics store's warm-restart path). Cold-start only: refused
+        (False) once the pid has a registry — adoption must never alias
+        or reorder live loc ids. Adopted content is an append-only
+        prefix: the pid's first live window translates re-seen addresses
+        to their restored ids and appends only the new ones."""
+        if pid in self._pids:
+            return False
+        # One C-level pass to plain ints (dict keys must be exact ints;
+        # a np.uint64 key would miss every later lookup).
+        addrs = np.asarray(loc_address, np.uint64).tolist()
+        self._pids[pid] = _PidRegistry(
+            addr_to_loc=dict(zip(addrs, range(1, len(addrs) + 1))),
+            loc_address=addrs,
+            loc_normalized=np.asarray(loc_normalized, np.uint64).tolist(),
+            loc_mapping_id=np.asarray(loc_mapping_id, np.int32).tolist(),
+            loc_is_kernel=np.asarray(loc_is_kernel, bool).tolist(),
+            mappings=list(mappings),
+            mapping_index={(m.start, m.end, m.offset): m.id
+                           for m in mappings},
+        )
+        self._reg_version += 1
+        return True
 
     # -- state carried across (the dictionary is this system's state) --------
 
@@ -525,7 +660,9 @@ class DictAggregator:
         self._unreach_h1 = None
         self._load_sketch_state(arrays)
         # The device twin follows the mirror; the accumulators, the
-        # width/delta history and the open window start fresh.
+        # width/delta history, the carry cache and the open window start
+        # fresh.
+        self._carry_reset()
         self._dev = None
         self._ensure_device()
         self._acc = self._acc_spare = None
@@ -584,8 +721,9 @@ class DictAggregator:
         # Settle the PREVIOUS feed's deferred miss check first: miss
         # resolution (= id assignment) must stay in feed order.
         self._settle_misses()
+        self.timings.pop("feed_carry", None)
         chunk_total = int(snapshot.counts[lo:hi].sum())
-        if self._fed_total + chunk_total >= 2**31:
+        if self._fed_total + self._carry_open_mass + chunk_total >= 2**31:
             raise ValueError("window sample total exceeds int32")
         if self._needs_reset:
             # First feed of a new window: the boundary where cold-id
@@ -596,6 +734,8 @@ class DictAggregator:
         # Dispatch-row state: `rows_map` maps each dispatch row back to
         # a representative snapshot row (absolute index) for miss
         # resolution; `w64` carries its exact (possibly folded) mass.
+        # Carry matches and coalesce folds below filter/fold both in
+        # lockstep with the hash lanes.
         w64 = np.asarray(snapshot.counts[lo:hi], np.int64)
         rows_map = np.arange(lo, hi, dtype=np.int64)
         # Coalescing: dedupe the batch into (stack, weight) pairs BEFORE
@@ -607,7 +747,16 @@ class DictAggregator:
             h1c = np.asarray(h1[lo:hi], np.uint32)
             h2c = np.asarray(h2[lo:hi], np.uint32)
             h3c = np.asarray(h3[lo:hi], np.uint32)
-            if n > 1:
+            h2c = self._route_hashes(h1c, h2c, h3c, snapshot.pids[lo:hi])
+            # Carry BEFORE the fold: carried rows are known stacks whose
+            # mass accumulates on the host; only the remainder pays the
+            # fold and the dispatch.
+            keep = self._carry_match(h1c, h2c, h3c, w64)
+            if keep is not None:
+                h1c, h2c, h3c = h1c[keep], h2c[keep], h3c[keep]
+                w64 = w64[keep]
+                rows_map = rows_map[keep]
+            if len(h1c) > 1:
                 h1c, h2c, h3c, w64, rows_map = self._coalesce_triples(
                     h1c, h2c, h3c, w64, rows_map)
         else:
@@ -644,7 +793,16 @@ class DictAggregator:
                 np.ascontiguousarray(snapshot.stacks[rows_map]),
                 snapshot.pids[rows_map], snapshot.user_len[rows_map],
                 snapshot.kernel_len[rows_map], n_hashes=3)
+            h2c = self._route_hashes(h1c, h2c, h3c, snapshot.pids[rows_map])
             self.timings["feed_hash"] = time.perf_counter() - t0
+            keep = self._carry_match(h1c, h2c, h3c, w64)
+            if keep is not None:
+                h1c, h2c, h3c = h1c[keep], h2c[keep], h3c[keep]
+                w64, rows_map = w64[keep], rows_map[keep]
+        if not len(h1c):
+            # The whole batch carried: nothing to dispatch — its mass
+            # rides the carry cache to the close flush.
+            return
         counts_c = w64.astype(np.uint32)
         nd = len(h1c)
         t0 = time.perf_counter()
@@ -680,7 +838,7 @@ class DictAggregator:
         self._pending.extend(corrections)
         # _fed_total means "mass in the DEVICE accumulator" (the close
         # gate and width prediction read it); host-settled corrections
-        # are not part of it.
+        # and carried mass are not part of it.
         self._fed_total += int(w64.sum()) - sum(c for _, c in corrections)
         # Dispatch-only cost: the miss sync is deferred to the next feed /
         # the close, where the kernel has already completed.
@@ -690,9 +848,11 @@ class DictAggregator:
 
     def _settle_misses(self) -> None:
         """Settle the deferred miss check of the last dispatched feed:
-        sync the miss count and resolve any misses (insert new stacks,
-        queue host-side count corrections). Runs at the next feed and at
-        close — always before the window's counts are read."""
+        sync the miss count, resolve any misses (insert new stacks, queue
+        host-side count corrections), then admit the dispatched keys into
+        the carry cache so later drains fold against them. Runs at the
+        next feed and at close — always before the window's counts are
+        read."""
         inflight, self._miss_inflight = self._miss_inflight, None
         if inflight is None:
             return
@@ -706,6 +866,23 @@ class DictAggregator:
                 snapshot, rows_map[miss_rel], h1d[miss_rel],
                 h2d[miss_rel], h3d[miss_rel], w64[miss_rel]))
             self.timings["feed_miss"] = time.perf_counter() - t0
+        if self._carry and not self._carry_disabled:
+            t0 = time.perf_counter()
+            self._carry_admit(h1d, h2d, h3d)
+            self.timings["feed_carry"] = \
+                self.timings.get("feed_carry", 0.0) \
+                + (time.perf_counter() - t0)
+
+    def _route_hashes(self, h1, h2, h3, pids):
+        """Rewrite hook for identity triples computed outside hash_rows
+        (capture-carried hashes, post-fold representative hashing): an
+        aggregator that re-routes identity lanes applies the same rewrite
+        here so carried and self-hashed triples agree bit for bit.
+        Returns the (possibly rewritten) h2 lane. Nothing in this package
+        overrides it yet: it is kept for parity with parca_agent_tpu,
+        whose sharded aggregator rewrites h2 here, and waits for the
+        port of that aggregator."""
+        return h2
 
     def _coalesce_triples(self, h1c, h2c, h3c, w64, rows_map):
         """Coalesce dispatch rows to (stack, weight) pairs on the
@@ -728,6 +905,175 @@ class DictAggregator:
             self.stats.get("coalesce_rows_out", 0) + len(h1c)
         self.timings["feed_coalesce"] = time.perf_counter() - t0
         return h1c, h2c, h3c, w64, rows_map
+
+    # -- cross-drain carry cache ---------------------------------------------
+
+    def _carry_lookup(self, h1c: np.ndarray) -> np.ndarray:
+        """Position of each needle's h1 in the cache, or -1: a bucket walk
+        (each needle scans its prefix bucket — sorted, h1-unique, load
+        <= 0.5, so almost always one probe — with the still-unresolved
+        subset shrinking each pass)."""
+        pref = (h1c >> self._carry_shift).astype(np.int64)
+        cur = self._carry_starts[pref]
+        end = self._carry_starts[pref + 1]
+        pos = np.full(len(h1c), -1, np.int64)
+        act = np.flatnonzero(cur < end)
+        while len(act):
+            c = cur[act]
+            cand = self._carry_h1[c]
+            eq = cand == h1c[act]
+            pos[act[eq]] = c[eq]
+            # Bucket entries are ascending: passing the needle's value
+            # ends its scan (absent key).
+            more = ~eq & (cand < h1c[act])
+            act = act[more]
+            cur[act] += 1
+            act = act[cur[act] < end[act]]
+        return pos
+
+    def _carry_match(self, h1c, h2c, h3c, w64):
+        """Cross-drain fold: batch rows whose keys already sit in the
+        carry cache accumulate their mass on the host instead of shipping
+        dispatch rows. Returns the keep mask (False = carried) or None
+        when nothing matched. A match failure is counted and turns
+        matching off until the window boundary: the batch dispatches
+        whole and mass already carried still flushes at close, so counts
+        stay exact."""
+        if not self._carry or self._carry_disabled \
+                or not len(self._carry_h1) or not len(h1c):
+            return None
+        t0 = time.perf_counter()
+        try:
+            pos = self._carry_lookup(h1c)
+            hit = pos >= 0
+            if hit.all():
+                # Steady state (every row a candidate): the verify runs
+                # without sub-index gathers.
+                hit = ((self._carry_h2[pos] == h2c)
+                       & (self._carry_h3[pos] == h3c))
+            elif hit.any():
+                sub = np.flatnonzero(hit)
+                e = pos[sub]
+                ok = ((self._carry_h2[e] == h2c[sub])
+                      & (self._carry_h3[e] == h3c[sub]))
+                hit[sub[~ok]] = False  # h1 collision: not cached
+            self.stats["carry_rows_in"] = \
+                self.stats.get("carry_rows_in", 0) + len(h1c)
+            n_hit = int(hit.sum())
+            if not n_hit:
+                return None
+            if n_hit == len(hit):
+                eidx, w = pos, w64
+            else:
+                eidx, w = pos[hit], w64[hit]
+            # float64 bincount is exact below 2^53 total mass (window
+            # mass < 2^31).
+            add = np.bincount(eidx, weights=w.astype(np.float64),
+                              minlength=len(self._carry_w)).astype(
+                                  np.int64)
+            carried = int(w.sum())
+            self.stats["carry_hits"] = \
+                self.stats.get("carry_hits", 0) + n_hit
+            self.stats["carry_mass"] = \
+                self.stats.get("carry_mass", 0) + carried
+            # Mutate LAST: an exception past this point could not be
+            # failed open without double-counting the batch.
+            self._carry_w += add
+            self._carry_open_mass += carried
+            return ~hit
+        except Exception as e:  # noqa: BLE001 - counted, exact either way
+            self._carry_disabled = True
+            self.stats["carry_fallbacks"] = \
+                self.stats.get("carry_fallbacks", 0) + 1
+            _log.warn("feed carry match failed; dispatching per drain for "
+                      "the rest of the window", error=repr(e)[:200])
+            return None
+        finally:
+            self.timings["feed_carry"] = \
+                self.timings.get("feed_carry", 0.0) \
+                + (time.perf_counter() - t0)
+
+    def _carry_admit(self, h1d, h2d, h3d) -> None:
+        """Admit a dispatch's keys into the carry cache. h1 stays UNIQUE
+        in the cache (a same-h1 different-key collision keeps dispatching
+        per drain — exact either way), and only keys with live ids in the
+        host mirror are admitted: sketch-absorbed overflow keys keep
+        riding the sketch, never an exact host-side flush. Runs after
+        miss resolution, so a drain's new inserts are admitted at once."""
+        if not len(h1d):
+            return
+        u, ui = np.unique(h1d, return_index=True)
+        if len(self._carry_h1):
+            pos = np.minimum(np.searchsorted(self._carry_h1, u),
+                             len(self._carry_h1) - 1)
+            fresh = self._carry_h1[pos] != u
+            u, ui = u[fresh], ui[fresh]
+        if not len(u):
+            return
+        h1n = np.ascontiguousarray(h1d[ui], np.uint32)
+        h2n = np.ascontiguousarray(h2d[ui], np.uint32)
+        h3n = np.ascontiguousarray(h3d[ui], np.uint32)
+        ids, _stop, overrun = self._classify_keys_vec(h1n, h2n, h3n)
+        if overrun:
+            return  # wrapped probe chain: skip admission this drain
+        ok = ids >= 0
+        n_new = int(ok.sum())
+        if not n_new:
+            return
+        nh1 = np.concatenate([self._carry_h1, h1n[ok]])
+        order = np.argsort(nh1, kind="stable")
+        self._carry_h1 = nh1[order]
+        self._carry_h2 = np.concatenate([self._carry_h2, h2n[ok]])[order]
+        self._carry_h3 = np.concatenate([self._carry_h3, h3n[ok]])[order]
+        self._carry_sid = np.concatenate(
+            [self._carry_sid, ids[ok]])[order]
+        self._carry_w = np.concatenate(
+            [self._carry_w, np.zeros(n_new, np.int64)])[order]
+        self._carry_reindex()
+        self.stats["carry_admitted"] = \
+            self.stats.get("carry_admitted", 0) + n_new
+        self.stats["carry_entries"] = len(self._carry_h1)
+
+    def _carry_reindex(self) -> None:
+        """Rebuild the prefix-bucket index (~2 buckets per entry, clamped
+        to [2^12, 2^22])."""
+        n = len(self._carry_h1)
+        k = max(12, min(22, int(2 * n - 1).bit_length()))
+        self._carry_shift = 32 - k
+        counts = np.bincount(
+            (self._carry_h1 >> self._carry_shift).astype(np.int64),
+            minlength=1 << k)
+        starts = np.zeros((1 << k) + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        self._carry_starts = starts
+
+    def _carry_take(self):
+        """Flush the open window's carried mass: (sids, counts) int64
+        arrays, or (None, None) when nothing was carried. Zeroes the
+        accumulated weights and re-arms matching — this is the window
+        boundary, and carried corrections must never leak across it."""
+        self._carry_disabled = False
+        if not self._carry_open_mass:
+            return None, None
+        nz = np.flatnonzero(self._carry_w)
+        sids = self._carry_sid[nz].copy()
+        cnts = self._carry_w[nz].copy()
+        self._carry_w[nz] = 0
+        self._carry_open_mass = 0
+        self.stats["carry_flushes"] = \
+            self.stats.get("carry_flushes", 0) + 1
+        return sids, cnts
+
+    def _carry_reset(self) -> None:
+        """Drop every cache entry: they map keys to an id space that is
+        gone (live keys re-admit at their next dispatch)."""
+        self._carry_h1 = np.zeros(0, np.uint32)
+        self._carry_h2 = np.zeros(0, np.uint32)
+        self._carry_h3 = np.zeros(0, np.uint32)
+        self._carry_sid = np.zeros(0, np.int64)
+        self._carry_w = np.zeros(0, np.int64)
+        self._carry_shift = 32
+        self._carry_starts = np.zeros(2, np.int64)
 
     # -- device hooks --------------------------------------------------------
 
@@ -827,13 +1173,17 @@ class DictAggregator:
         if self._close_handle is not None:
             raise RuntimeError("previous close not collected")
         self._settle_misses()
-        if self._fed_total == 0 and not self._pending:
+        carry_sids, carry_cnts = self._carry_take()
+        if self._fed_total == 0 and not self._pending \
+                and carry_sids is None:
             self.stats["windows"] += 1
             self.timings.pop("buffer_flip", None)
             self.timings.pop("delta_fetch", None)
             return None
         h = _CloseHandle()
         h.pending, self._pending = self._pending, []
+        if carry_sids is not None:
+            h.pending_vec = (carry_sids, carry_cnts)
         h.n_ids = self._next_id
         if self._acc is not None and self._fed_total:
             h.acc = self._acc
@@ -1037,6 +1387,12 @@ class DictAggregator:
             cnts = np.array([p[1] for p in h.pending], np.int64)
             np.add.at(counts, sids, cnts)
             h.pending = []
+        if h.pending_vec is not None:
+            # The carry flush, applied exactly once a handle (the retries
+            # above re-pack the device buffers, never this).
+            sids, cnts = h.pending_vec
+            np.add.at(counts, sids, cnts)
+            h.pending_vec = None
         self.stats["windows"] += 1
         out = counts[: h.n_ids]
         self._last_seen[np.flatnonzero(out)] = self.stats["windows"]
@@ -1210,6 +1566,10 @@ class DictAggregator:
         self._prev_touched = None
         self._prev_counts = None
         self._prev_n_over = 0
+        # The carry cache maps keys to the OLD id space: drop it wholesale
+        # (live keys re-admit at their next dispatch; the accumulated
+        # weights are zero at a boundary).
+        self._carry_reset()
         self._reg_version += 1
         self.timings["compact"] = \
             self.timings.get("compact", 0.0) + time.perf_counter() - t0

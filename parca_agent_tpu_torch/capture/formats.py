@@ -117,6 +117,12 @@ class MappingTable:
     def __len__(self) -> int:
         return len(self.pids)
 
+    @staticmethod
+    def empty() -> "MappingTable":
+        z64 = np.zeros(0, np.uint64)
+        z32 = np.zeros(0, np.int32)
+        return MappingTable(z32, z64, z64, z64, z32)
+
     def rows_for_pid(self, pid: int) -> np.ndarray:
         """Indices of this pid's mappings (contiguous because sorted)."""
         # The pid goes in as the column's own dtype: a Python int makes

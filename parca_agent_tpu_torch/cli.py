@@ -6,7 +6,9 @@ aggregation (the device-resident stack dictionary, fail-fast or in
 bounded memory; the one-shot window program; or the numpy CPUAggregator) -> per-pid pprof -> the local
 store. With --fast-encode (dictionary aggregators only) the per-pid pprof
 comes from the vectorized window encoder, on an encode worker thread
-unless --no-encode-pipeline is given (profiler/cpu.py). Flag names are
+unless --no-encode-pipeline is given (profiler/cpu.py); with
+--statics-snapshot-path the worker also keeps a warm statics snapshot,
+which the next run adopts before its first window. Flag names are
 those of parca_agent_tpu's CLI. The aggregation runs on the CUDA card
 unless ``--device cpu`` is given; without a CUDA device the run stops
 with an error that names the missing device.
@@ -68,6 +70,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "statics cache (digest of build inputs -> built "
                         "bytes; rotation/restart rebuilds become lookups "
                         "and identical-layout pids share one blob)")
+    p.add_argument("--statics-snapshot-path", default="",
+                   help="file for the warm pprof-statics + registry "
+                        "snapshot (requires --fast-encode): the encode "
+                        "worker rewrites it every "
+                        "--statics-snapshot-interval windows "
+                        "(CRC-framed, tmp+rename crash-safe) and a "
+                        "restart adopts it — statics warm-build instead "
+                        "of the cold rebuild; stale/corrupt records are "
+                        "individually discarded. Empty disables")
+    p.add_argument("--statics-snapshot-interval", type=int, default=6,
+                   help="windows between statics snapshots (each write is "
+                        "one atomic file replace on the encode worker)")
+    p.add_argument("--statics-snapshot-max-age", type=float, default=900.0,
+                   help="snapshots older than this many seconds are STALE "
+                        "at adoption (the processes they describe are "
+                        "likely gone); 0 = no age bar")
     p.add_argument("--local-store-directory", default="",
                    help="write each window's per-pid profiles here as "
                         ".pb.gz")
@@ -109,6 +127,10 @@ def run(argv=None) -> int:
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator
+    from parca_agent_tpu_torch.capture.formats import (
+        WindowSnapshot,
+        load_snapshot,
+    )
     from parca_agent_tpu_torch.pprof.builder import build_pprof
     from parca_agent_tpu_torch.profiler.cpu import labels_for
     from parca_agent_tpu_torch.utils.device import resolve_device
@@ -125,9 +147,13 @@ def run(argv=None) -> int:
 
         if not args.replay:
             raise SystemExit("--capture replay needs --replay FILE...")
-        source = ReplaySource(args.replay)
+        # The first window is read here: its period is the run's.
+        first = load_snapshot(args.replay[0])
+        period_ns = first.period_ns
+        source = ReplaySource([first, *args.replay[1:]])
     else:
         source = SyntheticSource(args.windows)
+        period_ns = WindowSnapshot.period_ns  # generate() keeps the default
 
     if args.aggregator in ("dict", "dict+cm"):
         # "dict" fails fast at capacity; "dict+cm" degrades to the
@@ -163,6 +189,19 @@ def run(argv=None) -> int:
         with print_mu:
             print(json.dumps(line), flush=True)
 
+    statics_store = None
+    if args.statics_snapshot_path:
+        if not args.fast_encode:
+            print("parca-agent-tpu-torch: --statics-snapshot-path needs "
+                  "--fast-encode; statics snapshotting disabled",
+                  file=sys.stderr)
+        else:
+            from parca_agent_tpu_torch.pprof.statics_store import StaticsStore
+
+            statics_store = StaticsStore(
+                args.statics_snapshot_path,
+                max_age_s=args.statics_snapshot_max_age or None)
+
     profiler = None
     if args.fast_encode:
         from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
@@ -170,7 +209,20 @@ def run(argv=None) -> int:
         profiler = CPUProfiler(source, aggregator, profile_writer=writer,
                                encode_pipeline=not args.no_encode_pipeline,
                                statics_cache_bytes=args.statics_cache_bytes,
-                               on_window=emit)
+                               on_window=emit, statics_store=statics_store,
+                               statics_snapshot_every=max(
+                                   1, args.statics_snapshot_interval))
+        if statics_store is not None:
+            # Adopt the previous run's snapshot before anything touches
+            # the aggregator or the encoder (registries install only into
+            # a cold pid). A missing, stale or corrupt snapshot degrades
+            # to the cold build, record by record; statics built at
+            # another period than the source's windows count as stale.
+            adopt = statics_store.adopt(aggregator, profiler.encoder,
+                                        period_ns)
+            print(json.dumps({"statics_adopt": adopt,
+                              "adopt_ms": statics_store.stats[
+                                  "snapshot_adopt_ms"]}), flush=True)
         step = profiler.run_iteration
     else:
         def step() -> bool:
@@ -208,4 +260,13 @@ def run(argv=None) -> int:
             # Flush the in-flight window (and surface a pipelined
             # failure).
             profiler.close()
+            if statics_store is not None:
+                st = statics_store.stats
+                print(json.dumps({"statics_snapshot": {
+                    k: st[k] for k in ("snapshots_written",
+                                       "snapshots_skipped_clean",
+                                       "snapshot_bytes", "snapshot_records",
+                                       "snapshot_write_errors",
+                                       "records_dropped_cap")}}),
+                      flush=True)
     return 0

@@ -1,11 +1,19 @@
 """The window loop of the fast write path (``--fast-encode``).
 
 The part of parca_agent_tpu's CPUProfiler (profiler/cpu.py there) that
-its --fast-encode path runs: each window, the dictionary's counts
-(``window_counts``, on the card unless the aggregator was made on the
-CPU), then the vectorized pprof encode — handed to the encode pipeline's
-worker thread, or inline on this thread — then the profile writer, one
-profile a pid, under the labels the port's CLI writes.
+its --fast-encode path runs: each window, the dictionary's counts (on
+the card unless the aggregator was made on the CPU), then the vectorized
+pprof encode — handed to the encode pipeline's worker thread, or inline
+on this thread — then the profile writer, one profile a pid, under the
+labels the port's CLI writes.
+
+The counts come from the streaming feeder when one is given (the drains
+were fed during the window, and the close is one packed fetch:
+profiler/streaming.py), else from ``window_counts`` of the snapshot. A
+window the feeder did not see whole is re-aggregated by window_counts on
+the same aggregator (the feeder counts it). With a statics store
+(pprof/statics_store.py) and the pipeline, the worker writes the warm
+statics snapshot every ``statics_snapshot_every`` windows.
 
 There is no fallback: no CPU aggregator stands behind the card and no
 scalar pprof builder behind the encoder. So, as in the original's loop
@@ -22,9 +30,10 @@ when it has no fallback aggregator:
 
 Left out of this port (parca_agent_tpu has them): the CPU fallback
 aggregator and the device hang watchdog, quarantine, admission, process
-identity, sinks, hotspots, the regression sentinel, the streaming
-feeder, the inline soft deadline (--encode-deadline, which ships through
-a scalar fallback), symbolization, and the flight recorder.
+identity, sinks, hotspots, the regression sentinel, the feeder's
+watchdog and cooldown, the inline soft deadline (--encode-deadline,
+which ships through a scalar fallback), symbolization, and the flight
+recorder.
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ import numpy as np
 from parca_agent_tpu_torch.capture.formats import WindowSnapshot
 from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 from parca_agent_tpu_torch.profiler.encode_pipeline import EncodePipeline
+from parca_agent_tpu_torch.utils.log import get_logger
+
+_log = get_logger("profiler")
 
 
 class CaptureSource(Protocol):
@@ -76,7 +88,9 @@ class CPUProfiler:
     pipelined one. The record holds the window's number (from 1), its
     rows, samples, exact mass, the pids written, the aggregate ms, the
     encode ms, the path ("inline" or "pipeline") and, for the pipeline,
-    the hand-off ms on this thread.
+    the hand-off ms on this thread; with a streaming feeder also whether
+    the window streamed and the feeder's per-window seconds (feed,
+    dispatch, settle, hash, coalesce, carry, close).
     """
 
     name = "cpu"
@@ -84,7 +98,9 @@ class CPUProfiler:
     def __init__(self, source: CaptureSource, aggregator,
                  profile_writer=None, encode_pipeline: bool = True,
                  statics_cache_bytes: int = 256 << 20,
-                 on_window: Callable[[dict], None] | None = None):
+                 on_window: Callable[[dict], None] | None = None,
+                 streaming_feeder=None, statics_store=None,
+                 statics_snapshot_every: int = 6):
         if not hasattr(aggregator, "window_counts"):
             raise ValueError(
                 "fast_encode requires a dict-style aggregator "
@@ -95,9 +111,32 @@ class CPUProfiler:
         self._on_window = on_window
         self._encoder = WindowEncoder(
             aggregator, statics_cache_bytes=statics_cache_bytes)
-        self._pipeline = (EncodePipeline(self._encoder,
-                                         ship=self._ship_encoded)
+        # The warm statics snapshot is written on the encode worker only:
+        # it reads the encoder's statics, which that thread owns. (Its
+        # adoption, store.adopt(aggregator, encoder, period_ns), runs
+        # before the first window.)
+        snapshot = None
+        if statics_store is not None:
+            if encode_pipeline:
+                snapshot = (lambda period_ns: statics_store.save(
+                    self._aggregator, self._encoder, period_ns))
+            else:
+                _log.warn("statics snapshotting needs the encode "
+                          "pipeline; snapshots disabled (adoption still "
+                          "works)")
+        self._pipeline = (EncodePipeline(
+            self._encoder, ship=self._ship_encoded, snapshot=snapshot,
+            snapshot_every=statics_snapshot_every if snapshot else 0)
                           if encode_pipeline else None)
+        self._feeder = streaming_feeder
+        if streaming_feeder is not None:
+            # Statics amortization: the feeder prebuilds static sections
+            # after each drain, on the worker when the pipeline owns the
+            # encoder.
+            streaming_feeder.attach_encoder(
+                self._encoder,
+                prebuild=(self._pipeline.request_prebuild
+                          if self._pipeline is not None else None))
         # Writes come from this thread (inline windows) AND the
         # pipeline's worker: one lock serializes the written counter.
         self._write_mu = threading.Lock()
@@ -145,12 +184,26 @@ class CPUProfiler:
     def _aggregate_encode_write(self, snapshot: WindowSnapshot,
                                 window: int) -> None:
         t0 = time.perf_counter()
-        counts = self._aggregator.window_counts(snapshot)
+        counts = None
+        if self._feeder is not None:
+            # The streamed close (None: the feeder did not see the whole
+            # window, and the snapshot is aggregated here instead).
+            counts = self._feeder.take_window_if_complete(snapshot)
+        if counts is None:
+            counts = self._aggregator.window_counts(snapshot)
         agg_s = time.perf_counter() - t0
         record = {"window": window, "rows": len(snapshot),
                   "samples": snapshot.total_samples(),
                   "mass": int(np.asarray(counts).sum()),
                   "aggregate_ms": agg_s * 1e3, "t0": t0}
+        if self._feeder is not None:
+            fs = self._feeder.stats
+            record["streamed"] = bool(fs["last_window_streamed"])
+            record["feeder_s"] = {
+                k[len("last_window_"):-len("_s")]: fs[k] for k in fs
+                if k.startswith("last_window_") and k.endswith("_s")}
+            record["feeder_s"]["close"] = (
+                fs["last_close_s"] if record["streamed"] else 0.0)
         if self._submit_to_pipeline(counts, snapshot, record):
             return
         t1 = time.perf_counter()

@@ -692,3 +692,86 @@ def test_fast_path_cuda_bytes_equal_cpu(cuda, overflow):
         got[str(dev)] = (out, agg.registry_epoch)
     assert got[str(cuda)] == got["cpu"]
     assert got["cpu"][1] >= 1 and got["cpu"][0]
+
+
+@pytest.mark.parametrize("overflow", ["raise", "sketch"])
+def test_streamed_window_with_carry_cuda_equals_cpu(cuda, overflow):
+    """Streamed windows (drains fed during the window, the carry cache on)
+    on the card — K1 on each drain that dispatches rows, B2/B3 at each
+    close — give the counts, ids, carry counters and pprof bytes of the
+    same windows on device="cpu"; the steady windows carry."""
+    import dataclasses
+
+    from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
+    from parca_agent_tpu_torch.profiler.streaming import (
+        StreamingWindowFeeder,
+    )
+
+    class NoMaps:
+        def executable_mappings(self, pid):
+            return []
+
+        def build_ids(self, per_pid):
+            return {}
+
+        def get(self, pid, m):
+            return None
+
+    base = generate(SyntheticSpec(n_pids=40, n_unique_stacks=3000,
+                                  n_rows=3000, total_samples=60_000, seed=5))
+    snaps = []
+    for w in range(4):
+        idx = np.arange(2000 + 250 * w)
+        stacks = base.stacks[idx].copy()
+        stacks[2000:, 0] += np.uint64(4 * w)  # new stacks each window
+        snaps.append(dataclasses.replace(
+            base, pids=base.pids[idx], tids=base.tids[idx],
+            counts=base.counts[idx], user_len=base.user_len[idx],
+            kernel_len=base.kernel_len[idx], stacks=stacks))
+
+    class Source:
+        def __init__(self, feeder):
+            self._feeder, self._left = feeder, list(snaps)
+
+        def poll(self):
+            if not self._left:
+                return None
+            snap = self._left.pop(0)
+            for lo in range(0, len(snap), 400):
+                hi = min(lo + 400, len(snap))
+                self._feeder.on_drain((
+                    snap.pids[lo:hi], snap.tids[lo:hi],
+                    snap.user_len[lo:hi], snap.kernel_len[lo:hi],
+                    snap.stacks[lo:hi], snap.counts[lo:hi]))
+            return snap
+
+    got = {}
+    probe.reset_launches()
+    close.reset_launches()
+    for dev in (cuda, "cpu"):
+        agg = DictAggregator(capacity=1 << 13, overflow=overflow,
+                             rotate_min_age=2, device=dev, carry=True)
+        feeder = StreamingWindowFeeder(agg, NoMaps(), NoMaps())
+        out, masses = [], []
+
+        class Writer:
+            def write(self, labels, blob):
+                out.append((labels["pid"], bytes(blob)))
+
+        p = CPUProfiler(Source(feeder), agg, profile_writer=Writer(),
+                        streaming_feeder=feeder,
+                        on_window=lambda r: masses.append(r["mass"]))
+        while p.run_iteration():
+            assert p.pipeline.flush(60)
+        p.close()
+        assert feeder.stats["windows_streamed"] == len(snaps)
+        assert feeder.stats["windows_fallback"] == 0
+        assert agg.stats.get("carry_fallbacks", 0) == 0
+        assert agg.stats["carry_hits"] > 0
+        got[str(dev)] = (out, masses, dict(agg._key_to_id),
+                         {k: v for k, v in agg.stats.items()
+                          if k.startswith("carry_")})
+    assert probe.LAUNCHES["feed_accumulate"] >= len(snaps)
+    assert close.LAUNCHES["close_pack"] >= 1
+    assert got[str(cuda)] == got["cpu"]
+    assert got["cpu"][1] == [s.total_samples() for s in snaps]

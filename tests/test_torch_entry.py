@@ -41,7 +41,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "parca_agent_tpu_torch.utils.window_clock" in names
     for mod in ("pprof.window_encoder", "pprof.vec",
                 "profiler.encode_pipeline", "profiler.cpu",
-                "runtime.trace", "utils.log", "tools.cold_window"):
+                "runtime.trace", "utils.log", "tools.cold_window",
+                "process.maps", "capture.live", "pprof.statics_store",
+                "profiler.streaming"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
