@@ -86,7 +86,7 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                fast loop (CPUProfiler with the encode pipeline and a
                StaticsStore in a temporary directory), the bench window cut
                into 10 drains on pid boundaries, each drain's mapping
-               table rebuilt from the window's own: a cold window, then 3
+               table rebuilt from the window's own: a cold window, then 2
                windows of the same rows plus 65,536 new stacks each
                (carried rows fold on the host, the rest launch K1; each
                close launches B2 or, when the touched blocks are few, B3).
@@ -102,6 +102,25 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                last window; a fresh dictionary and encoder adopt it and
                stream the last window again, whose bytes must equal a cold
                encoder's for every pid.
+  8. sharded   --aggregator sharded: ShardedDictAggregator(capacity 2^21,
+               8 shards, overflow "sketch") on the card, 8 home
+               sub-tables of 2^18 slots: a cold window of the bench
+               window, then a steady window of 10 drains, each checked
+               against the numpy oracle (totals, per-pid mass, every 64th
+               pid's sorted stack counts); every feed must launch B7-feed
+               (csrc/sharded_feed.cu), every close B7-close
+               (close_pack.cu's pa_close_pack_sharded). Per drain the
+               partition, H2D, dispatch and settle host times, n_pad_s and
+               the rows a shard. Both kernels against their plain versions
+               at the path's shapes (a steady drain's partition on the
+               window's table; the window's own [8, 2^20] accumulator at
+               widths 4, 8 and 16, and at one shard beside B2), timed,
+               with their bounds. A pid router that sends three pids of
+               four to shard 0 at 1/8 of the window (capacity 2^18): shard
+               0's sub-table fills, the sketch absorbs the rest, exact +
+               absorbed mass equals the window's and every exact key its
+               rows' count. The CLI with --aggregator sharded
+               --fast-encode (one shard on one card), 3 windows.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -112,7 +131,7 @@ with the row hash kernel at phase 5's three windows. With
 --close-reference (repeatable), each source with csrc/close_pack.cu's C
 interface is built, held against the plain versions in phase 3's cases
 and on phase 6's accumulators, and timed in turns with the close kernels
-there.
+there (a source without the sharded entry point loads all the same).
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -244,8 +263,11 @@ def load_reference(name: str, path: str):
                        capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
     for fn, (argtypes, restype) in kernels.SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
+        # An earlier source may lack an entry point added since (the
+        # sharded close): only those it has are typed.
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
     return lib
 
 
@@ -988,7 +1010,8 @@ def sketch_library(dev) -> None:
 # -- phase 4 -----------------------------------------------------------------
 
 
-def window_setup(rows: int = ROWS, pids: int = PIDS):
+def window_setup(rows: int = ROWS, pids: int = PIDS,
+                 label: str = "main_path_setup"):
     """bench.py's window (_bench_spec at 1M rows, seed 42) and the numpy
     CPUAggregator's profiles of it: the input and the oracle of both main
     paths."""
@@ -1007,8 +1030,8 @@ def window_setup(rows: int = ROWS, pids: int = PIDS):
     t0 = time.perf_counter()
     want = CPUAggregator().aggregate(snap)
     oracle_s = time.perf_counter() - t0
-    emit("main_path_setup", rows=len(snap), pids=pids,
-         samples=snap.total_samples(), generate_s=gen_s, oracle_s=oracle_s)
+    emit(label, rows=len(snap), pids=pids, samples=snap.total_samples(),
+         generate_s=gen_s, oracle_s=oracle_s)
     return snap, want
 
 
@@ -1049,11 +1072,19 @@ def sample_profiles(agg, snap, counts, every: int = 64):
 
 def check_window(label: str, agg, snap, counts, blobs, mass: dict,
                  values, pprof: bool = True) -> dict:
+    """Raise unless check_counts holds and the encoder's blobs are one for
+    every live pid and (with `pprof`) build_pprof's samples for every
+    64th. Returns check_encoded's fields."""
+    profiles = check_counts(label, agg, snap, counts, mass, values)
+    return check_encoded(label, agg, snap, counts, blobs,
+                         every=1 if pprof else 0, profiles=profiles)
+
+
+def check_counts(label: str, agg, snap, counts, mass: dict, values):
     """Raise unless `counts` hold the window's total and, for every pid,
-    the oracle's mass (`mass`: pid -> samples), every 64th live pid its
-    oracle's sorted stack counts (`values(pid)`), and the encoder's blobs
-    one for every live pid and (with `pprof`) build_pprof's samples for
-    every 64th. Returns check_encoded's fields."""
+    the oracle's mass (`mass`: pid -> samples), and every 64th live pid
+    its oracle's sorted stack counts (`values(pid)`). Returns those pids'
+    profiles."""
     import numpy as np
 
     if int(counts.sum()) != snap.total_samples():
@@ -1068,8 +1099,7 @@ def check_window(label: str, agg, snap, counts, blobs, mass: dict,
     for p in profiles:
         if sorted(p.values.tolist()) != sorted(values(p.pid)):
             raise AssertionError(f"{label}: pid {p.pid} stack counts")
-    return check_encoded(label, agg, snap, counts, blobs,
-                         every=1 if pprof else 0, profiles=profiles)
+    return profiles
 
 
 def check_encoded(label: str, agg, snap, counts, blobs, every: int = 64,
@@ -2143,7 +2173,7 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
 # default 2^21 table under overflow "raise".
 STREAM_CAP = 1 << 22
 STREAM_FRESH = 65_536
-STREAM_WINDOWS = 4
+STREAM_WINDOWS = 3
 
 
 class MappedObject:
@@ -2509,6 +2539,367 @@ def phase_streaming(dev, snap, want) -> dict:
     return launches
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+# The sharded dictionary (--aggregator sharded) on the bench window: 8 home
+# sub-tables of 2^18 slots (capacity 2^21) on the one card, as the JAX
+# package's tests run 8 shards on 8 devices of one host; the 2^20 stacks
+# fill each sub-table to about half and id_cap is 2^20. A cold window,
+# then a steady window of 10 drains. Then a pid router that sends three
+# pids of four to shard 0, at 1/8 of the window (SKEW_*), so that shard
+# 0's sub-table overflows into the sketch while the table is half empty.
+SHARDS = 8
+SKEW_ROWS = 1 << 17
+SKEW_PIDS = 6_250
+SKEW_CAP = 1 << 18
+
+
+def skewed_shard(pid: int) -> int:
+    """Three pids of four to shard 0, the rest spread over the shards."""
+    return 0 if pid % 4 else (pid // 4) % SHARDS
+
+
+def recorded_sharded(**kw):
+    """A ShardedDictAggregator that keeps each feed's partition shape
+    (n_pad_s, live rows a shard) and the last partition itself."""
+    from parca_agent_tpu_torch.aggregator.sharded import ShardedDictAggregator
+
+    class Recorded(ShardedDictAggregator):
+        def _partition_packed(self, packed):
+            part = super()._partition_packed(packed)
+            self.partitions.append(
+                (part.shape[2], (part[:, 3] > 0).sum(1).tolist()))
+            self.last_part = part.copy()
+            return part
+
+    agg = Recorded(**kw)
+    agg.partitions = []
+    return agg
+
+
+def sharded_feed_kernel(dev, agg, part) -> dict:
+    """B7-feed (sharded_feed_step) on the dictionary's own table at one
+    drain's partition `part` (uint32 [S, 5, n_pad_s]) against
+    sharded_feed_step_plain: the accumulator, each shard's miss count and
+    miss rows, and the found ids, equal. Then the kernel alone and the
+    whole step (with the miss compaction) timed back to back, the plain
+    versions, and the bound of this drain's data. Launches made here are
+    not counted."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import probe, sharded
+
+    saved = dict(sharded.LAUNCHES)
+    n_shards, _, n = part.shape
+    table = agg._dev
+    dpart = torch.from_numpy(part.view(np.int32)).to(dev)
+
+    def acc0():
+        return torch.zeros((n_shards, agg._id_cap), dtype=torch.int32,
+                           device=dev)
+
+    outs = []
+    for fn in (sharded.sharded_feed_step, sharded.sharded_feed_step_plain):
+        acc = acc0()
+        outs.append((acc, *fn(table, acc, dpart, True)))
+    found = [sharded.sharded_feed_accumulate(table, acc0(), dpart),
+             sharded.sharded_feed_accumulate_plain(table, acc0(), dpart)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*outs)) \
+            or not torch.equal(*found):
+        raise AssertionError("sharded_feed != plain at the steady drain")
+    acc = acc0()
+    ms = time_ms(lambda: sharded.sharded_feed_accumulate(table, acc, dpart),
+                 50)
+    step_ms = time_ms(lambda: sharded.sharded_feed_step(table, acc, dpart,
+                                                        False), 50)
+    plain_ms = time_ms(lambda: sharded.sharded_feed_accumulate_plain(
+        table, acc, dpart), 5)
+    plain_step_ms = time_ms(lambda: sharded.sharded_feed_step_plain(
+        table, acc, dpart, False), 5)
+    sharded.LAUNCHES.update(saved)
+    # What this drain's data makes the kernel do, on the host mirror.
+    host = host_table(agg).reshape(n_shards, agg._cap_s, 4)
+    steps = slots = hits = 0
+    ids = []
+    for s in range(n_shards):
+        live = part[s, 3] > 0
+        st, sl, f = probe_work(host[s], *part[s, :3][:, live], probe.PROBES)
+        steps, slots = steps + int(st.sum()), slots + sl
+        hits += int((f >= 0).sum())
+        ids.append(s * agg._id_cap + f[f >= 0])
+    uniq = len(np.unique(np.concatenate(ids)))
+    # The partition's 4 channels the kernel reads, each chain slot once,
+    # the found ids written, each hit id's count read and written.
+    nbytes = 16 * n_shards * n + 16 * slots + 4 * n_shards * n + 8 * uniq
+    b_ms, b_by = bound(nbytes, 6 * steps + 2 * hits)
+    row = {"shape": list(part.shape), "rows": int((part[:, 3] > 0).sum()),
+           "hits": hits, "misses": int(outs[0][1].sum().item()),
+           "table": [n_shards, agg._cap_s, 4], "id_cap": agg._id_cap,
+           "ms": ms, "step_ms": step_ms, "plain_ms": plain_ms,
+           "plain_step_ms": plain_step_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "equal": True}
+    emit("sharded_feed_kernel", **row)
+    return row
+
+
+def sharded_close_kernel(dev, acc, n_over_buf: int) -> dict:
+    """B7-close (close_pack_sharded) on the window's own accumulator
+    (int32 [S, id_cap]) at widths 4, 8 and 16 against
+    close_pack_sharded_plain, every word equal; each timed back to back,
+    the plain version, and the bound (acc read once, the buffer written
+    once). Beside it, in the same call, B2 (close_pack) on shard 0's row
+    and the sharded kernel on that row alone (n_shards = 1): the shard
+    loop's cost at one shard. Launches made here are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close
+
+    saved = dict(close.LAUNCHES)
+    n_shards, id_cap = acc.shape
+    n_fetch = id_cap
+    widths = {}
+    for width in (4, 8, 16):
+        got = close.close_pack_sharded(acc, n_fetch, width, n_over_buf)
+        want = close.close_pack_sharded_plain(acc, n_fetch, width,
+                                              n_over_buf)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"close_pack_sharded != plain at width "
+                                 f"{width}")
+        out_words = got.numel()
+        b_ms, b_by = bound(4 * n_shards * id_cap + 4 * out_words,
+                           4 * n_shards * id_cap)
+        widths[width] = {
+            "ms": time_ms(lambda w=width: close.close_pack_sharded(
+                acc, n_fetch, w, n_over_buf), 50),
+            "plain_ms": time_ms(lambda w=width: close.close_pack_sharded_plain(
+                acc, n_fetch, w, n_over_buf), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "n_over": int(got[-2].item()), "out_words": out_words}
+    one = acc[:1].contiguous()
+    if not torch.equal(close.close_pack(one[0], n_fetch, 8, n_over_buf),
+                       close.close_pack_sharded(one, n_fetch, 8,
+                                                n_over_buf)):
+        raise AssertionError("close_pack_sharded at one shard != B2")
+    turns = time_turns({
+        "close_pack": lambda: close.close_pack(one[0], n_fetch, 8,
+                                               n_over_buf),
+        "close_pack_sharded_1": lambda: close.close_pack_sharded(
+            one, n_fetch, 8, n_over_buf)}, 50)
+    close.LAUNCHES.update(saved)
+    row = {"shape": [n_shards, id_cap], "n_fetch": n_fetch,
+           "n_over_buf": n_over_buf, "widths": widths,
+           "one_shard_ms_turns": turns, "equal": True}
+    emit("sharded_close_kernel", **row)
+    return row
+
+
+def sharded_skew(dev) -> dict:
+    """The skewed router at 1/8 of the bench window on a fresh aggregator
+    (capacity 2^18, 8 sub-tables of 2^15): shard 0's sub-table fills and
+    the rest of its keys go to the sketch while the other sub-tables stay
+    nearly empty. Exact mass + sketch samples equals the window's; every
+    key that stayed exact has the count of its rows; every absorbed key's
+    count-min estimate is at least its count; every pid none of whose
+    keys was absorbed has the oracle's mass, and every 64th of them its
+    sorted stack counts."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator.sharded import ShardedDictAggregator
+
+    snap, want = window_setup(SKEW_ROWS, SKEW_PIDS, label="sharded_skew_setup")
+    agg = ShardedDictAggregator(capacity=SKEW_CAP, n_shards=SHARDS,
+                                overflow="sketch", shard_of_pid=skewed_shard,
+                                device=dev)
+    t0 = time.perf_counter()
+    hashes = agg.hash_rows(snap)
+    hash_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = agg.window_counts(snap, hashes)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    total = snap.total_samples()
+    absorbed = agg.stats.get("sketch_samples", 0)
+    free = agg._shard_free()
+    if not absorbed or free[0] != 0 or free[1:].min() == 0:
+        raise AssertionError(f"skew: absorbed {absorbed}, free {free}")
+    if int(counts.sum()) + absorbed != total:
+        raise AssertionError(f"skew: exact {int(counts.sum())} + absorbed "
+                             f"{absorbed} != {total}")
+    # The rows' keys and each key's mass.
+    key = np.stack(hashes, axis=1).astype(np.uint32)
+    uk, first, inv = np.unique(key.view(np.dtype((np.void, 12))).ravel(),
+                               return_index=True, return_inverse=True)
+    mass = np.bincount(inv, weights=snap.counts.astype(np.float64)).astype(
+        np.int64)
+    k2i = agg._key_to_id
+    sid = np.array([k2i.get(tuple(map(int, key[r])), -1) for r in first])
+    exact = sid >= 0
+    if not np.array_equal(counts[sid[exact]], mass[exact]):
+        raise AssertionError("skew: an exact key's count differs")
+    if int(mass[~exact].sum()) != absorbed:
+        raise AssertionError("skew: absorbed keys' mass != sketch samples")
+    est = agg.sketch_estimate(key[first[~exact], 0])
+    if (est < mass[~exact]).any():
+        raise AssertionError("skew: the sketch underestimates a key")
+    lost = set(snap.pids[first[~exact]].tolist())
+    id_pid = agg._id_pid[:len(counts)].astype(np.int64)
+    got = np.bincount(id_pid, weights=counts.astype(np.float64))
+    whole = [p for p in want if p.pid not in lost]
+    for p in whole:
+        if int(got[p.pid]) != p.total():
+            raise AssertionError(f"skew: pid {p.pid} mass")
+    keep = np.isin(id_pid, [p.pid for p in whole[::64]]) & (counts > 0)
+    by_pid = {p.pid: p for p in want}
+    for p in agg._build_profiles(snap, np.where(keep, counts, 0)):
+        if sorted(p.values.tolist()) != sorted(by_pid[p.pid].values.tolist()):
+            raise AssertionError(f"skew: pid {p.pid} stack counts")
+    row = {"rows": len(snap), "keys": len(uk), "exact_keys": int(exact.sum()),
+           "absorbed_keys": int((~exact).sum()), "absorbed_samples": absorbed,
+           "exact_samples": int(counts.sum()), "free_slots": free.tolist(),
+           "pids_whole": len(whole), "pids_absorbed": len(lost),
+           "hash_s": hash_s, "window_ms": window_ms,
+           "miss_vec_fallbacks": agg.stats.get("miss_vec_fallbacks", 0),
+           "timings_ms": {k: v * 1e3 for k, v in agg.timings.items()}}
+    emit("sharded_skew", **row)
+    return row
+
+
+def sharded_cli() -> None:
+    """The CLI entry on the card, --aggregator sharded --fast-encode (one
+    shard on one card), 3 synthetic windows in this process: every window
+    whole (mass equal to its samples), every stored profile parses, and
+    the store holds the windows' mass."""
+    import contextlib
+    import io
+    import tempfile
+
+    from parca_agent_tpu_torch import cli
+    from parca_agent_tpu_torch.pprof.builder import parse_pprof
+
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.run(["--aggregator", "sharded", "--fast-encode",
+                          "--windows", str(CLI_WINDOWS),
+                          "--profiling-duration", "0.5",
+                          "--local-store-directory", tmp])
+        cli_s = time.perf_counter() - t0
+        files = sorted(Path(tmp).glob("*.pb.gz"))
+        mass = sum(v[0] for f in files
+                   for _, v, _ in parse_pprof(f.read_bytes()).samples)
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    if rc != 0 or len(lines) != CLI_WINDOWS \
+            or any(ln["mass"] != ln["samples"] for ln in lines) \
+            or len(files) != sum(ln["profiles"] for ln in lines) \
+            or mass != sum(ln["samples"] for ln in lines):
+        raise AssertionError(f"CLI --aggregator sharded: rc {rc}, {lines}, "
+                             f"{len(files)} profiles of mass {mass}")
+    emit("sharded_cli", rc=rc, s=cli_s, windows=lines,
+         profiles_written=len(files), mass=mass)
+
+
+def phase_sharded(dev, snap, want, hashes) -> tuple:
+    """The sharded dictionary's path on `dev` over `snap` (its identity
+    triple `hashes`: no router, so the dictionary's own): a cold window
+    and a steady window of DRAINS feeds, each checked against the numpy
+    oracle; its kernels against their plain versions at its shapes; the
+    skewed router; the CLI. Returns the kernel rows and the launches
+    counted over the two windows."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close, sharded
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    agg = recorded_sharded(capacity=CAP, n_shards=SHARDS, overflow="sketch",
+                           device=dev)
+    want_mass = {p.pid: p.total() for p in want}
+    want_by_pid = {p.pid: p for p in want}
+
+    def want_values(pid):
+        return want_by_pid[pid].values.tolist()
+
+    # Every count to 0 just before the path; read just after its windows.
+    sharded.reset_launches()
+    close.reset_launches()
+    per_feed = []
+    t0 = time.perf_counter()
+    counts = agg.window_counts(snap, hashes)
+    sync()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    per_feed.append(sharded.LAUNCHES["sharded_feed"])
+    check_counts("sharded cold window", agg, snap, counts, want_mass,
+                 want_values)
+    n_pad_s, per_shard = agg.partitions[-1]
+    emit("sharded_cold_window", ms=cold_ms, inserts=agg.stats["inserts"],
+         n_pad_s=n_pad_s, rows_per_shard=per_shard,
+         shard_load=(1 - agg._shard_free() / agg._cap_s).tolist(),
+         timings_ms={k: v * 1e3 for k, v in agg.timings.items()})
+
+    bounds = np.linspace(0, len(snap), DRAINS + 1).astype(int)
+    drains = []
+    t_win = time.perf_counter()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        before = sharded.LAUNCHES["sharded_feed"]
+        agg.timings.pop("feed_settle", None)
+        agg.feed(snap, hashes, lo=int(lo), hi=int(hi))
+        per_feed.append(sharded.LAUNCHES["sharded_feed"] - before)
+        t = agg.timings
+        n_pad_s, per_shard = agg.partitions[-1]
+        drains.append({"partition_ms": t["feed_partition"] * 1e3,
+                       "h2d_ms": t["feed_h2d"] * 1e3,
+                       "dispatch_ms": t["feed_dispatch"] * 1e3,
+                       "prev_settle_ms": t.get("feed_settle", 0.0) * 1e3,
+                       "n_pad_s": n_pad_s, "rows_per_shard": per_shard})
+    t_close = time.perf_counter()
+    counts = agg.close_window(copy=True)
+    close_ms = (time.perf_counter() - t_close) * 1e3
+    window_ms = (time.perf_counter() - t_win) * 1e3
+    check_counts("sharded steady window", agg, snap, counts, want_mass,
+                 want_values)
+    launches = {"sharded_feed": sharded.LAUNCHES["sharded_feed"],
+                "close_pack_sharded": close.LAUNCHES["close_pack_sharded"]}
+    emit("sharded_steady_window", window_ms=window_ms, close_ms=close_ms,
+         last_settle_ms=agg.timings.get("feed_settle", 0.0) * 1e3,
+         close_timings_ms={k: agg.timings[k] * 1e3 for k in (
+             "close_dispatch", "close_fetch", "close_unpack")
+             if k in agg.timings},
+         drains=drains, inserts=agg.stats["inserts"],
+         samples_per_s=snap.total_samples() / (window_ms / 1e3),
+         launches=launches, launches_per_feed=per_feed)
+    if min(per_feed) < 1 or launches["close_pack_sharded"] < 2:
+        raise AssertionError(f"sharded path launches {launches}, per feed "
+                             f"{per_feed}")
+    feed = sharded_feed_kernel(dev, agg, agg.last_part)
+    # The closed window's accumulator (the flip put it in the spare).
+    closed = sharded_close_kernel(dev, agg._acc_spare, 4096)
+    sharded_skew(dev)
+    sharded_cli()
+    w8 = closed["widths"][8]
+    source = "parca_agent_tpu_torch/csrc/"
+    return {
+        "sharded_feed": {
+            "name": "sharded_feed", "route": "cuda",
+            "source": source + "sharded_feed.cu",
+            "replaces": "parca_agent_tpu/aggregator/sharded.py:74",
+            "max_abs_err": 0, "ms": feed["ms"], "plain_ms": feed["plain_ms"],
+            "bound_ms": feed["bound_ms"], "bound_by": feed["bound_by"],
+            "library_ms": None},
+        "close_pack_sharded": {
+            "name": "close_pack_sharded", "route": "cuda",
+            "source": source + "close_pack.cu",
+            "replaces": "parca_agent_tpu/aggregator/sharded.py:137",
+            "max_abs_err": 0, "ms": w8["ms"], "plain_ms": w8["plain_ms"],
+            "bound_ms": w8["bound_ms"], "bound_by": w8["bound_by"],
+            "library_ms": None}}, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
@@ -2606,15 +2997,19 @@ def main() -> int:
     del state
     rows.update(bounded)
     launches_stream = timed("streaming", phase_streaming, dev, snap, want)
+    sharded_rows, launches_sharded = timed("sharded", phase_sharded, dev,
+                                           snap, want, hashes)
+    rows.update(sharded_rows)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
-    # bounded-memory dictionary (phase 6) and the streaming window
-    # (phase 7). `launches` is their sum.
+    # bounded-memory dictionary (phase 6), the streaming window (phase 7)
+    # and the sharded dictionary (phase 8). `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
                "dict_cm": launches_cm,
-               "streaming": launches_stream}
+               "streaming": launches_stream,
+               "sharded": launches_sharded}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

@@ -4,6 +4,8 @@
   DictAggregator  stateful stack dictionary resident on the device; a
                   steady window is one batched probe+accumulate kernel per
                   feed and one pack per close (aggregator/dict.py)
+  ShardedDictAggregator  the stack dictionary split into home sub-tables
+                  (aggregator/sharded.py)
   TPUAggregator   one-shot window program on the device: row hash and
                   location-table kernels, sorts and joins in torch
                   (aggregator/tpu.py)

@@ -1,13 +1,17 @@
 """The dictionary's window close: CUDA kernel wrappers and plain versions.
 
 Counterpart of parca_agent_tpu/aggregator/dict.py:make_close and
-make_close_delta, bit for bit. Both pack the window's accumulator to
-uint{4,8,16} with an exact (id, count) overflow sideband and leave it
-intact, so the host can re-pack it wider on a misprediction:
+make_close_delta, and of aggregator/sharded.py:_sharded_close_program,
+bit for bit. All pack the window's accumulator to uint{4,8,16} with an
+exact (id, count) overflow sideband and leave it intact, so the host can
+re-pack it wider on a misprediction:
 
   close_pack(acc, n_fetch, width, n_over_buf) -> int32 buffer
   close_pack_delta(acc, touch, n_fetch, width, n_over_buf, n_blk_buf,
                    blk) -> int32 buffer
+  close_pack_sharded(acc, n_fetch, width, n_over_buf) -> int32 buffer
+      acc int32 [n_shards, id_cap]: close_pack of the int32 sum over the
+      shards (wrapping, as the JAX program's psum)
 
 The buffers' layouts are in the plain versions' docstrings (uint32 bits in
 int32 tensors, the port's device convention).
@@ -32,7 +36,8 @@ KERNEL_BLOCK = 128
 
 # Kernel launches per entry point: each wrapper adds one where it launches
 # its CUDA kernel and nowhere else (the plain versions count nothing).
-LAUNCHES = {"close_pack": 0, "close_pack_delta": 0}
+LAUNCHES = {"close_pack": 0, "close_pack_delta": 0,
+            "close_pack_sharded": 0}
 
 
 def reset_launches() -> None:
@@ -87,6 +92,15 @@ def close_pack_plain(acc: torch.Tensor, n_fetch: int, width: int,
     n_over = over.sum().reshape(1)
     tail = acc[n_fetch:].sum(dtype=torch.int64).reshape(1)
     return u32_bits(torch.cat([lanes, over_id, over_val, n_over, tail]))
+
+
+def close_pack_sharded_plain(acc: torch.Tensor, n_fetch: int, width: int,
+                             n_over_buf: int) -> torch.Tensor:
+    """The sharded close in plain torch ops: the per-shard accumulators
+    (int32 [n_shards, id_cap]) summed in int32, then close_pack_plain's
+    buffer of the sum."""
+    return close_pack_plain(acc.sum(0, dtype=torch.int32), n_fetch, width,
+                            n_over_buf)
 
 
 def close_pack_delta_plain(acc: torch.Tensor, touch: torch.Tensor,
@@ -173,11 +187,12 @@ def _scratch(lib, dev: torch.device, stream, id_cap: int) -> torch.Tensor:
 
 def _launch(name: str, acc: torch.Tensor, n_out: int, *args) -> torch.Tensor:
     """Launch the C entry point `name` of csrc/close_pack.cu with `args`,
-    then the cached scratch, an int32 [n_out] output and the stream."""
+    then the cached scratch (of acc's last dimension, its ids), an int32
+    [n_out] output and the stream."""
     lib = kernels.load("close_pack")
     dev = acc.device
     stream = torch.cuda.current_stream(dev)
-    scratch = _scratch(lib, dev, stream, acc.shape[0])
+    scratch = _scratch(lib, dev, stream, acc.shape[-1])
     out = torch.empty(n_out, dtype=torch.int32, device=dev)
     code = getattr(lib, name)(*args, scratch.data_ptr(), out.data_ptr(),
                               stream.cuda_stream)
@@ -228,4 +243,27 @@ def close_pack_delta(acc: torch.Tensor, touch: torch.Tensor, n_fetch: int,
                   acc.data_ptr(), touch.data_ptr(), acc.shape[0], n_fetch,
                   width, n_over_buf, n_blk_buf)
     LAUNCHES["close_pack_delta"] += 1
+    return out
+
+
+def close_pack_sharded(acc: torch.Tensor, n_fetch: int, width: int,
+                       n_over_buf: int) -> torch.Tensor:
+    """The full close buffer of the sum of acc's rows (int32 [n_shards,
+    id_cap]); CUDA tensors launch the kernel, which sums the shards as it
+    loads each id (one launch a call), CPU tensors run
+    close_pack_sharded_plain."""
+    if acc.dtype != torch.int32 or acc.dim() != 2 or acc.shape[0] < 1 \
+            or not acc.is_contiguous():
+        raise ValueError("acc must be a contiguous int32 [n_shards, id_cap] "
+                         "tensor")
+    _check(acc[0], None, n_fetch, width, n_over_buf)
+    if acc.device.type == "cpu":
+        return close_pack_sharded_plain(acc, n_fetch, width, n_over_buf)
+    if acc.device.type != "cuda":
+        raise ValueError(f"unsupported device {acc.device}")
+    out = _launch("pa_close_pack_sharded", acc,
+                  n_fetch * width // 32 + 2 * n_over_buf + 2,
+                  acc.data_ptr(), acc.shape[0], acc.stride(0), acc.shape[1],
+                  n_fetch, width, n_over_buf)
+    LAUNCHES["close_pack_sharded"] += 1
     return out

@@ -161,6 +161,29 @@ def _fcfs_slots(home: np.ndarray, cap: int) -> np.ndarray:
     return (slots + shift) & mask
 
 
+def _fcfs_place(base: np.ndarray, start: np.ndarray, mask: int) -> np.ndarray:
+    """The slots that inserting keys one by one, in order, gives when each
+    key probes the sub-table of mask + 1 slots at base[i] from start[i]
+    (_probe_free within its sub-table; one table when every base is 0).
+    Sub-tables never share a key's probe, so each is _fcfs_slots of its
+    own keys, or, when they fill more than half of it, the one-by-one
+    loop."""
+    cap = mask + 1
+    slots = np.empty(len(start), np.int64)
+    order = np.argsort(base, kind="stable")
+    cuts = np.flatnonzero(np.diff(base[order])) + 1
+    for grp in np.split(order, cuts) if len(order) else ():
+        if len(grp) <= cap // 2:
+            slots[grp] = base[grp[0]] + _fcfs_slots(start[grp], cap)
+            continue
+        occ = np.zeros(cap, bool)
+        for i in grp.tolist():
+            idx = _probe_free(occ, int(start[i]))
+            occ[idx] = True
+            slots[i] = base[i] + idx
+    return slots
+
+
 def feed_step(table: torch.Tensor, acc: torch.Tensor,
               touch: torch.Tensor | None, blk: int, packed: torch.Tensor,
               reset: bool):
@@ -878,10 +901,8 @@ class DictAggregator:
         (capture-carried hashes, post-fold representative hashing): an
         aggregator that re-routes identity lanes applies the same rewrite
         here so carried and self-hashed triples agree bit for bit.
-        Returns the (possibly rewritten) h2 lane. Nothing in this package
-        overrides it yet: it is kept for parity with parca_agent_tpu,
-        whose sharded aggregator rewrites h2 here, and waits for the
-        port of that aggregator."""
+        Returns the (possibly rewritten) h2 lane: the sharded dictionary
+        (aggregator/sharded.py) rewrites its shard residue here."""
         return h2
 
     def _coalesce_triples(self, h1c, h2c, h3c, w64, rows_map):
@@ -1526,12 +1547,13 @@ class DictAggregator:
         new_last[:m] = self._last_seen[kept]
         self._last_seen = new_last
         # Rebuild the host table for the survivors, each re-inserted by
-        # _probe_free in id order, as parca_agent_tpu re-inserts them one
-        # by one. A key that lands where it sat keeps its hashes there;
-        # vacated slots keep their stale hashes.
-        mask = self._cap - 1
-        home = self._id_h1.astype(np.int64) & mask
-        slots = _fcfs_slots(home, self._cap)
+        # _probe_free in id order (within its home sub-table), as
+        # parca_agent_tpu re-inserts them one by one. A key that lands
+        # where it sat keeps its hashes there; vacated slots keep their
+        # stale hashes.
+        base, start, mask = self._probe_geometry_vec(self._id_h1,
+                                                     self._id_h2)
+        slots = _fcfs_place(base, start, mask)
         moved = np.flatnonzero(slots != old)
         for lane in (self._h1, self._h2, self._h3):
             lane[slots[moved]] = lane[old[moved]]
@@ -1544,7 +1566,8 @@ class DictAggregator:
         keys = list(compress(self._keys, keep.tolist()))
         self._unreachable = {
             keys[j]: j for j in
-            np.flatnonzero(((slots - home) & mask) >= _PROBES).tolist()}
+            np.flatnonzero(((slots - base - start) & mask)
+                           >= _PROBES).tolist()}
         self._unreach_h1 = None
         self._keys = keys
         self._key_map = None
@@ -1629,6 +1652,10 @@ class DictAggregator:
             # rotation at the next window boundary.
             budget = max(0, min(self._id_cap, self._cap // 2) - self._next_id)
             self._rotate_pending = True
+        # Subclass room validation (a sharded table's per-sub-table
+        # occupancy), before any mutation, so a raise leaves the state
+        # whole.
+        self._check_insert_room(classified, seen_batch)
 
         new_slots: list[int] = []
         new_rows: list[int] = []
@@ -1648,8 +1675,17 @@ class DictAggregator:
                 absorb_h.append(key[0])
                 absorb_c.append(w)
                 continue
+            slot = self._try_insert_slot(key)
+            if slot is None:
+                # No room for this key where it must live (a sharded
+                # table's full home sub-table) though the global budget
+                # allows it: degrade as at budget exhaustion. Raise mode
+                # never gets here: _check_insert_room raised before.
+                self._rotate_pending = True
+                absorb_h.append(key[0])
+                absorb_c.append(w)
+                continue
             budget -= 1
-            slot = self._host_insert_slot(key)
             sid = self._next_id
             self._next_id += 1
             key_to_id[key] = sid
@@ -1701,18 +1737,25 @@ class DictAggregator:
     # registry append. An arbitration overrun falls back to the scalar
     # loop BEFORE any mutation.
 
-    def _probe_geometry_vec(self, h1u):
-        """(start, mask) per key for the vectorized host-mirror probe:
-        slot(k) = (start + k) & mask."""
+    def _probe_geometry_vec(self, h1u, h2u):
+        """(base, start, mask) per key for the vectorized host-mirror
+        probe: slot(k) = base + ((start + k) & mask). The base table
+        probes the whole table from h1 & mask."""
         mask = self._cap - 1
-        return h1u.astype(np.int64) & mask, mask
+        return (np.zeros(len(h1u), np.int64),
+                h1u.astype(np.int64) & mask, mask)
+
+    def _check_insert_room_vec(self, h1n, h2n, h3n) -> None:
+        """Vectorized twin of _check_insert_room (before any mutation,
+        may raise). Nothing to check here: the global capacity gate
+        already ran."""
 
     def _classify_keys_vec(self, h1u, h2u, h3u):
         """Probe every unique key against the host mirror in lockstep:
         returns (ids, stop, overrun) — ids[j] >= 0 for a known key,
         stop[j] = first empty slot on a new key's chain, overrun True
-        when any chain wrapped the full table (caller falls back)."""
-        start, mask = self._probe_geometry_vec(h1u)
+        when any chain wrapped a full (sub-)table (caller falls back)."""
+        base, start, mask = self._probe_geometry_vec(h1u, h2u)
         m = len(h1u)
         ids = np.full(m, -1, np.int64)
         stop = np.full(m, -1, np.int64)
@@ -1721,7 +1764,7 @@ class DictAggregator:
         while len(alive):
             if k > mask:
                 return ids, stop, True
-            idx = (start[alive] + k) & mask
+            idx = base[alive] + ((start[alive] + k) & mask)
             occ = self._occ[idx]
             empty = np.flatnonzero(~occ)
             stop[alive[empty]] = idx[empty]
@@ -1734,17 +1777,17 @@ class DictAggregator:
             k += 1
         return ids, stop, False
 
-    def _place_new_keys_vec(self, h1n, stop):
+    def _place_new_keys_vec(self, h1n, h2n, stop):
         """First-empty-slot arbitration for a batch of new keys: every
         key starts at its chain's first pre-batch empty slot; contested
         slots go to the lowest batch rank and losers walk forward past
         slots occupied pre-batch or claimed this batch. The result is a
         valid linear-probe layout. Returns slots, or None on overrun
         (caller falls back to scalar)."""
-        start, mask = self._probe_geometry_vec(h1n)
+        base, start, mask = self._probe_geometry_vec(h1n, h2n)
         n = len(h1n)
         slots = stop.copy()
-        off = (slots - start) & mask
+        off = (slots - base - start) & mask
         overlay = np.zeros(self._cap, bool)  # slots claimed this batch
         unplaced = np.arange(n, dtype=np.int64)
         rounds = 0
@@ -1765,7 +1808,7 @@ class DictAggregator:
                 off[active] += 1
                 if int(off[active].max(initial=0)) > mask:
                     return None
-                nxt = (start[active] + off[active]) & mask
+                nxt = base[active] + ((start[active] + off[active]) & mask)
                 slots[active] = nxt
                 blocked = self._occ[nxt] | overlay[nxt]
                 active = active[blocked]
@@ -1803,7 +1846,10 @@ class DictAggregator:
             if self._over_capacity(n_new):
                 return None  # degradation: the scalar loop owns it
             h1n, h2n, h3n = h1u[new], h2u[new], h3u[new]
-            slots = self._place_new_keys_vec(h1n, stop[new])
+            # Subclass room validation before any mutation (a sharded
+            # table under "raise").
+            self._check_insert_room_vec(h1n, h2n, h3n)
+            slots = self._place_new_keys_vec(h1n, h2n, stop[new])
             if slots is None:
                 return None
             # -- commit (mirrors the scalar tail, batch-at-once) --------
@@ -1818,8 +1864,8 @@ class DictAggregator:
             self._h2[slots] = h2n
             self._h3[slots] = h3n
             self._ids[slots] = sids
-            gstart, gmask = self._probe_geometry_vec(h1n)
-            dist = (slots - gstart) & gmask
+            gbase, gstart, gmask = self._probe_geometry_vec(h1n, h2n)
+            dist = (slots - gbase - gstart) & gmask
             for j in np.flatnonzero(dist >= _PROBES):
                 self._unreachable[keys[int(j)]] = int(sids[j])
                 self._unreach_h1 = None
@@ -1855,17 +1901,32 @@ class DictAggregator:
                                uw[exist].astype(np.int64).tolist()))
         return pending
 
+    def _check_insert_room(self, classified, seen_batch) -> None:
+        """Room validation before any mutation, for subclasses with
+        placement rules beyond the global capacity check (none here)."""
+
+    def _try_insert_slot(self, key: tuple) -> int | None:
+        """Slot for a new key, or None when it cannot be placed (a
+        subclass's placement rule). The base table always has one: the
+        global capacity check leaves a free slot."""
+        return self._host_insert_slot(key)
+
     def _host_insert_slot(self, key: tuple) -> int:
         # Capacity was validated batch-wide by the caller. A key landing
         # beyond the device probe bound is recorded by the CALLER in
         # _unreachable so later windows short-circuit it host-side.
         return _probe_free(self._occ, key[0] & (self._cap - 1))
 
+    def _chain_dist(self, key: tuple, slot: int) -> int:
+        """Position of `slot` on the key's probe chain (0 = home)."""
+        mask = self._cap - 1
+        return (slot - (key[0] & mask)) & mask
+
     def _mark_if_unreachable(self, key: tuple, slot: int, sid: int) -> None:
         """Keys at probe-chain positions the device lookup cannot reach
         (>= _PROBES) would miss on EVERY window; register them so the feed
         path settles them host-side before shipping."""
-        if (slot - (key[0] & (self._cap - 1))) & (self._cap - 1) >= _PROBES:
+        if self._chain_dist(key, slot) >= _PROBES:
             self._unreachable[key] = sid
             self._unreach_h1 = None  # sorted-cache invalidated
 

@@ -3,7 +3,8 @@
 Runs the profile-build loop of parca_agent_tpu's CLI for the subset this
 package carries: a capture source (synthetic or replay) -> window
 aggregation (the device-resident stack dictionary, fail-fast or in
-bounded memory; the one-shot window program; or the numpy CPUAggregator) -> per-pid pprof -> the local
+bounded memory, whole or split into home sub-tables; the one-shot window
+program; or the numpy CPUAggregator) -> per-pid pprof -> the local
 store. With --fast-encode (dictionary aggregators only) the per-pid pprof
 comes from the vectorized window encoder, on an encode worker thread
 unless --no-encode-pipeline is given (profiler/cpu.py); with
@@ -40,11 +41,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profiling-duration", type=float, default=10.0,
                    help="aggregation window seconds")
     p.add_argument("--aggregator", default="dict",
-                   choices=["dict", "dict+cm", "tpu", "cpu"],
+                   choices=["dict", "dict+cm", "sharded", "tpu", "cpu"],
                    help="dict = stack dictionary resident on the device "
                         "(fails fast at capacity); dict+cm = the same "
                         "dictionary in bounded memory (overflow degrades "
                         "to a count-min sketch, cold stacks rotate out); "
+                        "sharded = dict+cm with the table and probe work "
+                        "split into one home sub-table per CUDA device "
+                        "(a power-of-two count; 1 on the CPU); "
                         "tpu = one-shot window program on the device (the "
                         "name of parca_agent_tpu's batch aggregator); cpu "
                         "= numpy aggregation on the host")
@@ -119,7 +123,8 @@ def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.profiling_duration <= 0:
         raise SystemExit("--profiling-duration must be > 0")
-    if args.fast_encode and args.aggregator not in ("dict", "dict+cm"):
+    if args.fast_encode and args.aggregator not in ("dict", "dict+cm",
+                                                    "sharded"):
         raise SystemExit(
             "--fast-encode requires --aggregator dict/dict+cm/sharded")
 
@@ -164,6 +169,25 @@ def run(argv=None) -> int:
             overflow="sketch" if args.aggregator == "dict+cm" else "raise",
             rotate_min_age=windows_for(6, args.profiling_duration),
             device=device)
+    elif args.aggregator == "sharded":
+        import torch
+
+        from parca_agent_tpu_torch.aggregator.sharded import (
+            ShardedDictAggregator,
+        )
+        from parca_agent_tpu_torch.utils.log import get_logger
+
+        # The largest power-of-two device count: sub-tables are powers of
+        # two, and a 6-card host shards 4 ways rather than stop.
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        n_shards = 1 << (n_dev.bit_length() - 1)
+        if n_shards < n_dev:
+            get_logger("cli").warn(
+                "sharded aggregator uses a power-of-two shard count",
+                devices=n_dev, shards=n_shards)
+        aggregator = ShardedDictAggregator(
+            capacity=args.aggregator_capacity, n_shards=n_shards,
+            overflow="sketch", device=device)
     elif args.aggregator == "tpu":
         aggregator = TPUAggregator(device=device)
     else:

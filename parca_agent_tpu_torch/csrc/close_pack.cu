@@ -7,7 +7,13 @@
 // make_close_delta (:232), two jit programs (not Pallas), and the chains
 // of torch ops that stand for them on the CPU
 // (aggregator/close.py:close_pack_plain, close_pack_delta_plain). The
-// output is their buffer, bit for bit.
+// output is their buffer, bit for bit. The full form also replaces the
+// sharded dictionary's close (B7-close,
+// parca_agent_tpu/aggregator/sharded.py:_sharded_close_program, :137):
+// the psum of the per-shard accumulators acc[s][id] (S rows `stride`
+// ints apart), then make_close of the sum. Each id's count is the int32
+// sum over the shards, wrapping as psum does, taken as the tile loads
+// it; one shard is B2 itself.
 //
 // What it computes. sentinel = 2^W - 1; a count v is "over" when
 // v > sentinel - 1 (as int32) and packs as the sentinel, else as its own
@@ -26,8 +32,9 @@
 // wrap, equal to the JAX program's int32 sums cast to u32.
 //
 // What bounds it on an H100: memory, and at the dictionary's sizes the
-// latency of one pass. It must read acc (4 MB at id_cap 2^20) and write
-// the lanes and the sideband: a few MB, under 2 us at 3.35 TB/s.
+// latency of one pass. It must read acc (4 MB at id_cap 2^20; S times that
+// when sharded) and write the lanes and the sideband: a few MB, under
+// 2 us at 3.35 TB/s for one shard.
 //
 // Design: one launch a call, one read of acc, a single-pass scan with
 // decoupled look-back (Merrill and Garland, as CUB's). Ids in tiles of
@@ -35,7 +42,8 @@
 // 128-id block). A CTA takes its tile from an atomic ticket, so a tile
 // only ever waits on tiles that are already running, however many waves
 // the grid takes. A tile:
-//   1. loads its ids once into registers;
+//   1. loads its ids once into registers (summed over the shards: each
+//      shard's 16 ids are four more 16-byte loads a thread);
 //   2. reduces its aggregate (touched blocks and over ids, over ids in
 //      touched blocks only in the delta form) and publishes it (A), and
 //      its guard masses (untouched, tail) in a record of their own, which
@@ -219,6 +227,36 @@ __device__ __forceinline__ void pack_lanes(const int32_t (&v)[kPer],
   }
 }
 
+// The kPer counts of ids base .. base + kPer - 1 of one accumulator into
+// v (kAdd: added to v as u32, the int32 psum's wrap); ids past id_cap read
+// as 0. `vec`: four 16-byte loads.
+template <bool kAdd>
+__device__ __forceinline__ void load_ids(const int32_t* __restrict__ a,
+                                         int64_t base, int64_t id_cap,
+                                         bool vec, int32_t (&v)[kPer]) {
+  int32_t x[kPer];
+  if (vec) {
+    const int4* p = (const int4*)(a + base);
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      const int4 y = __ldg(p + q);
+      x[4 * q] = y.x;
+      x[4 * q + 1] = y.y;
+      x[4 * q + 2] = y.z;
+      x[4 * q + 3] = y.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      x[q] = base + q < id_cap ? __ldg(&a[base + q]) : 0;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    v[q] = kAdd ? (int32_t)((uint32_t)v[q] + (uint32_t)x[q]) : x[q];
+  }
+}
+
 // p[from, to) = value, the words spread over the padding CTAs.
 __device__ __forceinline__ void fill(uint32_t* __restrict__ p, int64_t from,
                                      int64_t to, uint32_t value, int64_t q,
@@ -231,10 +269,11 @@ __device__ __forceinline__ void fill(uint32_t* __restrict__ p, int64_t from,
 
 template <int W, bool kDelta>
 __global__ void __launch_bounds__(kThreads)
-close_pack_kernel(const int32_t* __restrict__ acc,
-                  const int32_t* __restrict__ touch, int64_t id_cap,
-                  int64_t n_fetch, int64_t n_over_buf, int64_t n_blk_buf,
-                  int64_t n_tiles, Scratch s, uint32_t* __restrict__ out) {
+close_pack_kernel(const int32_t* __restrict__ acc, int64_t n_shards,
+                  int64_t stride, const int32_t* __restrict__ touch,
+                  int64_t id_cap, int64_t n_fetch, int64_t n_over_buf,
+                  int64_t n_blk_buf, int64_t n_tiles, Scratch s,
+                  uint32_t* __restrict__ out) {
   constexpr int kPer32 = 32 / W;
   constexpr int32_t kOverMin = (int32_t)((1u << W) - 1u);  // sentinel
   const int64_t nb_prefix = n_fetch / kBlk;
@@ -320,26 +359,17 @@ close_pack_kernel(const int32_t* __restrict__ acc,
     return;
   }
 
-  // 1. The tile's ids, once, into registers.
+  // 1. The tile's ids, once, into registers: each id's count summed over
+  // the shards (u32 adds, the int32 psum's wrap).
   const int64_t base = k * kTile + (int64_t)threadIdx.x * kPer;
   const int64_t b = base / kBlk;
   const bool touched = !kDelta || (b < nb_prefix && __ldg(&touch[b]) > 0);
   int32_t v[kPer];
-  if (base + kPer <= id_cap && ((uintptr_t)acc & 15u) == 0u) {
-    const int4* p = (const int4*)(acc + base);
-#pragma unroll
-    for (int q = 0; q < kPer / 4; ++q) {
-      const int4 x = __ldg(p + q);
-      v[4 * q] = x.x;
-      v[4 * q + 1] = x.y;
-      v[4 * q + 2] = x.z;
-      v[4 * q + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < kPer; ++q) {
-      v[q] = base + q < id_cap ? __ldg(&acc[base + q]) : 0;
-    }
+  const bool vec = base + kPer <= id_cap && ((uintptr_t)acc & 15u) == 0u;
+  load_ids<false>(acc, base, id_cap, vec, v);
+  for (int64_t sh = 1; sh < n_shards; ++sh) {
+    load_ids<true>(acc + sh * stride, base, id_cap, vec && (stride & 3) == 0,
+                   v);
   }
   uint32_t c = 0u, untouched = 0u, tail = 0u;
 #pragma unroll
@@ -435,9 +465,10 @@ close_pack_kernel(const int32_t* __restrict__ acc,
 }
 
 template <int W>
-int launch(const int32_t* acc, const int32_t* touch, int64_t id_cap,
-           int64_t n_fetch, int64_t n_over_buf, int64_t n_blk_buf,
-           void* scratch, uint32_t* out, cudaStream_t stream) {
+int launch(const int32_t* acc, int64_t n_shards, int64_t stride,
+           const int32_t* touch, int64_t id_cap, int64_t n_fetch,
+           int64_t n_over_buf, int64_t n_blk_buf, void* scratch,
+           uint32_t* out, cudaStream_t stream) {
   const int64_t n_tiles = n_tiles_of(id_cap);
   const Scratch s = carve(scratch, n_tiles);
   int64_t pad = 2 * n_over_buf;
@@ -447,31 +478,34 @@ int launch(const int32_t* acc, const int32_t* touch, int64_t id_cap,
   const unsigned grid = (unsigned)(n_tiles + n_pad);
   if (touch == nullptr) {
     close_pack_kernel<W, false><<<grid, kThreads, 0, stream>>>(
-        acc, nullptr, id_cap, n_fetch, n_over_buf, 0, n_tiles, s, out);
+        acc, n_shards, stride, nullptr, id_cap, n_fetch, n_over_buf, 0,
+        n_tiles, s, out);
   } else {
     close_pack_kernel<W, true><<<grid, kThreads, 0, stream>>>(
-        acc, touch, id_cap, n_fetch, n_over_buf, n_blk_buf, n_tiles, s, out);
+        acc, n_shards, stride, touch, id_cap, n_fetch, n_over_buf,
+        n_blk_buf, n_tiles, s, out);
   }
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* acc, const void* touch, int64_t id_cap,
-             int64_t n_fetch, int64_t width, int64_t n_over_buf,
-             int64_t n_blk_buf, void* scratch, void* out, void* stream) {
+int dispatch(const void* acc, int64_t n_shards, int64_t stride,
+             const void* touch, int64_t id_cap, int64_t n_fetch,
+             int64_t width, int64_t n_over_buf, int64_t n_blk_buf,
+             void* scratch, void* out, void* stream) {
   const int32_t* a = (const int32_t*)acc;
   const int32_t* tf = (const int32_t*)touch;
   uint32_t* o = (uint32_t*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (width) {
     case 4:
-      return launch<4>(a, tf, id_cap, n_fetch, n_over_buf, n_blk_buf,
-                       scratch, o, st);
+      return launch<4>(a, n_shards, stride, tf, id_cap, n_fetch,
+                       n_over_buf, n_blk_buf, scratch, o, st);
     case 8:
-      return launch<8>(a, tf, id_cap, n_fetch, n_over_buf, n_blk_buf,
-                       scratch, o, st);
+      return launch<8>(a, n_shards, stride, tf, id_cap, n_fetch,
+                       n_over_buf, n_blk_buf, scratch, o, st);
     case 16:
-      return launch<16>(a, tf, id_cap, n_fetch, n_over_buf, n_blk_buf,
-                        scratch, o, st);
+      return launch<16>(a, n_shards, stride, tf, id_cap, n_fetch,
+                        n_over_buf, n_blk_buf, scratch, o, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -498,16 +532,27 @@ int64_t pa_close_scratch_words(int64_t id_cap) {
 int pa_close_pack(const void* acc, int64_t id_cap, int64_t n_fetch,
                   int64_t width, int64_t n_over_buf, void* scratch,
                   void* out, void* stream) {
-  return dispatch(acc, nullptr, id_cap, n_fetch, width, n_over_buf, 0,
-                  scratch, out, stream);
+  return dispatch(acc, 1, id_cap, nullptr, id_cap, n_fetch, width,
+                  n_over_buf, 0, scratch, out, stream);
+}
+
+// The full form over the sum of n_shards accumulators of id_cap ids,
+// `stride` ints apart (B7-close); same buffer, same scratch (sized by
+// id_cap) as pa_close_pack, which is its case n_shards = 1.
+int pa_close_pack_sharded(const void* acc, int64_t n_shards, int64_t stride,
+                          int64_t id_cap, int64_t n_fetch, int64_t width,
+                          int64_t n_over_buf, void* scratch, void* out,
+                          void* stream) {
+  return dispatch(acc, n_shards, stride, nullptr, id_cap, n_fetch, width,
+                  n_over_buf, 0, scratch, out, stream);
 }
 
 int pa_close_pack_delta(const void* acc, const void* touch, int64_t id_cap,
                         int64_t n_fetch, int64_t width, int64_t n_over_buf,
                         int64_t n_blk_buf, void* scratch, void* out,
                         void* stream) {
-  return dispatch(acc, touch, id_cap, n_fetch, width, n_over_buf, n_blk_buf,
-                  scratch, out, stream);
+  return dispatch(acc, 1, id_cap, touch, id_cap, n_fetch, width, n_over_buf,
+                  n_blk_buf, scratch, out, stream);
 }
 
 const char* pa_cuda_error_string(int code) {

@@ -50,6 +50,13 @@ SIGNATURES = {
                           ctypes.c_int),
         "pa_close_pack_delta": ([_P, _P, _I64, _I64, _I64, _I64, _I64, _P,
                                  _P, _P], ctypes.c_int),
+        "pa_close_pack_sharded": ([_P, _I64, _I64, _I64, _I64, _I64, _I64,
+                                   _P, _P, _P], ctypes.c_int),
+        "pa_cuda_error_string": _ERR,
+    },
+    "sharded_feed": {
+        "pa_sharded_feed": ([_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
+                            ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
     "row_hash": {

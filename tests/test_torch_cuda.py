@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from parca_agent_tpu_torch.aggregator import close, probe, tpu
+from parca_agent_tpu_torch.aggregator import close, probe, sharded, tpu
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator, feed_step
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.ops import row_hash
@@ -775,3 +775,174 @@ def test_streamed_window_with_carry_cuda_equals_cpu(cuda, overflow):
     assert close.LAUNCHES["close_pack"] >= 1
     assert got[str(cuda)] == got["cpu"]
     assert got["cpu"][1] == [s.total_samples() for s in snaps]
+
+
+# -- the sharded dictionary: B7-feed and B7-close ----------------------------
+
+
+def _sharded_case(n_shards: int, cap_s: int, layout: str, seed: int):
+    """(table int32 [n_shards, cap_s, 4], part uint32 [n_shards, 5, n_pad_s])
+    through the aggregator's own placement and partition. layout:
+      spread   ~0.6 of every sub-table full; known, h1-only and unknown
+               queries spread over the shards, some dead lanes
+      one      every query's home is shard 0: the other shards get only
+               pad lanes (empty shards), shard 0 every row
+      chains   in each shard 20 keys sharing one h1 whose home is 3 slots
+               before the sub-table's end (the chain wraps inside it);
+               queries stop at steps 7, 8, 9, 15 (hits), 16, 17 (past the
+               bound) and walk 20 slots (a miss past the bound)
+      dead     every lane dead (count 0)"""
+    agg = sharded.ShardedDictAggregator(capacity=n_shards * cap_s,
+                                        n_shards=n_shards, device="cpu")
+    rng = np.random.default_rng(seed)
+
+    def put(keys):
+        for k in map(tuple, keys.tolist()):
+            slot = agg._try_insert_slot(k)
+            if slot is None:
+                continue
+            agg._occ[slot] = True
+            agg._h1[slot], agg._h2[slot], agg._h3[slot] = k
+            agg._ids[slot] = int(agg._occ.sum()) - 1
+
+    keys = rng.integers(0, 2**32, (int(0.6 * n_shards * cap_s), 3),
+                        dtype=np.uint64).astype(np.uint32)
+    if layout == "chains":
+        keys = keys[:0]
+        for s in range(n_shards):
+            ch = rng.integers(0, 2**32, (20, 3), dtype=np.uint64).astype(
+                np.uint32)
+            ch[:, 0] = (ch[0, 0] & ~np.uint32(cap_s - 1)) + cap_s - 3
+            ch[:, 1] = (ch[:, 1] // n_shards) * n_shards + s
+            put(ch)
+            keys = np.concatenate([keys, ch])
+        stop_at = [7, 8, 9, 15, 16, 17]
+        q = np.concatenate([keys.reshape(n_shards, 20, 3)[:, stop_at]
+                            .reshape(-1, 3), keys[::20]])
+        q[-n_shards:, 2] ^= 1  # same h1 and home, unknown: walks 20
+    else:
+        put(keys)
+        nq = 3 * cap_s
+        known = keys[rng.integers(0, len(keys), nq // 2)]
+        h1_only = keys[rng.integers(0, len(keys), nq // 4)].copy()
+        h1_only[:, 2] ^= 1
+        unknown = rng.integers(0, 2**32, (nq - len(known) - len(h1_only), 3),
+                               dtype=np.uint64).astype(np.uint32)
+        q = np.concatenate([known, h1_only, unknown])
+        q = q[rng.permutation(len(q))]
+        if layout == "one":
+            q[:, 1] = (q[:, 1] // n_shards) * n_shards
+    agg._ensure_device()
+    n_pad = 1 << max(4, (len(q) - 1).bit_length())
+    packed = np.zeros((4, n_pad), np.uint32)
+    packed[:3, :len(q)] = q.T
+    packed[3, :len(q)] = rng.integers(0 if layout == "spread" else 1, 6,
+                                      len(q))
+    if layout == "dead":
+        packed[3] = 0
+    return agg._dev.numpy(), agg._partition_packed(packed)
+
+
+@pytest.mark.parametrize("n_shards,cap_s,layout", [
+    (8, 1 << 10, "spread"), (8, 1 << 12, "one"), (1, 1 << 12, "spread"),
+    (2, 1 << 8, "chains"), (8, 1 << 6, "chains"), (4, 1 << 8, "dead")])
+@pytest.mark.parametrize("reset", [False, True])
+def test_sharded_feed_kernel_equals_plain(cuda, n_shards, cap_s, layout,
+                                          reset):
+    """B7-feed against sharded_feed_step_plain on the same card tensors:
+    found ids, the accumulator, each shard's miss count and ordered miss
+    rows, at empty shards, a shard holding every row, chains at the
+    probe bound (wrapping inside the sub-table) and all-dead lanes."""
+    table, part = _sharded_case(n_shards, cap_s, layout, cap_s + n_shards)
+    tab, prt = _t(table, cuda), _t(part, cuda)
+    # Ids run past id_cap (dropped, as mode="drop") only in "spread".
+    id_cap = n_shards * cap_s // (2 if layout == "spread" else 1)
+    acc0 = torch.randint(0, 9, (n_shards, id_cap), dtype=torch.int32,
+                         device=cuda)
+    before = sharded.LAUNCHES["sharded_feed"]
+    outs = []
+    for fn in (sharded.sharded_feed_step, sharded.sharded_feed_step_plain):
+        acc = acc0.clone()
+        outs.append((acc, *fn(tab, acc, prt, reset)))
+    torch.cuda.synchronize()
+    assert sharded.LAUNCHES["sharded_feed"] == before + 1
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    found = [sharded.sharded_feed_accumulate(tab, acc0.clone(), prt),
+             sharded.sharded_feed_accumulate_plain(tab, acc0.clone(), prt)]
+    assert torch.equal(*found)
+    n_miss = outs[0][1].cpu().numpy()
+    if layout == "one":
+        assert n_miss[1:].sum() == 0 and n_miss[0] > 0
+    if layout == "chains":
+        f = found[0].cpu().numpy()
+        live = part[:, 3] > 0
+        assert ((f >= 0) & live).sum(1).tolist() == [4] * n_shards
+    if layout == "dead":
+        assert n_miss.sum() == 0 and (found[0] < 0).all()
+        assert torch.equal(outs[0][0], acc0 if not reset else acc0 * 0)
+
+
+@pytest.mark.parametrize("width", [4, 8, 16])
+@pytest.mark.parametrize("n_shards,id_cap,n_fetch", [
+    (1, 1 << 12, 1 << 11), (2, 1 << 12, 1 << 12), (8, 1 << 20, 1 << 18),
+    (8, (1 << 12) + 4, 1 << 12)])
+@pytest.mark.parametrize("overrun", [False, True])
+def test_close_pack_sharded_kernel_equals_plain(cuda, width, n_shards,
+                                                id_cap, n_fetch, overrun):
+    """B7-close against close_pack_sharded_plain: every word, with and
+    without a sideband overrun and tail mass, a shard sum that wraps
+    int32, and a row stride that is not a multiple of 4 ids; one shard
+    is B2's buffer."""
+    rng = np.random.default_rng(width + n_shards + id_cap)
+    # Small counts stay below the sentinel once summed over the shards.
+    small = rng.integers(1, max(2, 15 // n_shards), (n_shards, id_cap))
+    acc = np.where(rng.random((n_shards, id_cap)) < 0.3, small,
+                   0).astype(np.int32)
+    n_over_buf = 1 << 8
+    n_big = n_over_buf + 50 if overrun else n_over_buf // 2
+    big = rng.choice(n_fetch, n_big, replace=False)
+    acc[rng.integers(0, n_shards, n_big), big] = rng.integers(
+        (1 << width) - 1, 1 << 24, n_big)
+    if overrun:
+        acc[0, 5] = 2**31 - 1
+        acc[-1, 5] = 7 if n_shards > 1 else acc[-1, 5]
+        if id_cap > n_fetch:
+            acc[:, n_fetch:] = 3
+    a = _t(acc, cuda)
+    before = close.LAUNCHES["close_pack_sharded"]
+    got = close.close_pack_sharded(a, n_fetch, width, n_over_buf)
+    torch.cuda.synchronize()
+    assert close.LAUNCHES["close_pack_sharded"] == before + 1
+    want = close.close_pack_sharded_plain(a, n_fetch, width, n_over_buf)
+    assert torch.equal(got, want)
+    host = got.cpu().numpy().view(np.uint32)
+    assert (int(host[-2]) > n_over_buf) == overrun
+    if n_shards == 1:
+        assert torch.equal(got, close.close_pack(a[0], n_fetch, width,
+                                                 n_over_buf))
+
+
+def test_sharded_aggregator_cuda_equals_cpu(cuda):
+    """ShardedDictAggregator on the card and on the CPU: counts, ids and
+    the host mirror after three windows of two feeds; every feed
+    launches B7-feed, every close B7-close."""
+    snap = generate(SyntheticSpec(n_pids=30, n_unique_stacks=3000,
+                                  total_samples=50_000, seed=9))
+    dc = sharded.ShardedDictAggregator(capacity=1 << 13, n_shards=8,
+                                       overflow="raise", device="cuda")
+    dh = sharded.ShardedDictAggregator(capacity=1 << 13, n_shards=8,
+                                       overflow="raise", device="cpu")
+    sharded.reset_launches()
+    before = close.LAUNCHES["close_pack_sharded"]
+    for _ in range(3):
+        hashes = dh.hash_rows(snap)
+        for d in (dc, dh):
+            d.feed(snap, hashes, hi=1000)
+            d.feed(snap, hashes, lo=1000)
+        assert np.array_equal(dc.close_window(), dh.close_window())
+    assert sharded.LAUNCHES["sharded_feed"] == 6
+    assert close.LAUNCHES["close_pack_sharded"] == before + 3
+    assert dc._key_to_id == dh._key_to_id
+    assert np.array_equal(dc._ids, dh._ids)
+    assert torch.equal(dc._dev.cpu(), dh._dev)

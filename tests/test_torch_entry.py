@@ -37,6 +37,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "parca_agent_tpu_torch.aggregator.tpu" in names
     assert "parca_agent_tpu_torch.ops.row_hash" in names
     assert "parca_agent_tpu_torch.aggregator.close" in names
+    assert "parca_agent_tpu_torch.aggregator.sharded" in names
     assert "parca_agent_tpu_torch.ops.sketch" in names
     assert "parca_agent_tpu_torch.utils.window_clock" in names
     for mod in ("pprof.window_encoder", "pprof.vec",
@@ -133,6 +134,10 @@ def test_cli_without_cuda_names_the_missing_device(tmp_path):
 
 def test_cli_dict_cm_without_cuda_names_the_missing_device(tmp_path):
     _assert_cli_needs_cuda(tmp_path, "dict+cm")
+
+
+def test_cli_sharded_without_cuda_names_the_missing_device(tmp_path):
+    _assert_cli_needs_cuda(tmp_path, "sharded")
 
 
 def _assert_cli_needs_cuda(tmp_path, aggregator: str):
