@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--k1-reference FEED_PROBE_CU]
                           [--rh-reference ROW_HASH_CU ...]
                           [--close-reference CLOSE_PACK_CU ...]
+                          [--b7-reference SHARDED_FEED_CU]
 
 Needs one CUDA device, nvcc and this checkout; imports nothing of jax or
 of parca_agent_tpu. Phases, each printing one JSON line:
@@ -108,14 +109,18 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                window, then a steady window of 10 drains, each checked
                against the numpy oracle (totals, per-pid mass, every 64th
                pid's sorted stack counts); every feed must launch B7-feed
-               (csrc/sharded_feed.cu), every close B7-close
-               (close_pack.cu's pa_close_pack_sharded). Per drain the
-               partition, H2D, dispatch and settle host times, n_pad_s and
-               the rows a shard. Both kernels against their plain versions
-               at the path's shapes (a steady drain's partition on the
-               window's table; the window's own [8, 2^20] accumulator at
-               widths 4, 8 and 16, and at one shard beside B2), timed,
-               with their bounds. A pid router that sends three pids of
+               (csrc/sharded_feed.cu) exactly once, every close B7-close
+               (close_pack.cu's pa_close_pack_sharded). Per drain the H2D,
+               dispatch and settle host times, n_pad and the rows a shard.
+               Both kernels against their plain versions at the path's
+               shapes, timed, with their bounds: B7-feed at three drains
+               (the steady window's last drain on the window's table, the
+               cold window's feed on the empty table it met, and the
+               skewed router's drain on its table), acc, n_miss and every
+               shard's miss-row prefix equal, one device kernel a steady
+               feed (torch.profiler); B7-close on the window's own [8, 2^20]
+               accumulator at widths 4, 8 and 16, and at one shard beside
+               B2. A pid router that sends three pids of
                four to shard 0 at 1/8 of the window (capacity 2^18): shard
                0's sub-table fills, the sketch absorbs the rest, exact +
                absorbed mass equals the window's and every exact key its
@@ -132,6 +137,12 @@ with the row hash kernel at phase 5's three windows. With
 interface is built, held against the plain versions in phase 3's cases
 and on phase 6's accumulators, and timed in turns with the close kernels
 there (a source without the sharded entry point loads all the same).
+With --b7-reference, a source with the two-stage B7-feed's C interface
+(parent commits before the one-launch feed: pa_sharded_feed over a host
+partition, found ids out) is built, its kernel plus the torch miss
+compaction that followed it held against the one-launch kernel at phase
+8's steady drain, on a partition made here for that timing only, and
+timed in turns with it.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -374,20 +385,26 @@ def load_close_reference(path: str):
     return close_pack, close_pack_delta
 
 
+# Sessions device_kernels takes at most: late in a long run, at phase 8,
+# torch.profiler has dropped the device activity of 4 sessions in a row
+# and, once, of 5.
+PROFILER_SESSIONS = 20
+
+
 def device_kernels(fn):
     """(names, sessions): the device activities (kernels, memsets,
     copies) that one fn() call enqueues, from torch.profiler, after one
     untimed call. Each session launches a spin kernel first, as its
     control: torch.profiler at times returns a session with no device
     activity at all, and a session whose control does not show is taken
-    again, up to 5 sessions."""
+    again, up to PROFILER_SESSIONS sessions."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for sessions in range(1, 6):
+    for sessions in range(1, PROFILER_SESSIONS + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1)
             fn()
@@ -396,8 +413,8 @@ def device_kernels(fn):
                  if e.device_type == DeviceType.CUDA]
         if sum("spin_kernel" in n for n in names) == 1:
             return [n for n in names if "spin_kernel" not in n], sessions
-    raise AssertionError("torch.profiler showed no control kernel in 5 "
-                         "sessions")
+    raise AssertionError(f"torch.profiler showed no control kernel in "
+                         f"{PROFILER_SESSIONS} sessions")
 
 
 def host_us(fn, reps: int = 200):
@@ -2560,86 +2577,195 @@ def skewed_shard(pid: int) -> int:
 
 
 def recorded_sharded(**kw):
-    """A ShardedDictAggregator that keeps each feed's partition shape
-    (n_pad_s, live rows a shard) and the last partition itself."""
+    """A ShardedDictAggregator that keeps each feed's lane count and live
+    rows a shard, and its first and last packed buffers, taken from the
+    buffer the dispatch was given after feed() returns (outside the timed
+    dispatch)."""
+    import numpy as np
+
     from parca_agent_tpu_torch.aggregator.sharded import ShardedDictAggregator
 
     class Recorded(ShardedDictAggregator):
-        def _partition_packed(self, packed):
-            part = super()._partition_packed(packed)
-            self.partitions.append(
-                (part.shape[2], (part[:, 3] > 0).sum(1).tolist()))
-            self.last_part = part.copy()
-            return part
+        def _feed_dispatch_async(self, packed, reset):
+            self.given = packed
+            return super()._feed_dispatch_async(packed, reset)
+
+        def feed(self, *a, **k):
+            self.given = None
+            super().feed(*a, **k)
+            if self.given is None:
+                return
+            p = self.given
+            live = p[3] > 0
+            self.feeds.append((p.shape[1], np.bincount(
+                p[1, live] % np.uint32(self._n_shards),
+                minlength=self._n_shards).tolist()))
+            self.last_packed = p.copy()
+            if self.first_packed is None:
+                self.first_packed = self.last_packed
 
     agg = Recorded(**kw)
-    agg.partitions = []
+    agg.feeds = []
+    agg.first_packed = agg.last_packed = None
     return agg
 
 
-def sharded_feed_kernel(dev, agg, part) -> dict:
-    """B7-feed (sharded_feed_step) on the dictionary's own table at one
-    drain's partition `part` (uint32 [S, 5, n_pad_s]) against
-    sharded_feed_step_plain: the accumulator, each shard's miss count and
-    miss rows, and the found ids, equal. Then the kernel alone and the
-    whole step (with the miss compaction) timed back to back, the plain
-    versions, and the bound of this drain's data. Launches made here are
-    not counted."""
+def partition_packed(packed, n_shards: int):
+    """The host partition of the two-stage B7-feed: packed's live rows by
+    home shard (h2 % n_shards) into uint32 [n_shards, 5, n_pad_s], packed
+    order kept within a shard, each row's packed position as channel 4,
+    n_pad_s the largest shard's row count rounded up to a quarter power of
+    two. Made here only for --b7-reference."""
+    import numpy as np
+
+    live = np.flatnonzero(packed[3] > 0)
+    shard = (packed[1, live] % np.uint32(n_shards)).astype(np.int64)
+    order = np.argsort(shard, kind="stable")
+    rows, shard = live[order], shard[order]
+    per = np.bincount(shard, minlength=n_shards)
+    n_max = max(int(per.max(initial=0)), 1)
+    step = 1 << max(2, n_max.bit_length() - 3)
+    n_pad_s = 16 if n_max <= 16 else -(-n_max // step) * step
+    out = np.zeros((n_shards, 5, n_pad_s), np.uint32)
+    lane = np.arange(len(rows)) - (np.cumsum(per) - per)[shard]
+    for c in range(4):
+        out[shard, c, lane] = packed[c, rows]
+    out[shard, 4, lane] = rows
+    return out
+
+
+def load_b7_reference(path: str):
+    """The two-stage B7-feed of a reference build: its pa_sharded_feed
+    (table, n_shards, cap_s, acc, id_cap, part [S, 5, n], n, found,
+    stream) over a partition, then the torch miss compaction that
+    followed it; returns step(table, acc, part) -> (n_miss, miss_rows).
+    Launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels
+
+    lib = load_reference("sharded_feed", path)
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.pa_sharded_feed.argtypes = [ptr, i64, i64, ptr, i64, ptr, i64, ptr,
+                                    ptr]
+    lib.pa_sharded_feed.restype = ctypes.c_int
+
+    def step(table, acc, part):
+        n_shards, cap_s = table.shape[0], table.shape[1]
+        n = part.shape[2]
+        found = torch.empty((n_shards, n), dtype=torch.int32,
+                            device=table.device)
+        kernels.check_launch(lib, lib.pa_sharded_feed(
+            table.data_ptr(), n_shards, cap_s, acc.data_ptr(), acc.shape[1],
+            part.data_ptr(), n, found.data_ptr(),
+            torch.cuda.current_stream(table.device).cuda_stream),
+            "reference sharded_feed")
+        miss = (part[:, 3] > 0) & (found < 0)
+        tgt = torch.where(miss, torch.cumsum(miss, 1) - 1, n)
+        out = torch.full((n_shards, n + 1), -1, dtype=torch.int32,
+                         device=table.device)
+        out.scatter_(1, tgt, part[:, 4])
+        return miss.sum(1, dtype=torch.int32), out[:, :n]
+
+    return step
+
+
+def sharded_feed_kernel(dev, drain: str, table, host, id_cap: int, packed,
+                        ref=None, profile: bool = False) -> dict:
+    """B7-feed (sharded_feed_step) at one drain's packed buffer `packed`
+    (uint32 [4, n_pad]) on `table` (the card's int32 [S, cap_s, 4]; `host`
+    its uint32 copy) against sharded_feed_step_plain: the accumulator,
+    each shard's miss count and miss-row prefix equal, and with `profile`
+    the device kernels one feed enqueues (torch.profiler: the one kernel,
+    nothing else). Then the kernel and the plain version timed, and the
+    bound of
+    this drain's data. With `ref` (--b7-reference), the two-stage design
+    over a partition of the same buffer held to the same lists and timed
+    in turns with the kernel, and the partition's host time. Launches made
+    here are not counted."""
     import numpy as np
     import torch
 
     from parca_agent_tpu_torch.aggregator import probe, sharded
 
     saved = dict(sharded.LAUNCHES)
-    n_shards, _, n = part.shape
-    table = agg._dev
-    dpart = torch.from_numpy(part.view(np.int32)).to(dev)
+    n_shards, cap_s = table.shape[0], table.shape[1]
+    n = packed.shape[1]
+    dpacked = torch.from_numpy(packed.view(np.int32)).to(dev)
 
     def acc0():
-        return torch.zeros((n_shards, agg._id_cap), dtype=torch.int32,
-                           device=dev)
+        return torch.zeros((n_shards, id_cap), dtype=torch.int32, device=dev)
+
+    def prefixes(n_miss, rows):
+        per = n_miss.cpu().tolist()
+        return per, [rows[s, :k].cpu() for s, k in enumerate(per)]
 
     outs = []
     for fn in (sharded.sharded_feed_step, sharded.sharded_feed_step_plain):
         acc = acc0()
-        outs.append((acc, *fn(table, acc, dpart, True)))
-    found = [sharded.sharded_feed_accumulate(table, acc0(), dpart),
-             sharded.sharded_feed_accumulate_plain(table, acc0(), dpart)]
+        n_miss, rows = fn(table, acc, dpacked, True)
+        outs.append((acc, *prefixes(n_miss, rows)))
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(*outs)) \
-            or not torch.equal(*found):
-        raise AssertionError("sharded_feed != plain at the steady drain")
+    (acc_k, per, lists), (acc_p, per_p, lists_p) = outs
+    if not torch.equal(acc_k, acc_p) or per != per_p \
+            or not all(torch.equal(a, b) for a, b in zip(lists, lists_p)):
+        raise AssertionError(f"sharded_feed != plain at the {drain} drain")
     acc = acc0()
-    ms = time_ms(lambda: sharded.sharded_feed_accumulate(table, acc, dpart),
-                 50)
-    step_ms = time_ms(lambda: sharded.sharded_feed_step(table, acc, dpart,
-                                                        False), 50)
-    plain_ms = time_ms(lambda: sharded.sharded_feed_accumulate_plain(
-        table, acc, dpart), 5)
-    plain_step_ms = time_ms(lambda: sharded.sharded_feed_step_plain(
-        table, acc, dpart, False), 5)
+    row = {"drain": drain, "n_pad": n, "table": [n_shards, cap_s, 4],
+           "id_cap": id_cap}
+    if profile:
+        names, sessions = device_kernels(
+            lambda: sharded.sharded_feed_step(table, acc, dpacked, False))
+        if len(names) != 1 or "sharded_feed" not in names[0]:
+            raise AssertionError(f"a feed enqueued {names}, not the one "
+                                 "kernel")
+        row.update(device_kernels_per_feed=names, profiler_sessions=sessions)
+    row["ms"] = time_ms(lambda: sharded.sharded_feed_step(
+        table, acc, dpacked, False), 50)
+    row["plain_ms"] = time_ms(lambda: sharded.sharded_feed_step_plain(
+        table, acc, dpacked, False), 5)
+    if ref is not None:
+        t0 = time.perf_counter()
+        part = partition_packed(packed, n_shards)
+        row["reference_partition_ms"] = (time.perf_counter() - t0) * 1e3
+        dpart = torch.from_numpy(part.view(np.int32)).to(dev)
+        r_per, r_lists = prefixes(*ref(table, acc0(), dpart))
+        if r_per != per or not all(torch.equal(a, b)
+                                   for a, b in zip(lists, r_lists)):
+            raise AssertionError("the reference B7-feed's miss lists differ")
+        row["reference_shape"] = list(part.shape)
+        row["ms_turns"] = time_turns({
+            "sharded_feed": lambda: sharded.sharded_feed_step(
+                table, acc, dpacked, False),
+            "reference": lambda: ref(table, acc, dpart)}, 50)
     sharded.LAUNCHES.update(saved)
-    # What this drain's data makes the kernel do, on the host mirror.
-    host = host_table(agg).reshape(n_shards, agg._cap_s, 4)
+    # What this drain's data makes the kernel do, on the host copy.
+    live = packed[3].view(np.int32) > 0
+    home = packed[1] % np.uint32(n_shards)
     steps = slots = hits = 0
     ids = []
     for s in range(n_shards):
-        live = part[s, 3] > 0
-        st, sl, f = probe_work(host[s], *part[s, :3][:, live], probe.PROBES)
+        mine = live & (home == s)
+        st, sl, f = probe_work(host[s], *packed[:3][:, mine], probe.PROBES)
         steps, slots = steps + int(st.sum()), slots + sl
-        hits += int((f >= 0).sum())
-        ids.append(s * agg._id_cap + f[f >= 0])
+        f = f[f >= 0]
+        hits += len(f)
+        ids.append(s * id_cap + f[f < id_cap])
     uniq = len(np.unique(np.concatenate(ids)))
-    # The partition's 4 channels the kernel reads, each chain slot once,
-    # the found ids written, each hit id's count read and written.
-    nbytes = 16 * n_shards * n + 16 * slots + 4 * n_shards * n + 8 * uniq
+    rows, misses = int(live.sum()), sum(per)
+    n_tiles = -(-n // sharded.FEED_TILE)
+    # Each live row's 16 B of packed, each dead lane's count, each chain
+    # slot once, each hit id's count read and written, each miss row
+    # written, the status records written, n_miss.
+    nbytes = (16 * rows + 4 * (n - rows) + 16 * slots + 8 * uniq
+              + 4 * misses + 8 * n_tiles * n_shards + 4 * n_shards)
     b_ms, b_by = bound(nbytes, 6 * steps + 2 * hits)
-    row = {"shape": list(part.shape), "rows": int((part[:, 3] > 0).sum()),
-           "hits": hits, "misses": int(outs[0][1].sum().item()),
-           "table": [n_shards, agg._cap_s, 4], "id_cap": agg._id_cap,
-           "ms": ms, "step_ms": step_ms, "plain_ms": plain_ms,
-           "plain_step_ms": plain_step_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": nbytes, "equal": True}
+    row.update({"rows": rows, "rows_per_shard": np.bincount(
+        home[live], minlength=n_shards).tolist(), "hits": hits,
+        "misses": misses, "misses_per_shard": per, "bound_ms": b_ms,
+        "bound_by": b_by, "bytes": nbytes, "equal": True})
     emit("sharded_feed_kernel", **row)
     return row
 
@@ -2704,15 +2830,15 @@ def sharded_skew(dev) -> dict:
     key that stayed exact has the count of its rows; every absorbed key's
     count-min estimate is at least its count; every pid none of whose
     keys was absorbed has the oracle's mass, and every 64th of them its
-    sorted stack counts."""
+    sorted stack counts. Then B7-feed at the window's drain on the table
+    it left (three rows of four in shard 0, its absorbed keys missing past
+    the probe bound)."""
     import numpy as np
 
-    from parca_agent_tpu_torch.aggregator.sharded import ShardedDictAggregator
-
     snap, want = window_setup(SKEW_ROWS, SKEW_PIDS, label="sharded_skew_setup")
-    agg = ShardedDictAggregator(capacity=SKEW_CAP, n_shards=SHARDS,
-                                overflow="sketch", shard_of_pid=skewed_shard,
-                                device=dev)
+    agg = recorded_sharded(capacity=SKEW_CAP, n_shards=SHARDS,
+                           overflow="sketch", shard_of_pid=skewed_shard,
+                           device=dev)
     t0 = time.perf_counter()
     hashes = agg.hash_rows(snap)
     hash_s = time.perf_counter() - t0
@@ -2763,6 +2889,8 @@ def sharded_skew(dev) -> dict:
            "miss_vec_fallbacks": agg.stats.get("miss_vec_fallbacks", 0),
            "timings_ms": {k: v * 1e3 for k, v in agg.timings.items()}}
     emit("sharded_skew", **row)
+    sharded_feed_kernel(dev, "skew", agg._dev, host_table(agg).reshape(
+        SHARDS, agg._cap_s, 4), agg._id_cap, agg.last_packed)
     return row
 
 
@@ -2802,13 +2930,14 @@ def sharded_cli() -> None:
          profiles_written=len(files), mass=mass)
 
 
-def phase_sharded(dev, snap, want, hashes) -> tuple:
+def phase_sharded(dev, snap, want, hashes, b7_ref=None) -> tuple:
     """The sharded dictionary's path on `dev` over `snap` (its identity
     triple `hashes`: no router, so the dictionary's own): a cold window
     and a steady window of DRAINS feeds, each checked against the numpy
-    oracle; its kernels against their plain versions at its shapes; the
-    skewed router; the CLI. Returns the kernel rows and the launches
-    counted over the two windows."""
+    oracle, each feed exactly one B7-feed launch; its kernels against
+    their plain versions at its shapes; the skewed router; the CLI.
+    Returns the kernel rows and the launches counted over the two
+    windows."""
     import numpy as np
     import torch
 
@@ -2836,9 +2965,9 @@ def phase_sharded(dev, snap, want, hashes) -> tuple:
     per_feed.append(sharded.LAUNCHES["sharded_feed"])
     check_counts("sharded cold window", agg, snap, counts, want_mass,
                  want_values)
-    n_pad_s, per_shard = agg.partitions[-1]
+    n_pad, per_shard = agg.feeds[-1]
     emit("sharded_cold_window", ms=cold_ms, inserts=agg.stats["inserts"],
-         n_pad_s=n_pad_s, rows_per_shard=per_shard,
+         n_pad=n_pad, rows_per_shard=per_shard,
          shard_load=(1 - agg._shard_free() / agg._cap_s).tolist(),
          timings_ms={k: v * 1e3 for k, v in agg.timings.items()})
 
@@ -2851,12 +2980,11 @@ def phase_sharded(dev, snap, want, hashes) -> tuple:
         agg.feed(snap, hashes, lo=int(lo), hi=int(hi))
         per_feed.append(sharded.LAUNCHES["sharded_feed"] - before)
         t = agg.timings
-        n_pad_s, per_shard = agg.partitions[-1]
-        drains.append({"partition_ms": t["feed_partition"] * 1e3,
-                       "h2d_ms": t["feed_h2d"] * 1e3,
+        n_pad, per_shard = agg.feeds[-1]
+        drains.append({"h2d_ms": t["feed_h2d"] * 1e3,
                        "dispatch_ms": t["feed_dispatch"] * 1e3,
                        "prev_settle_ms": t.get("feed_settle", 0.0) * 1e3,
-                       "n_pad_s": n_pad_s, "rows_per_shard": per_shard})
+                       "n_pad": n_pad, "rows_per_shard": per_shard})
     t_close = time.perf_counter()
     counts = agg.close_window(copy=True)
     close_ms = (time.perf_counter() - t_close) * 1e3
@@ -2873,10 +3001,15 @@ def phase_sharded(dev, snap, want, hashes) -> tuple:
          drains=drains, inserts=agg.stats["inserts"],
          samples_per_s=snap.total_samples() / (window_ms / 1e3),
          launches=launches, launches_per_feed=per_feed)
-    if min(per_feed) < 1 or launches["close_pack_sharded"] < 2:
+    if per_feed != [1] * (DRAINS + 1) or launches["close_pack_sharded"] < 2:
         raise AssertionError(f"sharded path launches {launches}, per feed "
                              f"{per_feed}")
-    feed = sharded_feed_kernel(dev, agg, agg.last_part)
+    host = host_table(agg).reshape(SHARDS, agg._cap_s, 4)
+    feed = sharded_feed_kernel(dev, "steady", agg._dev, host, agg._id_cap,
+                               agg.last_packed, b7_ref, profile=True)
+    # The cold window's feed met an empty table: nearly every row misses.
+    sharded_feed_kernel(dev, "cold", torch.zeros_like(agg._dev),
+                        np.zeros_like(host), agg._id_cap, agg.first_packed)
     # The closed window's accumulator (the flip put it in the spare).
     closed = sharded_close_kernel(dev, agg._acc_spare, 4096)
     sharded_skew(dev)
@@ -2916,6 +3049,11 @@ def main() -> int:
                          "interface, built, held against the plain versions "
                          "and timed in turns with the close kernels (may be "
                          "given more than once)")
+    ap.add_argument("--b7-reference", metavar="SHARDED_FEED_CU",
+                    help="a source with the two-stage B7-feed's C interface "
+                         "(a kernel over a host partition), built, held "
+                         "against the one-launch feed and timed in turns "
+                         "with it at phase 8's steady drain")
     opts = ap.parse_args()
     try:
         import torch
@@ -2978,6 +3116,10 @@ def main() -> int:
                   for path in opts.close_reference}
     if close_refs:
         emit("close_reference", sources=opts.close_reference)
+    b7_ref = None
+    if opts.b7_reference:
+        b7_ref = load_b7_reference(opts.b7_reference)
+        emit("b7_reference", source=opts.b7_reference)
     phases_s = {"identity_and_build": time.perf_counter() - t_start}
 
     def timed(name, fn, *a):
@@ -2998,7 +3140,7 @@ def main() -> int:
     rows.update(bounded)
     launches_stream = timed("streaming", phase_streaming, dev, snap, want)
     sharded_rows, launches_sharded = timed("sharded", phase_sharded, dev,
-                                           snap, want, hashes)
+                                           snap, want, hashes, b7_ref)
     rows.update(sharded_rows)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the

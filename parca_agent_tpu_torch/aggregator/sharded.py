@@ -8,16 +8,17 @@ pprof).
     sub-table of capacity / n_shards slots, and the linear probe (from
     h1) runs within it, wrapping inside the sub-table. The device table
     is int32 [n_shards, cap_s, 4] (uint32 bits).
-  * Each feed's packed rows are PARTITIONED on the host by home shard:
-    shard s gets only its rows, padded to a lane count shared by every
-    shard (quarter-pow2 above the largest shard's row count), with each
-    row's original packed position as a fifth channel, so a miss reports
-    that position. One H2D of the partition, then the B7 feed kernel
-    (csrc/sharded_feed.cu) probes every shard's rows at once and
-    accumulates hits into that shard's row of the accumulator, int32
-    [n_shards, id_cap]; the misses of each shard are compacted in lane
-    order (torch ops) and the host takes them shard after shard, which
-    fixes the id order.
+  * Each feed is the dictionary's packed buffer, int32 [4, n_pad] (h1,
+    h2, h3, count), uploaded once as it is, and one launch of the B7 feed
+    kernel (csrc/sharded_feed.cu): each live row's home shard taken from
+    its h2, the row probed in that sub-table, a hit added into that
+    shard's row of the accumulator, int32 [n_shards, id_cap], and a miss
+    written at its rank in that shard's miss list, in packed order (a
+    single pass with decoupled look-back over per-shard counts). The host
+    takes the lists shard after shard, which fixes the id order. Packed
+    order within a shard is the lane order of the JAX package's stable
+    host partition, so the lists, and the ids, are its own; the port has
+    no partition.
   * The close is one kernel (csrc/close_pack.cu, pa_close_pack_sharded):
     each id's count summed over the shards as the tile loads it, then
     the single table's pack and sideband, fetched once.
@@ -82,120 +83,135 @@ def route_h2(h2: np.ndarray, pids, shard_of_pid, n_shards: int
 
 # -- B7-feed: the plain version and the kernel wrapper -----------------------
 
+# Lanes a tile of the kernel (csrc/sharded_feed.cu kThreads) and the most
+# shards it takes (pa_sharded_feed_max_shards).
+FEED_TILE = 1024
+FEED_MAX_SHARDS = 256
 
-def _check_feed(table, acc, part) -> None:
+
+def _check_feed(table, acc, packed) -> None:
     if table.dtype != torch.int32 or table.dim() != 3 \
             or table.shape[2] != 4 or not table.is_contiguous():
         raise ValueError("table must be a contiguous int32 [n_shards, cap_s, "
                          "4] tensor (uint32 bits)")
     n_shards, cap_s = table.shape[0], table.shape[1]
+    if n_shards < 1:
+        raise ValueError("table has no shard")
     if cap_s < 1 or cap_s & (cap_s - 1):
         raise ValueError(f"sub-table capacity {cap_s} is not a power of two")
     if acc.dtype != torch.int32 or acc.dim() != 2 \
             or acc.shape[0] != n_shards or not acc.is_contiguous():
         raise ValueError(f"acc must be a contiguous int32 [{n_shards}, "
                          "id_cap] tensor")
-    if part.dtype != torch.int32 or part.dim() != 3 \
-            or part.shape[:2] != (n_shards, 5) or not part.is_contiguous():
-        raise ValueError(f"part must be a contiguous int32 [{n_shards}, 5, "
-                         "n_pad_s] tensor (uint32 bits)")
-    for name, t in (("acc", acc), ("part", part)):
+    if packed.dtype != torch.int32 or packed.dim() != 2 \
+            or packed.shape[0] != 4 or packed.shape[1] < 1 \
+            or not packed.is_contiguous():
+        raise ValueError("packed must be a contiguous int32 [4, n_pad] "
+                         "tensor (uint32 bits), n_pad >= 1")
+    for name, t in (("acc", acc), ("packed", packed)):
         if t.device != table.device:
             raise ValueError(f"{name} on {t.device}, table on {table.device}")
 
 
-def sharded_feed_accumulate_plain(table: torch.Tensor, acc: torch.Tensor,
-                                  part: torch.Tensor) -> torch.Tensor:
-    """The probe and scatter-add of _sharded_feed_program in plain torch
-    ops: found int32 [n_shards, n_pad_s] (the id of each live lane's key
-    in its shard's sub-table, -1 on a miss, past the probe bound and on
-    every dead lane); hits add their count to acc[shard, id] in place."""
-    n_shards, cap_s = table.shape[0], table.shape[1]
-    mask = cap_s - 1
-    flat = table.reshape(-1, 4)
-    h1, h2, h3, cnt = part[:, 0], part[:, 1], part[:, 2], part[:, 3]
-    base = torch.arange(n_shards, dtype=torch.int64,
-                        device=table.device)[:, None] * cap_s
-    h1w = h1.to(torch.int64) & _U32
-    found = torch.full(h1.shape, -1, dtype=torch.int32, device=table.device)
-    done = torch.zeros(h1.shape, dtype=torch.bool, device=table.device)
-    for k in range(probe.PROBES):
-        row = flat[base + ((h1w + k) & mask)]
-        occ = row[..., 3] != 0
-        hit = occ & (row[..., 0] == h1) & (row[..., 1] == h2) \
-            & (row[..., 2] == h3)
-        found = torch.where(hit & ~done, row[..., 3] - 1, found)
-        done = done | hit | ~occ
-    live = cnt > 0
-    found = torch.where(live, found, -1)
-    id_cap = acc.shape[1]
-    hit = (found >= 0) & (found < id_cap)
-    gid = (torch.arange(n_shards, dtype=torch.int64,
-                        device=table.device)[:, None] * id_cap
-           + found.to(torch.int64))
-    acc.view(-1).index_add_(0, gid[hit], cnt[hit])
-    return found
-
-
-def sharded_feed_accumulate(table: torch.Tensor, acc: torch.Tensor,
-                            part: torch.Tensor) -> torch.Tensor:
-    """found int32 [n_shards, n_pad_s], with acc updated in place; CUDA
-    tensors launch the kernel of csrc/sharded_feed.cu (every shard's lanes
-    in one launch), CPU tensors run sharded_feed_accumulate_plain."""
-    _check_feed(table, acc, part)
-    if table.device.type == "cpu":
-        return sharded_feed_accumulate_plain(table, acc, part)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
-    lib = kernels.load("sharded_feed")
-    n_shards, cap_s = table.shape[0], table.shape[1]
-    n = part.shape[2]
-    found = torch.empty((n_shards, n), dtype=torch.int32, device=table.device)
-    code = lib.pa_sharded_feed(
-        table.data_ptr(), n_shards, cap_s, acc.data_ptr(), acc.shape[1],
-        part.data_ptr(), n, found.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream)
-    kernels.check_launch(lib, code, "sharded_feed")
-    LAUNCHES["sharded_feed"] += 1
-    return found
-
-
-def _compact_misses(part: torch.Tensor, found: torch.Tensor):
-    """Each shard's live misses, in lane order, as their original packed
-    positions (channel 4): (n_miss int32 [n_shards], miss_rows int32
-    [n_shards, n_pad_s], -1 past each shard's count). No host sync."""
-    n_shards, n = found.shape
-    miss = (part[:, 3] > 0) & (found < 0)
-    tgt = torch.cumsum(miss, 1) - 1
-    tgt = torch.where(miss, tgt, n)
-    out = torch.full((n_shards, n + 1), -1, dtype=torch.int32,
-                     device=found.device)
-    out.scatter_(1, tgt, part[:, 4])
-    return miss.sum(1, dtype=torch.int32), out[:, :n]
-
-
 def sharded_feed_step_plain(table: torch.Tensor, acc: torch.Tensor,
-                            part: torch.Tensor, reset: bool):
-    """One feed of _sharded_feed_program in plain torch ops: acc zeroed
-    first when `reset`, then probed and accumulated in place; returns
-    (n_miss int32 [n_shards], miss_rows int32 [n_shards, n_pad_s])."""
+                            packed: torch.Tensor, reset: bool):
+    """One feed of _sharded_feed_program in plain torch ops, on the
+    unpartitioned packed buffer (int32 [4, n_pad]: h1, h2, h3, count;
+    uint32 bits): acc zeroed first when `reset`, then each live row probed
+    in its home sub-table (h2 % n_shards) and its count added to
+    acc[shard, id] in place (ids >= id_cap dropped). Returns (n_miss int32
+    [n_shards], miss_rows int32 [n_shards, n_pad]): shard s's live misses
+    as packed positions, in packed order, in miss_rows[s, :n_miss[s]]
+    (-1 past it; only the prefix is the result)."""
     if reset:
         acc.zero_()
-    return _compact_misses(part, sharded_feed_accumulate_plain(table, acc,
-                                                               part))
+    n_shards, cap_s = table.shape[0], table.shape[1]
+    n = packed.shape[1]
+    dev = table.device
+    mask = cap_s - 1
+    flat = table.reshape(-1, 4)
+    h1, h2, h3, cnt = packed[0], packed[1], packed[2], packed[3]
+    shard = (h2.to(torch.int64) & _U32) % n_shards
+    base = shard * cap_s
+    h1w = h1.to(torch.int64) & _U32
+    found = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    for k in range(probe.PROBES):
+        row = flat[base + ((h1w + k) & mask)]
+        occ = row[:, 3] != 0
+        hit = occ & (row[:, 0] == h1) & (row[:, 1] == h2) & (row[:, 2] == h3)
+        found = torch.where(hit & ~done, row[:, 3] - 1, found)
+        done = done | hit | ~occ
+    live = cnt > 0
+    id_cap = acc.shape[1]
+    add = live & (found >= 0) & (found < id_cap)
+    acc.view(-1).index_add_(0, (shard * id_cap + found)[add], cnt[add])
+    # Each shard's misses in packed order: a stable sort by shard keeps
+    # the packed order within a shard, as JAX's partition does.
+    rows = torch.nonzero(live & (found < 0)).flatten()
+    by = shard[rows]
+    order = torch.argsort(by, stable=True)
+    rows, by = rows[order], by[order]
+    n_miss = torch.bincount(by, minlength=n_shards)
+    rank = torch.arange(len(rows), device=dev) \
+        - (torch.cumsum(n_miss, 0) - n_miss)[by]
+    miss_rows = torch.full((n_shards, n), -1, dtype=torch.int32, device=dev)
+    miss_rows[by, rank] = rows.to(torch.int32)
+    return n_miss.to(torch.int32), miss_rows
+
+
+# One scratch per (device, stream), zeroed once when it is created and
+# replaced by a larger one (zeroed once too) when a feed needs more: the
+# kernel's status records carry an epoch that the scratch holds itself,
+# so it is never cleared between calls. Keyed by the stream, so calls on
+# one scratch are in stream order and never overlap.
+_SCRATCH: dict = {}
+
+
+def _scratch(lib, dev: torch.device, stream, n: int,
+             n_shards: int) -> torch.Tensor:
+    key = (dev.index, stream.cuda_stream)
+    words = lib.pa_sharded_feed_scratch_words(n, n_shards)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < words:  # zeroed on `stream`
+        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
+                                          device=dev)
+    return buf
 
 
 def sharded_feed_step(table: torch.Tensor, acc: torch.Tensor,
-                      part: torch.Tensor, reset: bool):
-    """sharded_feed_step_plain's result; on CUDA tensors the probe and
-    the accumulate are the B7 feed kernel's (a failed build or launch
-    raises)."""
-    _check_feed(table, acc, part)
+                      packed: torch.Tensor, reset: bool):
+    """sharded_feed_step_plain's result (miss_rows past each shard's
+    n_miss unwritten on the card). CUDA tensors: acc.zero_() when `reset`,
+    then one launch of the B7 feed kernel (csrc/sharded_feed.cu), which
+    routes, probes, accumulates and compacts every shard's misses; a
+    failed build or launch raises, and so do more than FEED_MAX_SHARDS
+    shards. CPU tensors run sharded_feed_step_plain."""
+    _check_feed(table, acc, packed)
     if table.device.type == "cpu":
-        return sharded_feed_step_plain(table, acc, part, reset)
+        return sharded_feed_step_plain(table, acc, packed, reset)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    n_shards, cap_s = table.shape[0], table.shape[1]
+    if n_shards > FEED_MAX_SHARDS:
+        raise ValueError(f"the sharded feed kernel takes at most "
+                         f"{FEED_MAX_SHARDS} shards, not {n_shards}")
+    lib = kernels.load("sharded_feed")
+    dev = table.device
+    stream = torch.cuda.current_stream(dev)
+    n = packed.shape[1]
+    scratch = _scratch(lib, dev, stream, n, n_shards)
     if reset:
         acc.zero_()
-    return _compact_misses(part, sharded_feed_accumulate(table, acc, part))
+    n_miss = torch.empty(n_shards, dtype=torch.int32, device=dev)
+    miss_rows = torch.empty((n_shards, n), dtype=torch.int32, device=dev)
+    code = lib.pa_sharded_feed(
+        table.data_ptr(), n_shards, cap_s, acc.data_ptr(), acc.shape[1],
+        packed.data_ptr(), n, scratch.data_ptr(), n_miss.data_ptr(),
+        miss_rows.data_ptr(), stream.cuda_stream)
+    kernels.check_launch(lib, code, "sharded_feed")
+    LAUNCHES["sharded_feed"] += 1
+    return n_miss, miss_rows
 
 
 class ShardedDictAggregator(DictAggregator):
@@ -228,9 +244,6 @@ class ShardedDictAggregator(DictAggregator):
         # pid -> home shard (a tenant's placement), stable per pid across
         # windows: hash_rows rewrites h2's residue by it (route_h2).
         self._shard_of_pid = shard_of_pid
-        # n_pad_s -> [buf_a, buf_b, flip]: the partition's host buffers,
-        # two a lane count, alternating, LRU over 8 lane counts.
-        self._part_bufs: dict[int, list] = {}
         super().__init__(capacity=capacity, device=dev, **kw)
         # No touch flags: the close sums the shards and packs the full
         # prefix.
@@ -357,67 +370,15 @@ class ShardedDictAggregator(DictAggregator):
         return torch.zeros((self._n_shards, self._id_cap), dtype=torch.int32,
                            device=self.device)
 
-    def _partition_packed(self, packed: np.ndarray) -> np.ndarray:
-        """The [4, n_pad] packed buffer split into [n_shards, 5, n_pad_s]
-        by home shard (h2 % n_shards), each row's original position as
-        channel 4; pad lanes are zero (count 0 = dead). Rows keep their
-        packed order within a shard (a stable sort), so miss order, and
-        with it id assignment, is fixed. n_pad_s is the largest shard's
-        row count rounded up to a quarter power of two (16, 20, 24, 28,
-        32, 40, ...): at most ~4 lane counts an octave, where a power of
-        two would waste up to half the lanes. Two buffers a lane count,
-        alternating, so this pack never writes the buffer the previous
-        dispatch read; LRU over 8 lane counts."""
-        cnt = packed[3]
-        live = np.flatnonzero(cnt > 0)
-        shard = (packed[1, live] % np.uint32(self._n_shards)).astype(np.int64)
-        order = np.argsort(shard, kind="stable")
-        rows = live[order]
-        per = np.bincount(shard, minlength=self._n_shards)
-        n_max = max(int(per.max(initial=0)), 1)
-        if n_max <= 16:
-            n_pad_s = 16
-        else:
-            step = 1 << max(2, n_max.bit_length() - 3)
-            n_pad_s = -(-n_max // step) * step
-        pair = self._part_bufs.pop(n_pad_s, None)
-        if pair is None:
-            if len(self._part_bufs) >= 8:
-                self._part_bufs.pop(next(iter(self._part_bufs)))  # LRU
-            pair = [None, None, 0]
-        flip = pair[2]
-        pair[2] = flip ^ 1
-        out = pair[flip]
-        if out is None:
-            out = pair[flip] = np.zeros((self._n_shards, 5, n_pad_s),
-                                        np.uint32)
-        else:
-            out[:] = 0
-        self._part_bufs[n_pad_s] = pair
-        bounds = np.zeros(self._n_shards + 1, np.int64)
-        np.cumsum(per, out=bounds[1:])
-        shard_sorted = shard[order]
-        lane = np.arange(len(rows), dtype=np.int64) - bounds[shard_sorted]
-        for c in range(4):
-            out[shard_sorted, c, lane] = packed[c, rows]
-        out[shard_sorted, 4, lane] = rows.astype(np.uint32)
-        return out
-
     def _feed_dispatch_async(self, packed: np.ndarray, reset: bool):
         t0 = time.perf_counter()
-        part = self._partition_packed(packed)
-        t1 = time.perf_counter()
-        dev_part = self._to_device(part)  # the feed's one H2D
-        t2 = time.perf_counter()
-        handle = sharded_feed_step(self._dev, self._acc, dev_part, reset)
-        self.timings["feed_partition"] = t1 - t0
-        self.timings["feed_h2d"] = t2 - t1
-        return handle
+        dev_packed = self._to_device(packed)  # the feed's one H2D
+        self.timings["feed_h2d"] = time.perf_counter() - t0
+        return sharded_feed_step(self._dev, self._acc, dev_packed, reset)
 
     def _settle_dispatch(self, handle) -> np.ndarray:
         """The miss rows of one dispatched feed, shard after shard (their
-        original packed positions). The n_miss fetch is the feed's one
-        sync."""
+        packed positions). The n_miss fetch is the feed's one sync."""
         n_miss, miss_rows = handle
         per = n_miss.cpu().numpy()
         if not per.any():

@@ -55,8 +55,10 @@ SIGNATURES = {
         "pa_cuda_error_string": _ERR,
     },
     "sharded_feed": {
-        "pa_sharded_feed": ([_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P],
-                            ctypes.c_int),
+        "pa_sharded_feed_max_shards": ([], ctypes.c_int64),
+        "pa_sharded_feed_scratch_words": ([_I64, _I64], ctypes.c_int64),
+        "pa_sharded_feed": ([_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P, _P,
+                             _P], ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
     "row_hash": {

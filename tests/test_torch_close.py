@@ -16,6 +16,12 @@ import torch
 from parca_agent_tpu.aggregator.dict import make_close, make_close_delta
 from parca_agent_tpu_torch.aggregator.dict import close_pack, close_pack_delta
 
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
+
 ID_CAP, N_FETCH, BLK = 4096, 2048, 128
 
 

@@ -14,7 +14,7 @@ import torch
 from parca_agent_tpu_torch.aggregator import close, probe, sharded, tpu
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator, feed_step
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
-from parca_agent_tpu_torch.ops import row_hash
+from parca_agent_tpu_torch.ops import kernels, row_hash
 
 pytestmark = pytest.mark.cuda
 
@@ -781,12 +781,12 @@ def test_streamed_window_with_carry_cuda_equals_cpu(cuda, overflow):
 
 
 def _sharded_case(n_shards: int, cap_s: int, layout: str, seed: int):
-    """(table int32 [n_shards, cap_s, 4], part uint32 [n_shards, 5, n_pad_s])
-    through the aggregator's own placement and partition. layout:
+    """(table int32 [n_shards, cap_s, 4], packed uint32 [4, n_pad])
+    through the aggregator's own placement. layout:
       spread   ~0.6 of every sub-table full; known, h1-only and unknown
                queries spread over the shards, some dead lanes
-      one      every query's home is shard 0: the other shards get only
-               pad lanes (empty shards), shard 0 every row
+      one      every query's home is shard 0: the other shards get no
+               row (empty shards), shard 0 every row
       chains   in each shard 20 keys sharing one h1 whose home is 3 slots
                before the sub-table's end (the chain wraps inside it);
                queries stop at steps 7, 8, 9, 15 (hits), 16, 17 (past the
@@ -840,7 +840,28 @@ def _sharded_case(n_shards: int, cap_s: int, layout: str, seed: int):
                                       len(q))
     if layout == "dead":
         packed[3] = 0
-    return agg._dev.numpy(), agg._partition_packed(packed)
+    return agg._dev.numpy(), packed
+
+
+def _feed_both(tab, acc0, packed, reset=False):
+    """B7-feed and sharded_feed_step_plain on the same card tensors, each
+    on its own copy of acc0: the accumulators, the miss counts and each
+    shard's miss-row prefix equal (one launch). Returns the kernel's
+    (acc, n_miss numpy, miss_rows)."""
+    before = sharded.LAUNCHES["sharded_feed"]
+    outs = []
+    for fn in (sharded.sharded_feed_step, sharded.sharded_feed_step_plain):
+        acc = acc0.clone()
+        outs.append((acc, *fn(tab, acc, packed, reset)))
+    torch.cuda.synchronize()
+    assert sharded.LAUNCHES["sharded_feed"] == before + 1
+    (acc, n_miss, rows), (acc_p, n_miss_p, rows_p) = outs
+    assert torch.equal(acc, acc_p)
+    assert torch.equal(n_miss, n_miss_p)
+    per = n_miss.cpu().numpy()
+    for s, k in enumerate(per.tolist()):
+        assert torch.equal(rows[s, :k], rows_p[s, :k]), s
+    return acc, per, rows
 
 
 @pytest.mark.parametrize("n_shards,cap_s,layout", [
@@ -850,37 +871,143 @@ def _sharded_case(n_shards: int, cap_s: int, layout: str, seed: int):
 def test_sharded_feed_kernel_equals_plain(cuda, n_shards, cap_s, layout,
                                           reset):
     """B7-feed against sharded_feed_step_plain on the same card tensors:
-    found ids, the accumulator, each shard's miss count and ordered miss
-    rows, at empty shards, a shard holding every row, chains at the
-    probe bound (wrapping inside the sub-table) and all-dead lanes."""
-    table, part = _sharded_case(n_shards, cap_s, layout, cap_s + n_shards)
-    tab, prt = _t(table, cuda), _t(part, cuda)
+    the accumulator, each shard's miss count and ordered miss rows, at
+    empty shards, a shard holding every row, chains at the probe bound
+    (wrapping inside the sub-table) and all-dead lanes."""
+    table, packed = _sharded_case(n_shards, cap_s, layout, cap_s + n_shards)
+    tab, pk = _t(table, cuda), _t(packed, cuda)
     # Ids run past id_cap (dropped, as mode="drop") only in "spread".
     id_cap = n_shards * cap_s // (2 if layout == "spread" else 1)
     acc0 = torch.randint(0, 9, (n_shards, id_cap), dtype=torch.int32,
                          device=cuda)
-    before = sharded.LAUNCHES["sharded_feed"]
-    outs = []
-    for fn in (sharded.sharded_feed_step, sharded.sharded_feed_step_plain):
-        acc = acc0.clone()
-        outs.append((acc, *fn(tab, acc, prt, reset)))
-    torch.cuda.synchronize()
-    assert sharded.LAUNCHES["sharded_feed"] == before + 1
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
-    found = [sharded.sharded_feed_accumulate(tab, acc0.clone(), prt),
-             sharded.sharded_feed_accumulate_plain(tab, acc0.clone(), prt)]
-    assert torch.equal(*found)
-    n_miss = outs[0][1].cpu().numpy()
+    acc, n_miss, _ = _feed_both(tab, acc0, pk, reset)
     if layout == "one":
         assert n_miss[1:].sum() == 0 and n_miss[0] > 0
     if layout == "chains":
-        f = found[0].cpu().numpy()
-        live = part[:, 3] > 0
-        assert ((f >= 0) & live).sum(1).tolist() == [4] * n_shards
+        # Per shard: hits at steps 7, 8, 9 and 15; misses at 16, 17 and
+        # the walk of 20.
+        assert n_miss.tolist() == [3] * n_shards
     if layout == "dead":
-        assert n_miss.sum() == 0 and (found[0] < 0).all()
-        assert torch.equal(outs[0][0], acc0 if not reset else acc0 * 0)
+        assert n_miss.sum() == 0
+        assert torch.equal(acc, acc0 if not reset else acc0 * 0)
+
+
+def _b7_inputs(n_shards: int, cap_s: int, n_pad: int, n_live: int,
+               fill: float, seed: int, dev):
+    """(table, packed) on `dev` for any shard count: a fraction `fill` of
+    each sub-table placed by linear probing from h1 within the home
+    sub-table h2 % n_shards; the first n_live lanes live, half of them
+    known keys (0 known when the table is empty), the rest unknown."""
+    rng = np.random.default_rng(seed)
+    n_keys = int(fill * n_shards * cap_s)
+    keys = rng.integers(0, 2**32, (n_keys, 3), dtype=np.uint64).astype(
+        np.uint32)
+    table = np.zeros((n_shards, cap_s, 4), np.uint32)
+    for sid, (a, b, c) in enumerate(keys.tolist()):
+        sub = table[b % n_shards]
+        idx = a & (cap_s - 1)
+        while sub[idx, 3]:
+            idx = (idx + 1) & (cap_s - 1)
+        sub[idx] = (a, b, c, sid + 1)
+    q = rng.integers(0, 2**32, (n_live, 3), dtype=np.uint64).astype(np.uint32)
+    if n_keys:
+        known = rng.random(n_live) < 0.5
+        q[known] = keys[rng.integers(0, n_keys, int(known.sum()))]
+    packed = np.zeros((4, n_pad), np.uint32)
+    packed[:3, :n_live] = q.T
+    packed[3, :n_live] = rng.integers(1, 6, n_live)
+    return _t(table, dev), _t(packed, dev), packed
+
+
+TILE = sharded.FEED_TILE
+
+
+@pytest.mark.parametrize("n_shards,n_pad,n_live,fill", [
+    (8, 16, 1, 0.0),                          # one row, a miss
+    (3, TILE, TILE, 0.5),                     # one tile, S = 3
+    (3, 2 * TILE, 2 * TILE, 0.5),             # exactly two tiles
+    (3, 2 * TILE, TILE + 44, 0.5),            # the second mostly dead
+    (2, 1 << 20, 1 << 20, 0.0),               # many tiles, all misses
+    (256, 1 << 14, 1 << 14, 0.5)])            # the most shards it takes
+def test_sharded_feed_look_back_edges(cuda, n_shards, n_pad, n_live, fill):
+    """The look-back's edges: one row, one tile, exactly two tiles, 2^20
+    rows of misses only (each shard's list is its rows in packed order),
+    a shard count that is not a power of two, and the cap; one launch a
+    feed."""
+    cap_s = 1 << 10 if n_shards < 256 else 1 << 6
+    tab, pk, packed = _b7_inputs(n_shards, cap_s, n_pad, n_live, fill,
+                                 n_shards + n_pad, cuda)
+    acc0 = torch.zeros((n_shards, n_shards * cap_s // 2), dtype=torch.int32,
+                       device=cuda)
+    acc, n_miss, rows = _feed_both(tab, acc0, pk)
+    assert n_miss.sum() > 0
+    if fill == 0.0:
+        home = packed[1].astype(np.int64) % n_shards
+        live = packed[3] > 0
+        for s in range(n_shards):
+            want = np.flatnonzero(live & (home == s))
+            assert n_miss[s] == len(want)
+            assert np.array_equal(rows[s, :n_miss[s]].cpu().numpy(), want)
+        assert not acc.any()
+
+
+def test_sharded_feed_scratch_epochs(cuda):
+    """Feeds back to back on one stream share one scratch, zeroed once and
+    replaced only by a larger one; 300 feeds of three sizes and shard
+    counts, queued without a sync, each equal to its plain version; a
+    second stream gets a scratch of its own."""
+    cases = [_b7_inputs(n_shards, 1 << 9, n_pad, n_pad - 5, 0.5, seed, cuda)
+             for n_shards, n_pad, seed in ((8, 1 << 12, 1), (3, 1 << 9, 2),
+                                           (5, 1 << 14, 3))]
+    sharded._SCRATCH.clear()
+    before = sharded.LAUNCHES["sharded_feed"]
+    got = []
+    for i in range(300):
+        tab, pk, _ = cases[i % 3]
+        acc = torch.zeros((tab.shape[0], 1 << 8), dtype=torch.int32,
+                          device=cuda)
+        got.append((acc, *sharded.sharded_feed_step(tab, acc, pk, False)))
+        if i == 2:
+            ptr = {k: v.data_ptr() for k, v in sharded._SCRATCH.items()}
+    torch.cuda.synchronize()
+    assert sharded.LAUNCHES["sharded_feed"] == before + 300
+    assert {k: v.data_ptr() for k, v in sharded._SCRATCH.items()} == ptr
+    assert len(ptr) == 1
+    want = []
+    for tab, pk, _ in cases:
+        acc = torch.zeros((tab.shape[0], 1 << 8), dtype=torch.int32,
+                          device=cuda)
+        want.append((acc, *sharded.sharded_feed_step_plain(tab, acc, pk,
+                                                           False)))
+    for i, (acc, n_miss, rows) in enumerate(got):
+        acc_p, n_miss_p, rows_p = want[i % 3]
+        assert torch.equal(acc, acc_p) and torch.equal(n_miss, n_miss_p), i
+        for s, k in enumerate(n_miss.tolist()):
+            assert torch.equal(rows[s, :k], rows_p[s, :k]), (i, s)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        tab, pk, _ = cases[0]
+        acc = torch.zeros((tab.shape[0], 1 << 8), dtype=torch.int32,
+                          device=cuda)
+        n_miss, _ = sharded.sharded_feed_step(tab, acc, pk, False)
+    torch.cuda.synchronize()
+    assert len(sharded._SCRATCH) == 2
+    assert torch.equal(acc, want[0][0]) and torch.equal(n_miss, want[0][1])
+
+
+def test_sharded_feed_shard_cap(cuda):
+    """More shards than the kernel takes raise, naming the cap; the cap
+    is the C interface's."""
+    lib = kernels.load("sharded_feed")
+    assert lib.pa_sharded_feed_max_shards() == sharded.FEED_MAX_SHARDS
+    n = sharded.FEED_MAX_SHARDS + 1
+    tab = torch.zeros((n, 1, 4), dtype=torch.int32, device=cuda)
+    acc = torch.zeros((n, 4), dtype=torch.int32, device=cuda)
+    pk = torch.zeros((4, 16), dtype=torch.int32, device=cuda)
+    before = sharded.LAUNCHES["sharded_feed"]
+    with pytest.raises(ValueError, match=f"at most {n - 1} shards"):
+        sharded.sharded_feed_step(tab, acc, pk, False)
+    assert sharded.LAUNCHES["sharded_feed"] == before
 
 
 @pytest.mark.parametrize("width", [4, 8, 16])

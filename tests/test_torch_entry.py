@@ -17,11 +17,18 @@ import torch
 import parca_agent_tpu_torch
 from parca_agent_tpu_torch.pprof.builder import parse_pprof
 
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
 def _env():
     env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads(1) above
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])

@@ -38,6 +38,12 @@ from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
 from parca_agent_tpu_torch.profiler.encode_pipeline import EncodePipeline
 
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -339,6 +345,7 @@ def test_loop_refuses_an_aggregator_without_window_counts():
 
 def _env():
     env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads(1) above
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])

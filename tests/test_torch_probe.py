@@ -17,6 +17,12 @@ from parca_agent_tpu.aggregator.pallas_probe import make_batch_probe
 from parca_agent_tpu_torch.aggregator import probe
 from parca_agent_tpu_torch.aggregator.dict import feed_step
 
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
+
 
 def _table_and_queries(seed: int, cap: int, n_query: int):
     """A table filled to ~1/4 by linear probing, with a chain longer than

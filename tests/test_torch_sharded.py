@@ -5,9 +5,10 @@ parca_agent_tpu's ShardedDictAggregator runs over a mesh of n of the 8
 virtual CPU devices (tests/conftest.py), the port's on the CPU with
 n_shards sub-tables on its one device (the plain versions of the B7
 programs). The same seeded inputs go through both at capacities 2^9 to
-2^13, and every comparison is exact: route_h2, the feed partition, the
-counts, ids in per-shard miss order, the host mirror, the close buffers
-at every width, the feed and close programs on their own, sub-table
+2^13, and every comparison is exact: route_h2, the counts, ids in
+per-shard miss order, the host mirror, the close buffers at every width,
+the feed (on the unpartitioned buffer, against JAX's program on JAX's
+partition and against a loop over the rows) and the close, sub-table
 overflow under "raise" and "sketch" (the sketch state after it), the pid
 router, rotation and pid invalidation, the streaming feeder with the
 carry cache, the window encoder's bytes, a slice of the differential
@@ -38,6 +39,7 @@ from parca_agent_tpu.profiler.streaming import \
     StreamingWindowFeeder as JaxFeeder
 from parca_agent_tpu_torch.aggregator import close, sharded
 from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
+from parca_agent_tpu_torch.aggregator.probe import PROBES
 from parca_agent_tpu_torch.aggregator.sharded import (
     ShardedDictAggregator,
     route_h2,
@@ -48,6 +50,12 @@ from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.pprof.builder import parse_pprof
 from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 from parca_agent_tpu_torch.profiler.streaming import StreamingWindowFeeder
+
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 SHARDS = [1, 2, 8]
@@ -111,7 +119,7 @@ def _window(jd, pd_, snaps, step=None):
     return pc
 
 
-# -- route_h2 and the partition ----------------------------------------------
+# -- route_h2 and the feed ----------------------------------------------------
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8])
@@ -137,48 +145,105 @@ def test_route_h2_equals_jax(n):
     assert not step[20:].any()
 
 
-@pytest.mark.parametrize("n_shards", [1, 4, 8])
-def test_partition_equals_jax_and_the_shard_loop(n_shards):
-    """_partition_packed against parca_agent_tpu's and against a
-    per-shard loop, the double-buffer contract, and the LRU of lane
-    counts."""
-    rng = np.random.default_rng(5 + n_shards)
-    n_pad = 256
-    packed = np.zeros((4, n_pad), np.uint32)
-    n = 200
-    for c in range(3):
-        packed[c, :n] = rng.integers(0, 2**32, n, dtype=np.uint64)
-    packed[3, :n] = rng.integers(1, 50, n)
-    packed[3, 160:180] = 0  # dead lanes inside the live prefix
+def _subtables(n_shards: int, cap_s: int, keys: np.ndarray) -> np.ndarray:
+    """uint32 [n_shards, cap_s, 4]: `keys` (uint32 [k, 3]) placed one by
+    one, id k + 1 in the id word, each at the first free slot from h1 in
+    its home sub-table h2 % n_shards (wrapping inside it); keys past a
+    full sub-table are left out."""
+    table = np.zeros((n_shards, cap_s, 4), np.uint32)
+    for sid, (a, b, c) in enumerate(keys.tolist()):
+        sub = table[b % n_shards]
+        for k in range(cap_s):
+            idx = (a + k) & (cap_s - 1)
+            if not sub[idx, 3]:
+                sub[idx] = (a, b, c, sid + 1)
+                break
+    return table
 
-    def fake():
-        return SimpleNamespace(_n_shards=n_shards, _cap_s=64, _part_bufs={},
-                               stats={})
 
-    port, jax_fake = fake(), fake()
-    out = ShardedDictAggregator._partition_packed(port, packed)
-    assert np.array_equal(out, JaxSh._partition_packed(jax_fake, packed))
-    live = np.flatnonzero(packed[3] > 0)
-    shard = (packed[1, live] % np.uint32(n_shards)).astype(np.int64)
-    ref = np.zeros_like(out)
-    for s in range(n_shards):
-        mine = live[shard == s]
-        ref[s, :4, :len(mine)] = packed[:, mine]
-        ref[s, 4, :len(mine)] = mine.astype(np.uint32)
-    assert np.array_equal(out, ref)
-    per = np.bincount(shard, minlength=n_shards).max()
-    assert per <= out.shape[2] < per + max(4, per // 4) + 1
-    out2 = ShardedDictAggregator._partition_packed(port, packed)
-    assert out2 is not out and np.array_equal(out2, ref)
-    assert ShardedDictAggregator._partition_packed(port, packed) is out
-    # Nine lane counts: the least recently used one goes, as in JAX.
-    for k in range(1, 10):
-        p = packed.copy()
-        p[3, k * 18:] = 0
-        ShardedDictAggregator._partition_packed(port, p)
-        JaxSh._partition_packed(jax_fake, p)
-        assert list(port._part_bufs) == list(jax_fake._part_bufs)
-    assert len(port._part_bufs) <= 8
+def _feed_loop(table, acc, packed):
+    """The B7 feed a row at a time in numpy: each live row probed in its
+    home sub-table, a hit added to acc[shard, id] (ids past id_cap
+    dropped), a miss appended to its shard's list. Returns the lists."""
+    n_shards, cap_s = table.shape[:2]
+    lists = [[] for _ in range(n_shards)]
+    for r in range(packed.shape[1]):
+        q1, q2, q3, c = (int(x) for x in packed[:, r])
+        if c == 0 or c >= 2**31:
+            continue
+        s, found = q2 % n_shards, -1
+        for k in range(PROBES):
+            e = table[s, (q1 + k) & (cap_s - 1)]
+            if not e[3]:
+                break
+            if (int(e[0]), int(e[1]), int(e[2])) == (q1, q2, q3):
+                found = int(e[3]) - 1
+                break
+        if found < 0:
+            lists[s].append(r)
+        elif found < acc.shape[1]:
+            acc[s, found] += c
+    return lists
+
+
+@pytest.mark.parametrize("case", ["s1", "s3", "s8", "empty_shard",
+                                  "one_shard", "dead_lanes", "past_bound"])
+def test_feed_compaction_equals_the_shard_loop(case):
+    """The plain B7 feed on the unpartitioned [4, n_pad] buffer against a
+    numpy loop over the rows: the accumulator, each shard's miss count
+    and its miss rows in packed order; the wrapper runs the plain version
+    on CPU tensors and launches nothing."""
+    n_shards = {"s1": 1, "s3": 3, "s8": 8, "empty_shard": 4,
+                "one_shard": 8, "dead_lanes": 3, "past_bound": 2}[case]
+    cap_s = 1 << 7
+    rng = np.random.default_rng(len(case) * 7 + n_shards)
+    keys = rng.integers(0, 2**32, (int(0.6 * n_shards * cap_s), 3),
+                        dtype=np.uint64).astype(np.uint32)
+    if case == "past_bound":
+        # One home a shard, 24 keys deep (key i in shard i % 2 at step
+        # i // 2): keys 32 and on lie past the probe bound and miss.
+        keys[:48, 0] = keys[0, 0]
+        keys[:48, 1] = (keys[:48, 1] // 2) * 2 + np.arange(48) % 2
+    table = _subtables(n_shards, cap_s, keys)
+    nq = 3 * cap_s
+    known = keys[rng.integers(0, len(keys), nq // 2)]
+    unknown = rng.integers(0, 2**32, (nq - len(known), 3),
+                           dtype=np.uint64).astype(np.uint32)
+    q = np.concatenate([known, unknown])[rng.permutation(nq)]
+    if case == "past_bound":
+        q[:48] = keys[:48]
+    if case == "empty_shard":
+        q[q[:, 1] % 4 == 2, 1] += 1
+    if case == "one_shard":
+        q[:, 1] = (q[:, 1] // 8) * 8 + 5
+    packed = np.zeros((4, 1 << (nq - 1).bit_length()), np.uint32)
+    packed[:3, :nq] = q.T
+    packed[3, :nq] = rng.integers(1, 9, nq)
+    if case == "dead_lanes":
+        packed[3, rng.choice(nq, nq // 5, replace=False)] = 0
+    id_cap = len(keys) // 2  # ids past it are dropped
+    acc0 = rng.integers(0, 50, (n_shards, id_cap)).astype(np.int32)
+    want_acc = acc0.astype(np.int64)
+    want = _feed_loop(table, want_acc, packed)
+    dtab, dpacked = (torch.from_numpy(a.view(np.int32)) for a in (table,
+                                                                   packed))
+    for fn in (sharded_feed_step_plain, sharded_feed_step):
+        acc = torch.from_numpy(acc0.copy())
+        n_miss, rows = fn(dtab, acc, dpacked, False)
+        assert np.array_equal(acc.numpy(), want_acc)
+        assert n_miss.tolist() == [len(w) for w in want]
+        for s, w in enumerate(want):
+            assert rows[s, :len(w)].tolist() == w, s
+    assert sharded.LAUNCHES["sharded_feed"] == 0
+    per = [len(w) for w in want]
+    assert sum(per) > 0 and (acc.numpy() != acc0).any()
+    if case == "empty_shard":
+        assert per[2] == 0 and min(per[:2] + per[3:]) > 0
+    if case == "one_shard":
+        assert per[5] == sum(per)
+    if case == "past_bound":
+        assert [r for r in range(48) if r in want[r % 2]] \
+            == list(range(32, 48))
 
 
 # -- the dictionary at n_shards in {1, 2, 8} ---------------------------------
@@ -235,7 +300,7 @@ def test_close_buffers_equal_jax(n, width):
 def _feed_case(n: int, seed: int):
     """A sharded table filled to ~0.7 of each sub-table through the
     aggregator's own placement (chains past the probe bound, wrapping in
-    the sub-table) and a partition of queries: known keys, h1-only
+    the sub-table) and a packed buffer of queries: known keys, h1-only
     collisions, unknown keys and dead lanes."""
     cap = 1 << 9
     agg = ShardedDictAggregator(capacity=cap, n_shards=n, device="cpu")
@@ -265,36 +330,41 @@ def _feed_case(n: int, seed: int):
     packed = np.zeros((4, 512), np.uint32)
     packed[:3, :nq] = q.T
     packed[3, :nq] = rng.integers(0, 6, nq)  # count 0: dead lanes
-    part = agg._partition_packed(packed)
-    return agg, part
+    return agg, packed
 
 
 @pytest.mark.parametrize("n", SHARDS)
 @pytest.mark.parametrize("reset", [0, 1])
 def test_feed_program_equals_jax(n, reset):
-    """The plain B7 feed against parca_agent_tpu's _sharded_feed_program
-    on the same table, accumulator and partition: the accumulator, the
-    per-shard miss counts and the ordered miss rows."""
-    agg, part = _feed_case(n, seed=n + 10 * reset)
+    """The plain B7 feed on the unpartitioned packed buffer against
+    parca_agent_tpu's _sharded_feed_program on the JAX package's own
+    partition of the same buffer, same table and accumulator: the
+    accumulator, the per-shard miss counts and each shard's ordered miss
+    rows (the prefix of n_miss entries)."""
+    agg, packed = _feed_case(n, seed=n + 10 * reset)
     table = agg._dev
     id_cap = agg._id_cap
     acc0 = np.random.default_rng(3).integers(0, 50, (n, id_cap)).astype(
         np.int32)
+    part = JaxSh._partition_packed(
+        SimpleNamespace(_n_shards=n, _part_bufs={}), packed)
     prog = jax_sharded._sharded_feed_program(
         fleet_mesh(n), n, agg._cap_s, id_cap, part.shape[2])
     jacc, jn, jrows = prog(jnp.asarray(table.numpy().view(np.uint32)),
                            jnp.asarray(acc0), jnp.asarray(part),
                            np.uint32(reset))
+    jn, jrows = np.asarray(jn), np.asarray(jrows)
     acc = torch.from_numpy(acc0.copy())
-    dpart = torch.from_numpy(part.view(np.int32))
-    n_miss, rows = sharded_feed_step_plain(table, acc, dpart, bool(reset))
+    dpacked = torch.from_numpy(packed.view(np.int32))
+    n_miss, rows = sharded_feed_step_plain(table, acc, dpacked, bool(reset))
     assert np.array_equal(acc.numpy(), np.asarray(jacc))
-    assert np.array_equal(n_miss.numpy(), np.asarray(jn))
-    assert np.array_equal(rows.numpy(), np.asarray(jrows))
+    assert np.array_equal(n_miss.numpy(), jn)
+    for s in range(n):
+        assert np.array_equal(rows[s, :jn[s]].numpy(), jrows[s, :jn[s]]), s
     assert int(n_miss.sum()) > 0 and (acc.numpy() != acc0).any()
     # The dispatching wrapper runs the same plain version on the CPU.
     acc2 = torch.from_numpy(acc0.copy())
-    n2, rows2 = sharded_feed_step(table, acc2, dpart, bool(reset))
+    n2, rows2 = sharded_feed_step(table, acc2, dpacked, bool(reset))
     assert torch.equal(acc2, acc) and torch.equal(n2, n_miss) \
         and torch.equal(rows2, rows)
     assert sharded.LAUNCHES["sharded_feed"] == 0
@@ -542,6 +612,7 @@ def test_cli_sharded_on_cpu(tmp_path):
     """--aggregator sharded --fast-encode on the CPU: one shard, every
     window's mass in the store, the encode pipeline used."""
     env = dict(os.environ)
+    env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads(1) above
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])

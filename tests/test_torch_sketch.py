@@ -16,6 +16,12 @@ import torch
 from parca_agent_tpu.ops import sketch as jsk
 from parca_agent_tpu_torch.ops import sketch as psk
 
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
+
 SPECS = [(1, 1 << 4), (4, 1 << 10), (8, 1 << 18)]
 PS = [4, 12, 18]
 

@@ -31,6 +31,12 @@ from parca_agent_tpu_torch.ops import hashing, row_hash
 from parca_agent_tpu_torch.pprof.builder import build_pprof
 from tests.test_torch_cuda import EDGE_DEPTHS, _edge_rows
 
+# One intra-op thread a process: the suite runs in several worker
+# processes at once, and torch's default of a thread a core in each
+# oversubscribes the host, so that timing-bound tests in other workers
+# (an encode pipeline busy at a window's close) take another path.
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 # The windows of the JAX package's own tests of this path:
