@@ -31,9 +31,10 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                timed with its bound, the device kernels one call enqueues
                (torch.profiler: must be 1) and the wrapper's host cost
                (with the earlier wrapper's per-call extras timed apart).
-               Last, the library calls for the sketch absorb B6 (count-min
-               index_add_, HLL scatter_reduce_ amax) at a phase-6 window's
-               2^16 rows, beside its plain torch path and its bound
+               Last, the sketch build kernel B6 at a phase-6 window's 2^16
+               rows against its plain version and the numpy paths, timed,
+               beside the library calls (count-min index_add_, HLL
+               scatter_reduce_ amax) and its bound
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
                window, then a steady window fed as 10 drains and closed,
@@ -87,9 +88,9 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                fast loop (CPUProfiler with the encode pipeline and a
                StaticsStore in a temporary directory), the bench window cut
                into 10 drains on pid boundaries, each drain's mapping
-               table rebuilt from the window's own: a cold window, then 2
-               windows of the same rows plus 65,536 new stacks each
-               (carried rows fold on the host, the rest launch K1; each
+               table rebuilt from the window's own: a cold window, then a
+               window of the same rows plus 65,536 new stacks (carried
+               rows fold on the host, the rest launch K1; each
                close launches B2 or, when the touched blocks are few, B3).
                Every window: per-pid mass equal to the
                numpy oracle, one blob per live pid, every 64th pid's blob
@@ -126,6 +127,22 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                absorbed mass equals the window's and every exact key its
                rows' count. The CLI with --aggregator sharded
                --fast-encode (one shard on one card), 3 windows.
+  9. fleet     the fleet merge (parallel/, BASELINE config #5) on the
+               card: 8 nodes, each the bench window's 2^20 rows (phase
+               4's hashes, counts 1-9 a node) plus 65,536 node-private
+               new stacks, a [8, 1,114,112] stream: fleet_merge_sketches
+               (one launch of the sketch build kernel, B6),
+               fleet_merge_exact64 and fleet_merge_exact (torch.sort, then
+               the segment kernel B8), held against numpy's count-min,
+               HLL, int64 total and exact merge; fleet_merge_profiles of 8
+               node windows of 2^17 rows (each node's own pids plus
+               16,384 rows every node holds) against CPUAggregator on
+               concat_snapshots; the process boundary through NCCL at
+               world size 1 (fleet_initialize on a localhost port, the
+               _dist merges against the one-process merges of node 0, two
+               FleetWindowMerger rounds against numpy). B6 and B8 against
+               their plain versions at the stream, timed (the sort apart),
+               with their bounds and library yardsticks.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -951,77 +968,104 @@ def phase_close_kernels(dev, close_refs=None) -> None:
 SKETCH_ROWS = 1 << 16
 
 
-def sketch_library(dev) -> None:
-    """B6, the sketch absorb (parca_agent_tpu/ops/sketch.py cm_build,
-    hll_build; the port absorbs on the host): one update of a count-min
-    table of 4 x 2^18 int32 and of 2^12 HLL registers by SKETCH_ROWS rows
-    of random hashes and counts. Times the port's plain torch paths on
-    the card, the library calls given the buckets, registers and ranks
-    (index_add_ into the flattened table; scatter_reduce_ "amax"), and
-    the bound: hashes and counts read once, each cell and register the
-    rows touch read and written once."""
+def b6_case(dev, h, cnt, live_counts: bool, reps: int = 20) -> dict:
+    """B6, the sketch build kernel (csrc/sketch_build.cu, replacing
+    parca_agent_tpu/ops/sketch.py cm_build and hll_build) on one stream:
+    hashes `h` (u32) and counts `cnt` (int32), [R] or [n_nodes, R], into a
+    count-min table of 4 x 2^18 int32 and 2^12 HLL registers (the default
+    specs), with each node's total; HLL liveness count > 0 when
+    `live_counts` (the fleet's), else every row. The kernel must equal
+    its plain version on the card and the numpy paths (cm_build,
+    hll_build, the int64 totals) word for word. Times the kernel, the
+    plain version, the library calls given the buckets, registers and
+    ranks (index_add_ into the flattened table; scatter_reduce_ "amax"),
+    and the bound: hashes and counts read once, each cell and register
+    the rows touch read and written once. Its launches are restored."""
     import numpy as np
     import torch
 
     from parca_agent_tpu_torch.ops import sketch
     from parca_agent_tpu_torch.ops.hashing import mix32
 
+    saved = dict(sketch.LAUNCHES)
     cm_spec, hll_spec = sketch.CountMinSpec(), sketch.HLLSpec()
+    fh, fc = h.ravel(), cnt.ravel()
+    live = fc > 0 if live_counts else np.ones(len(fh), bool)
+    ht = torch.from_numpy(np.ascontiguousarray(h).view(np.int32)).to(dev)
+    ct = torch.from_numpy(np.ascontiguousarray(cnt)).to(dev)
+    arg = "counts" if live_counts else None
+    want_cm = sketch.cm_build(fh, fc, cm_spec)
+    want_hll = sketch.hll_build(fh, hll_spec, live=live)
+    want_tot = cnt.reshape(-1, cnt.shape[-1]).astype(np.int64).sum(axis=1)
+    got = [x.cpu().numpy() for x in sketch.sketch_build(ht, ct, cm_spec,
+                                                        hll_spec, arg)]
+    plain = [x.cpu().numpy() for x in sketch.sketch_build_plain(
+        ht, ct, cm_spec, hll_spec, arg)]
+    for name, g, p_, w in zip(("count-min", "registers", "totals"), got,
+                              plain, (want_cm, want_hll, want_tot)):
+        if not (np.array_equal(g, p_) and np.array_equal(g, w)):
+            raise AssertionError(f"B6: the kernel's {name} differ from the "
+                                 "plain version's or the numpy paths'")
+    # The library calls' inputs, from the numpy paths.
+    cells = (sketch.cm_buckets(fh, cm_spec).astype(np.int64)
+             + np.arange(cm_spec.depth)[:, None] * cm_spec.width).ravel()
+    hm = mix32(fh[live], sketch._HLL_SEED)
+    reg = (hm >> np.uint32(32 - hll_spec.p)).astype(np.int64)
+    suffix = (hm << np.uint32(hll_spec.p)).astype(np.uint64)
+    nbits = 32 - hll_spec.p
+    rank = np.full(len(hm), nbits + 1, np.int32)
+    for b in range(nbits - 1, -1, -1):
+        rank = np.where((suffix >> np.uint64(31 - b)) & np.uint64(1), b + 1,
+                        rank)
+    regs = np.zeros(hll_spec.m, np.int32)
+    np.maximum.at(regs, reg, rank)
+    if not np.array_equal(regs, want_hll):
+        raise AssertionError("B6: the HLL ranks differ from hll_build's")
+    cells_t = torch.from_numpy(cells).to(dev)
+    src = ct.reshape(-1).repeat(cm_spec.depth)
+    reg_t, rank_t = (torch.from_numpy(x).to(dev) for x in (reg, rank))
+    table = torch.zeros(cm_spec.depth * cm_spec.width, dtype=torch.int32,
+                        device=dev)
+    hll = torch.zeros(hll_spec.m, dtype=torch.int32, device=dev)
+    out = {
+        "rows": int(len(fh)), "shape": list(h.shape),
+        "cm": [cm_spec.depth, cm_spec.width], "hll_p": hll_spec.p,
+        "live": "count > 0" if live_counts else "every row",
+        "ms": time_ms(lambda: sketch.sketch_build(ht, ct, cm_spec, hll_spec,
+                                                  arg), reps),
+        "plain_ms": time_ms(lambda: sketch.sketch_build_plain(
+            ht, ct, cm_spec, hll_spec, arg), 3),
+        "library_calls_ms": {
+            "cm_index_add": time_ms(lambda: table.index_add_(
+                0, cells_t, src), reps),
+            "hll_scatter_reduce_amax": time_ms(lambda: hll.scatter_reduce_(
+                0, reg_t, rank_t, "amax"), reps)},
+        "touched_cells": int(len(np.unique(cells))),
+        "touched_registers": int(len(np.unique(reg)))}
+    out["library_ms"] = sum(out["library_calls_ms"].values())
+    nbytes = 8 * len(fh) + 8 * (out["touched_cells"]
+                                + out["touched_registers"])
+    # fmix32 a row per count-min row and for the HLL (~8 operations each),
+    # an add a cell, the rank's leading-zero count and a max.
+    ops = len(fh) * (8 * (cm_spec.depth + 1) + cm_spec.depth + 2)
+    out["bytes"] = nbytes
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
+    sketch.LAUNCHES.update(saved)
+    return out
+
+
+def sketch_library(dev) -> None:
+    """B6 at a phase-6 window's absorb: SKETCH_ROWS rows of random hashes
+    and counts into the dict+cm path's sketch shapes (the port absorbs
+    on the host; this is the yardstick of the kernel's row in PERF.md at
+    that shape)."""
+    import numpy as np
+
     rng = np.random.default_rng(6)
     h = rng.integers(0, 1 << 32, SKETCH_ROWS, dtype=np.uint64).astype(
         np.uint32)
     cnt = rng.integers(1, 16, SKETCH_ROWS).astype(np.int32)
-    ht, ct = (torch.from_numpy(x.view(np.int32)).to(dev) for x in (h, cnt))
-    # The library calls' inputs, from the numpy paths.
-    cells = (sketch.cm_buckets(h, cm_spec).astype(np.int64)
-             + np.arange(cm_spec.depth)[:, None] * cm_spec.width).ravel()
-    hm = mix32(h, sketch._HLL_SEED)
-    reg = (hm >> np.uint32(32 - hll_spec.p)).astype(np.int64)
-    suffix = (hm << np.uint32(hll_spec.p)).astype(np.uint64)
-    nbits = 32 - hll_spec.p
-    rank = np.full(SKETCH_ROWS, nbits + 1, np.int32)
-    for b in range(nbits - 1, -1, -1):
-        rank = np.where((suffix >> np.uint64(31 - b)) & np.uint64(1), b + 1,
-                        rank)
-    want = sketch.hll_build(h, hll_spec)
-    regs = np.zeros(hll_spec.m, np.int32)
-    np.maximum.at(regs, reg, rank)
-    if not np.array_equal(regs, want):
-        raise AssertionError("B6: the HLL ranks differ from hll_build's")
-    cells_t, src = torch.from_numpy(cells).to(dev), ct.repeat(cm_spec.depth)
-    reg_t, rank_t = torch.from_numpy(reg).to(dev), torch.from_numpy(
-        rank).to(dev)
-    table = torch.zeros(cm_spec.depth * cm_spec.width, dtype=torch.int32,
-                        device=dev)
-    hll = torch.zeros(hll_spec.m, dtype=torch.int32, device=dev)
-    got_cm = sketch.cm_build(ht, ct, cm_spec)
-    got_hll = sketch.hll_build(ht, hll_spec)
-    if not (np.array_equal(got_cm.cpu().numpy(),
-                           sketch.cm_build(h, cnt, cm_spec))
-            and np.array_equal(got_hll.cpu().numpy(), want)):
-        raise AssertionError("B6: the torch paths on the card differ from "
-                             "the numpy paths")
-    out = {
-        "rows": SKETCH_ROWS, "cm": [cm_spec.depth, cm_spec.width],
-        "hll_p": hll_spec.p,
-        "plain_ms": {"cm_build": time_ms(lambda: sketch.cm_build(
-            ht, ct, cm_spec), 20), "hll_build": time_ms(
-            lambda: sketch.hll_build(ht, hll_spec), 20)},
-        "library_ms": {
-            "cm_index_add": time_ms(lambda: table.index_add_(
-                0, cells_t, src), 50),
-            "hll_scatter_reduce_amax": time_ms(lambda: hll.scatter_reduce_(
-                0, reg_t, rank_t, "amax"), 50)},
-        "touched_cells": int(len(np.unique(cells))),
-        "touched_registers": int(len(np.unique(reg)))}
-    nbytes = 8 * SKETCH_ROWS + 8 * (out["touched_cells"]
-                                    + out["touched_registers"])
-    # fmix32 a row per count-min row and for the HLL (~8 operations each),
-    # an add a cell, the rank's leading-zero count and a max.
-    ops = SKETCH_ROWS * (8 * (cm_spec.depth + 1) + cm_spec.depth + 2)
-    out["bytes"] = nbytes
-    out["bound_ms"], out["bound_by"] = bound(nbytes, ops)
-    emit("sketch_b6", **out)
+    emit("sketch_b6", **b6_case(dev, h, cnt, live_counts=False, reps=50))
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -1808,25 +1852,39 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     }
 
 
-def run_cli(store: Path, *flags, period: float = 0.1) -> list:
+def start_cli(store: Path, *flags, period: float = 0.1):
     """`python -m parca_agent_tpu_torch` on the card over the CLI's
-    synthetic windows, one every `period` seconds, into `store`; returns
-    its JSON lines by window."""
+    synthetic windows, one every `period` seconds, into `store`, started
+    (finish_cli waits for it)."""
     import os
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
-    r = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
          "synthetic", "--windows", str(CLI_WINDOWS), "--profiling-duration",
          str(period), "--local-store-directory", str(store), *flags],
-        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise AssertionError(f"CLI {' '.join(flags)}: rc {r.returncode}: "
-                             f"{r.stderr[-2000:]}")
-    lines = sorted((json.loads(ln) for ln in r.stdout.splitlines()
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, flags
+
+
+def finish_cli(started) -> list:
+    """The started CLI's JSON lines by window, once it exits (killed past
+    600 s); raises unless it exits 0 with one line a window."""
+    proc, flags = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {' '.join(flags)}: rc {proc.returncode}: "
+                             f"{err[-2000:]}")
+    lines = sorted((json.loads(ln) for ln in out.splitlines()
                     if ln.startswith("{")), key=lambda ln: ln["window"])
     if [ln["window"] for ln in lines] != list(range(1, CLI_WINDOWS + 1)):
         raise AssertionError(f"CLI {' '.join(flags)}: windows "
@@ -1834,32 +1892,40 @@ def run_cli(store: Path, *flags, period: float = 0.1) -> list:
     return lines
 
 
+
 def fast_encode_cli() -> None:
     """The CLI with --fast-encode (through the encode pipeline) on the
     card, --aggregator dict and dict+cm (a capacity the windows overflow):
     every stored profile parses, the store holds each window's mass, and
     each window's mass and profile count equal the same CLI's without
-    --fast-encode."""
+    --fast-encode. The four runs overlap."""
     import tempfile
 
     from parca_agent_tpu_torch.pprof.builder import parse_pprof
 
     out = {}
-    for name, flags in (("dict", ("--aggregator", "dict")),
-                        ("dict+cm", ("--aggregator", "dict+cm",
-                                     "--aggregator-capacity",
-                                     str(1 << 15)))):
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            # A window a second: the worker ships each window before
-            # the next closes.
-            fast = run_cli(Path(tmp) / "fast", *flags, "--fast-encode",
-                           period=1.0)
-            fast_s = time.perf_counter() - t0
-            scalar = run_cli(Path(tmp) / "scalar", *flags)
-            files = sorted((Path(tmp) / "fast").glob("*.pb.gz"))
-            mass = sum(v[0] for f in files
-                       for _, v, _ in parse_pprof(f.read_bytes()).samples)
+    arms = (("dict", ("--aggregator", "dict")),
+            ("dict+cm", ("--aggregator", "dict+cm", "--aggregator-capacity",
+                         str(1 << 15))))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # A window a second: the worker ships each window before the next
+        # closes.
+        started = {name: (start_cli(Path(tmp) / name / "fast", *flags,
+                                    "--fast-encode", period=1.0),
+                          start_cli(Path(tmp) / name / "scalar", *flags))
+                   for name, flags in arms}
+        runs = {name: [finish_cli(x) for x in pair]
+                for name, pair in started.items()}
+        runs_s = time.perf_counter() - t0
+        stores = {}
+        for name, _ in arms:
+            files = sorted((Path(tmp) / name / "fast").glob("*.pb.gz"))
+            stores[name] = (len(files), sum(
+                v[0] for f in files
+                for _, v, _ in parse_pprof(f.read_bytes()).samples))
+    for name, (fast, scalar) in runs.items():
+        n_files, mass = stores[name]
         if "pipeline" not in {ln["encode_path"] for ln in fast}:
             raise AssertionError(f"CLI {name}: no window went through the "
                                  "encode pipeline")
@@ -1867,14 +1933,13 @@ def fast_encode_cli() -> None:
         if got != [(ln["mass"], ln["profiles"]) for ln in scalar]:
             raise AssertionError(f"CLI {name}: --fast-encode windows {got} "
                                  "!= the CLI's without it")
-        if len(files) != sum(p for _, p in got) \
+        if n_files != sum(p for _, p in got) \
                 or mass != sum(m for m, _ in got) or not mass:
-            raise AssertionError(f"CLI {name}: the store holds {len(files)} "
+            raise AssertionError(f"CLI {name}: the store holds {n_files} "
                                  f"profiles of mass {mass}, the windows "
                                  f"{got}")
-        out[name] = {"windows": fast, "s": fast_s, "profiles": len(files),
-                     "mass": mass}
-    emit("fast_encode_cli", **out)
+        out[name] = {"windows": fast, "profiles": n_files, "mass": mass}
+    emit("fast_encode_cli", runs_s=runs_s, **out)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -2180,17 +2245,17 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
 # -- phase 7 -----------------------------------------------------------------
 
 # The streaming window with the cross-drain carry cache (the north star's
-# --streaming-window), on the bench window: a cold window, then steady
-# windows of the same rows plus STREAM_FRESH new stacks each, 10 drains a
+# --streaming-window), on the bench window: a cold window, then a steady
+# window of the same rows plus STREAM_FRESH new stacks, 10 drains a
 # window cut on pid boundaries (per-pid location registration is
 # batch-local), closed through the feeder; the encode pipeline's worker
 # writes the warm statics snapshot after the last window, and a restart
 # adopts it and streams the last window again. Capacity 2^22: the window's
-# 2^20 stacks plus the steady windows' new ones exceed id_cap 2^20 of the
+# 2^20 stacks plus the steady window's new ones exceed id_cap 2^20 of the
 # default 2^21 table under overflow "raise".
 STREAM_CAP = 1 << 22
 STREAM_FRESH = 65_536
-STREAM_WINDOWS = 3
+STREAM_WINDOWS = 2
 
 
 class MappedObject:
@@ -3033,6 +3098,351 @@ def phase_sharded(dev, snap, want, hashes, b7_ref=None) -> tuple:
             "library_ms": None}}, launches
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+
+FLEET_NODES = 8
+FLEET_FRESH = 65_536          # node-private new stacks a node
+FLEET_PROFILE_ROWS = 1 << 17  # rows a node in the profiles' merge
+FLEET_SHARED = 16_384         # of them, rows every node holds
+
+
+def fleet_stream(snap, hashes):
+    """The 8-node stream at a node's full width, the bench window: node
+    k's row is the window's 2^20 rows (phase 4's h1, h2) with counts
+    drawn from 1-9 (seed 9 + k), then FLEET_FRESH node-private new stacks
+    (rows k * FLEET_FRESH.. of the window, the leaf moved by 4 (k + 1)
+    bytes, as phase 6's fresh rows), hashed here. Returns (h1, h2,
+    counts) uint32/int32 [8, 1,114,112]."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.ops.hashing import row_hash_np
+
+    n = len(snap)
+    r = n + FLEET_FRESH
+    h1 = np.empty((FLEET_NODES, r), np.uint32)
+    h2 = np.empty((FLEET_NODES, r), np.uint32)
+    c = np.empty((FLEET_NODES, r), np.int32)
+    for k in range(FLEET_NODES):
+        fresh = window_rows(snap, np.arange(k * FLEET_FRESH,
+                                            (k + 1) * FLEET_FRESH),
+                            4 * (k + 1))
+        f1, f2 = row_hash_np(fresh.stacks, fresh.pids, fresh.user_len,
+                             fresh.kernel_len, n_hashes=2)
+        h1[k, :n], h1[k, n:] = hashes[0], f1
+        h2[k, :n], h2[k, n:] = hashes[1], f2
+        c[k] = np.random.default_rng(9 + k).integers(1, 10, r)
+    return h1, h2, c
+
+
+def exact_oracle(h1, h2, c):
+    """numpy's exact merge: np.unique of the 64-bit keys (or of h1 alone
+    when h2 is None), then np.add.at of the counts; (h1, h2, sums)."""
+    import numpy as np
+
+    key = h1.ravel().astype(np.uint64)
+    if h2 is not None:
+        key = (key << np.uint64(32)) | h2.ravel().astype(np.uint64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv.ravel(), c.ravel().astype(np.int64))
+    if h2 is None:
+        return uniq.astype(np.uint32), None, sums
+    return ((uniq >> np.uint64(32)).astype(np.uint32),
+            uniq.astype(np.uint32), sums)
+
+
+def b8_case(dev, h1, h2, c, reps: int = 20) -> dict:
+    """B8's segment pass (csrc/fleet_merge.cu, replacing the step after
+    the sort of parca_agent_tpu/parallel/fleet.py _exact_program64) at the
+    stream: the sort (torch.sort of keys64 and the counts' gather) and the
+    segment kernel timed apart; the kernel's [:n_groups] (reps, sums,
+    n_groups) equal to its plain version's on the same sorted rows and to
+    numpy's exact merge; the library yardstick, torch.unique(keys,
+    return_inverse=True) then index_add_ (two calls, the sort included);
+    the bound: 12 B a row read, 12 B a group written. Its launches are
+    restored."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.parallel import fleet
+
+    saved = dict(fleet.LAUNCHES)
+    h1t, h2t = (torch.from_numpy(x.view(np.int32)).to(dev) for x in (h1, h2))
+    ct = torch.from_numpy(c).to(dev).reshape(-1)
+    keys = fleet.keys64(h1t, h2t)
+    ks, cs = fleet.sort_rows(keys, ct)
+    hi, lo, sums, ng = fleet.fleet_segment(ks, cs, True)
+    k = int(ng.item())
+    plain = fleet.fleet_segment_plain(ks, cs, True)
+    if int(plain[3].item()) != k:
+        raise AssertionError(f"B8: n_groups {k} != the plain version's "
+                             f"{int(plain[3].item())}")
+    for name, g, p_ in (("reps_hi", hi, plain[0]), ("reps_lo", lo, plain[1]),
+                        ("sums", sums, plain[2])):
+        if not torch.equal(g[:k], p_[:k]):
+            raise AssertionError(f"B8: the kernel's {name} differ from the "
+                                 "plain version's")
+    o1, o2, osum = exact_oracle(h1, h2, c)
+    if not (k == len(o1)
+            and np.array_equal(hi[:k].cpu().numpy().view(np.uint32), o1)
+            and np.array_equal(lo[:k].cpu().numpy().view(np.uint32), o2)
+            and np.array_equal(sums[:k].cpu().numpy(), osum)):
+        raise AssertionError("B8: the segment pass differs from numpy's "
+                             "exact merge")
+
+    def library():
+        u, inv = torch.unique(keys, return_inverse=True)
+        return torch.zeros(len(u), dtype=torch.int32,
+                           device=dev).index_add_(0, inv, ct)
+
+    if not np.array_equal(library().cpu().numpy(), osum):
+        raise AssertionError("B8: the library yardstick differs")
+    n = keys.numel()
+    out = {"rows": n, "n_groups": k,
+           "sort_ms": time_ms(lambda: fleet.sort_rows(keys, ct), reps),
+           "ms": time_ms(lambda: fleet.fleet_segment(ks, cs, True), reps),
+           "plain_ms": time_ms(lambda: fleet.fleet_segment_plain(
+               ks, cs, True), 3),
+           "library_ms": time_ms(library, 5),
+           "library_calls": "torch.unique(keys, return_inverse=True) + "
+                            "index_add_ (two calls, the sort included)"}
+    out["bytes"] = 12 * n + 12 * k
+    out["bound_ms"], out["bound_by"] = bound(out["bytes"], 2 * n)
+    fleet.LAUNCHES.update(saved)
+    return out
+
+
+def pid_window(snap, rows):
+    """The snapshot's rows `rows` with the mapping table's rows of their
+    pids (a pid's profile needs only its own rows and mappings)."""
+    import dataclasses
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.capture.formats import MappingTable
+
+    w = window_rows(snap, rows)
+    mt = snap.mappings
+    sel = np.isin(mt.pids, np.unique(w.pids))
+    return dataclasses.replace(w, mappings=MappingTable(
+        pids=mt.pids[sel], starts=mt.starts[sel], ends=mt.ends[sel],
+        offsets=mt.offsets[sel], objs=mt.objs[sel], obj_paths=mt.obj_paths,
+        obj_buildids=mt.obj_buildids, bases=mt.bases[sel]))
+
+
+def fleet_node_windows(snap):
+    """8 node windows of FLEET_PROFILE_ROWS rows of the bench window:
+    FLEET_SHARED rows every node holds (seed 11), and node k's own rows,
+    those of the pids p with p % 8 == k; each node's mapping table is the
+    window's rows of its pids."""
+    import numpy as np
+
+    n = len(snap)
+    shared = np.sort(np.random.default_rng(11).choice(n, FLEET_SHARED,
+                                                      replace=False))
+    is_shared = np.zeros(n, bool)
+    is_shared[shared] = True
+    windows = []
+    for k in range(FLEET_NODES):
+        own = np.flatnonzero((snap.pids % FLEET_NODES == k) & ~is_shared)
+        windows.append(pid_window(snap, np.concatenate(
+            [own[:FLEET_PROFILE_ROWS - FLEET_SHARED], shared])))
+    return windows
+
+
+def fleet_dist(dev, h1, h2, c) -> dict:
+    """The process boundary through NCCL at world size 1: the group formed
+    by fleet_initialize on a free localhost port, node 0's stream merged
+    by fleet_merge_sketches_dist and fleet_merge_exact64_dist, then two
+    FleetWindowMerger rounds (node 0's window, then none); the group
+    destroyed at the end. Two ranks on one card are not tried: NCCL
+    refuses two ranks on one device. Returns the results for the
+    checks."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from parca_agent_tpu_torch.parallel import distributed
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    distributed.fleet_initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=60,
+                                 device=dev)
+    out = {"join_s": time.perf_counter() - t0,
+           "backend": dist.get_backend(),
+           "world_size": dist.get_world_size(),
+           "two_ranks_on_one_card": "not tried: NCCL refuses two ranks on "
+                                    "one device"}
+    try:
+        mesh = distributed.local_fleet_mesh()
+        out["mesh"] = [str(mesh.device), mesh.n_nodes]
+        t0 = time.perf_counter()
+        out["sketches"] = distributed.fleet_merge_sketches_dist(h1[0], c[0])
+        out["exact64"] = distributed.fleet_merge_exact64_dist(h1[0], h2[0],
+                                                              c[0])
+        out["merges_ms"] = (time.perf_counter() - t0) * 1e3
+        merger = distributed.FleetWindowMerger(interval_s=0.0,
+                                               collective_timeout_s=60)
+        merger.submit_window(lambda: (h1[0], h2[0]), c[0])
+        merger.merge_round()
+        out["rounds"] = [dict(merger.fleet_stats)]
+        merger.merge_round()
+        out["rounds"].append(dict(merger.fleet_stats))
+        out["merger_stats"] = dict(merger.stats)
+        out["degraded"] = merger.degraded
+    finally:
+        dist.destroy_process_group()
+    out["node0_total"] = int(np.asarray(c[0], np.int64).sum())
+    return out
+
+
+def phase_fleet(dev, snap, hashes) -> tuple:
+    """The fleet merge's path on `dev`: the 8-node stream (fleet_stream)
+    through fleet_merge_sketches, fleet_merge_exact64 and
+    fleet_merge_exact, the profiles' merge of 8 smaller node windows
+    (fleet_merge_profiles), and the process boundary through NCCL
+    (fleet_dist), with the launches counted from 0 over them; then the
+    checks: the sketches against numpy's (the int64 total), the exact
+    merges against numpy's exact merge, the profiles against the concat
+    oracle (every pid's mass and order from concat_snapshots, every 64th
+    pid's sorted stack counts from CPUAggregator on its rows), NCCL's
+    merges against the one-process merges of node 0 alone and the
+    merger's rounds against numpy; then both kernels against their plain versions, timed, with
+    their bounds (B6 at the stream, B8 at the stream). Returns the kernel
+    rows and the path's launches."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
+    from parca_agent_tpu_torch.capture.formats import (
+        concat_snapshots,
+        filter_snapshot_rows,
+    )
+    from parca_agent_tpu_torch.ops import sketch
+    from parca_agent_tpu_torch.parallel import fleet
+
+    t0 = time.perf_counter()
+    h1, h2, c = fleet_stream(snap, hashes)
+    windows = fleet_node_windows(snap)
+    setup_s = time.perf_counter() - t0
+    total = int(c.astype(np.int64).sum())
+    if total >= 2**31:
+        raise AssertionError(f"fleet: the stream's total {total} >= 2^31")
+
+    sketch.reset_launches()
+    fleet.reset_launches()
+    ms = {}
+    t0 = time.perf_counter()
+    cm, regs, got_total = fleet.fleet_merge_sketches(h1, c, device=dev)
+    ms["sketches"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    u1, u2, uc = fleet.fleet_merge_exact64(h1, h2, c, device=dev)
+    ms["exact64"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    uh, uhc = fleet.fleet_merge_exact(h1, c, device=dev)
+    ms["exact32"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    profiles, merged = fleet.fleet_merge_profiles(
+        windows, aggregator=CPUAggregator(), device=dev)
+    ms["profiles"] = (time.perf_counter() - t0) * 1e3
+    dist_out = fleet_dist(dev, h1, h2, c)
+    launches = {"sketch_build": sketch.LAUNCHES["sketch_build"],
+                "fleet_segment": fleet.LAUNCHES["fleet_segment"]}
+
+    # The checks.
+    spec = fleet.FleetMergeSpec()
+    if got_total != total or not (
+            np.array_equal(cm, sketch.cm_build(h1.ravel(), c.ravel(),
+                                               spec.cm))
+            and np.array_equal(regs, sketch.hll_build(
+                h1.ravel(), spec.hll, live=c.ravel() > 0))):
+        raise AssertionError("fleet: the merged sketches differ from numpy's")
+    o1, o2, osum = exact_oracle(h1, h2, c)
+    if not (np.array_equal(u1, o1) and np.array_equal(u2, o2)
+            and np.array_equal(uc, osum)):
+        raise AssertionError("fleet: fleet_merge_exact64 differs from "
+                             "numpy's exact merge")
+    p1, _, psum = exact_oracle(h1, None, c)
+    if not (np.array_equal(uh, p1) and np.array_equal(uhc, psum)):
+        raise AssertionError("fleet: fleet_merge_exact differs from numpy's "
+                             "exact merge")
+    # The concat oracle (tests/test_fleet.py's): every pid's mass from
+    # the concatenated windows, and CPUAggregator's profiles of every
+    # 64th pid, from those pids' rows alone.
+    t0 = time.perf_counter()
+    concat = concat_snapshots(windows)
+    mass = np.bincount(concat.pids, weights=concat.counts.astype(np.float64))
+    pids = np.flatnonzero(mass)
+    sample = pids[::64]
+    want = {p.pid: sorted(p.values.tolist())
+            for p in CPUAggregator().aggregate(filter_snapshot_rows(
+                concat, np.isin(concat.pids, sample)))}
+    oracle_s = time.perf_counter() - t0
+    if [p.pid for p in profiles] != pids.tolist() \
+            or merged.total_samples() != concat.total_samples() \
+            or any(p.total() != int(mass[p.pid]) for p in profiles):
+        raise AssertionError("fleet: the merged profiles' pids, total or "
+                             "per-pid mass differ from the concat oracle's")
+    for p in profiles:
+        if p.pid in want and sorted(p.values.tolist()) != want[p.pid]:
+            raise AssertionError(f"fleet: pid {p.pid} stack counts")
+    if len(want) != len(sample):
+        raise AssertionError("fleet: the oracle's sample lost pids")
+    one = fleet.fleet_merge_sketches(h1[:1], c[:1], device=dev)
+    d_cm, d_regs, d_total = dist_out["sketches"]
+    if not (np.array_equal(d_cm, one[0]) and np.array_equal(d_regs, one[1])
+            and d_total == one[2] == dist_out["node0_total"]):
+        raise AssertionError("fleet: NCCL's sketch merge differs from the "
+                             "one-process merge")
+    one = fleet.fleet_merge_exact64(h1[:1], h2[:1], c[:1], device=dev)
+    if not all(np.array_equal(a, b)
+               for a, b in zip(dist_out["exact64"], one)):
+        raise AssertionError("fleet: NCCL's exact merge differs from the "
+                             "one-process merge")
+    n1, _, _ = exact_oracle(h1[:1], h2[:1], c[:1])
+    want_rounds = [{"fleet_total_samples": dist_out["node0_total"],
+                    "fleet_unique_stacks": len(n1), "fleet_rounds": 1},
+                   {"fleet_total_samples": 0, "fleet_unique_stacks": 0,
+                    "fleet_rounds": 2}]
+    if dist_out["rounds"] != want_rounds or dist_out["degraded"]:
+        raise AssertionError(f"fleet: the merger's rounds "
+                             f"{dist_out['rounds']} != {want_rounds}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"fleet: {name} never launched")
+
+    b6 = b6_case(dev, h1, c, live_counts=True)
+    b8 = b8_case(dev, h1, h2, c)
+    emit("fleet_path", nodes=FLEET_NODES, stream=list(h1.shape),
+         total=total, n_groups=len(o1), n_groups_32=len(p1),
+         merged_rows=len(merged), profiles=len(profiles),
+         profile_rows_a_node=[len(w) for w in windows], ms=ms,
+         setup_s=setup_s, oracle_s=oracle_s, launches=launches,
+         nccl={k: v for k, v in dist_out.items()
+               if k not in ("sketches", "exact64")},
+         sketch_build=b6, fleet_segment=b8)
+    source = "parca_agent_tpu_torch/csrc/"
+    rows = {
+        "sketch_build": {
+            "name": "sketch_build", "route": "cuda",
+            "source": source + "sketch_build.cu",
+            "replaces": "parca_agent_tpu/ops/sketch.py:79",
+            "max_abs_err": 0, "ms": b6["ms"], "plain_ms": b6["plain_ms"],
+            "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
+            "library_ms": b6["library_ms"]},
+        "fleet_segment": {
+            "name": "fleet_segment", "route": "cuda",
+            "source": source + "fleet_merge.cu",
+            "replaces": "parca_agent_tpu/parallel/fleet.py:164",
+            "max_abs_err": 0, "ms": b8["ms"], "plain_ms": b8["plain_ms"],
+            "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+            "library_ms": b8["library_ms"]}}
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
@@ -3142,16 +3552,21 @@ def main() -> int:
     sharded_rows, launches_sharded = timed("sharded", phase_sharded, dev,
                                            snap, want, hashes, b7_ref)
     rows.update(sharded_rows)
+    fleet_rows, launches_fleet = timed("fleet", phase_fleet, dev, snap,
+                                       hashes)
+    rows.update(fleet_rows)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
-    # bounded-memory dictionary (phase 6), the streaming window (phase 7)
-    # and the sharded dictionary (phase 8). `launches` is their sum.
+    # bounded-memory dictionary (phase 6), the streaming window (phase 7),
+    # the sharded dictionary (phase 8) and the fleet merge (phase 9).
+    # `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
                "dict_cm": launches_cm,
                "streaming": launches_stream,
-               "sharded": launches_sharded}
+               "sharded": launches_sharded,
+               "fleet": launches_fleet}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

@@ -25,6 +25,8 @@ dictionary's); the plain delta version takes any block size.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from parca_agent_tpu_torch.ops import kernels
@@ -168,21 +170,9 @@ def _check(acc: torch.Tensor, touch, n_fetch: int, width: int,
         raise ValueError(f"n_over_buf {n_over_buf} is not positive")
 
 
-# One scratch per (device, stream, id_cap), zeroed once when it is created
-# and kept: the kernel's status records carry an epoch that the scratch
-# holds itself, so it is never cleared between calls. Keyed by the stream,
-# so calls on one scratch are in stream order and never overlap.
-_SCRATCH: dict = {}
-
-
-def _scratch(lib, dev: torch.device, stream, id_cap: int) -> torch.Tensor:
-    key = (dev.index, stream.cuda_stream, id_cap)
-    buf = _SCRATCH.get(key)
-    if buf is None:  # zeroed on `stream`, the current one
-        buf = _SCRATCH.setdefault(key, torch.zeros(
-            lib.pa_close_scratch_words(id_cap), dtype=torch.int32,
-            device=dev))
-    return buf
+@functools.cache
+def _scratch_words(id_cap: int) -> int:
+    return kernels.load("close_pack").pa_close_scratch_words(id_cap)
 
 
 def _launch(name: str, acc: torch.Tensor, n_out: int, *args) -> torch.Tensor:
@@ -192,7 +182,11 @@ def _launch(name: str, acc: torch.Tensor, n_out: int, *args) -> torch.Tensor:
     lib = kernels.load("close_pack")
     dev = acc.device
     stream = torch.cuda.current_stream(dev)
-    scratch = _scratch(lib, dev, stream, acc.shape[-1])
+    # One scratch per id_cap (kernels.epoch_scratch).
+    id_cap = acc.shape[-1]
+    scratch = kernels.epoch_scratch("close_pack", dev, stream,
+                                    _scratch_words(id_cap), torch.int32,
+                                    tag=id_cap)
     out = torch.empty(n_out, dtype=torch.int32, device=dev)
     code = getattr(lib, name)(*args, scratch.data_ptr(), out.data_ptr(),
                               stream.cuda_stream)

@@ -26,8 +26,9 @@ pprof).
 In the JAX package the shards are positions on a device mesh, one
 sub-table a device. Here they are the leading dimension of tensors on the
 aggregator's one device, as the JAX tests run 8 shards on 8 virtual
-devices of one host; one shard a card (NCCL, torch.distributed) waits
-for the fleet merge's port.
+devices of one host. One shard a card is not a target: NCCL runs one
+rank a card, and the cross-node path of the port is the fleet merge
+(parallel/), whose process boundary is torch.distributed.
 
 The host mirror is the dictionary's, with slot = shard * cap_s +
 within-shard index, so insertion, rotation, eviction, sketch
@@ -160,25 +161,6 @@ def sharded_feed_step_plain(table: torch.Tensor, acc: torch.Tensor,
     return n_miss.to(torch.int32), miss_rows
 
 
-# One scratch per (device, stream), zeroed once when it is created and
-# replaced by a larger one (zeroed once too) when a feed needs more: the
-# kernel's status records carry an epoch that the scratch holds itself,
-# so it is never cleared between calls. Keyed by the stream, so calls on
-# one scratch are in stream order and never overlap.
-_SCRATCH: dict = {}
-
-
-def _scratch(lib, dev: torch.device, stream, n: int,
-             n_shards: int) -> torch.Tensor:
-    key = (dev.index, stream.cuda_stream)
-    words = lib.pa_sharded_feed_scratch_words(n, n_shards)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < words:  # zeroed on `stream`
-        buf = _SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
-                                          device=dev)
-    return buf
-
-
 def sharded_feed_step(table: torch.Tensor, acc: torch.Tensor,
                       packed: torch.Tensor, reset: bool):
     """sharded_feed_step_plain's result (miss_rows past each shard's
@@ -200,7 +182,9 @@ def sharded_feed_step(table: torch.Tensor, acc: torch.Tensor,
     dev = table.device
     stream = torch.cuda.current_stream(dev)
     n = packed.shape[1]
-    scratch = _scratch(lib, dev, stream, n, n_shards)
+    scratch = kernels.epoch_scratch(
+        "sharded_feed", dev, stream,
+        lib.pa_sharded_feed_scratch_words(n, n_shards), torch.int64)
     if reset:
         acc.zero_()
     n_miss = torch.empty(n_shards, dtype=torch.int32, device=dev)

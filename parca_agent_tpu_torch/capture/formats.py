@@ -229,6 +229,96 @@ def fold_rows_first_seen(keys: np.ndarray, counts):
     return first[order].astype(np.int64), inv, weights
 
 
+def filter_snapshot_rows(snap: WindowSnapshot,
+                         mask: np.ndarray) -> WindowSnapshot:
+    """Snapshot restricted to the rows where mask is True (columns are
+    sliced; the mapping table is shared — per-pid lookups for dropped
+    pids simply never happen)."""
+    return dataclasses.replace(
+        snap, pids=snap.pids[mask], tids=snap.tids[mask],
+        counts=snap.counts[mask], user_len=snap.user_len[mask],
+        kernel_len=snap.kernel_len[mask], stacks=snap.stacks[mask])
+
+
+def merge_mapping_tables(tables: Sequence[MappingTable]) -> MappingTable:
+    """Union several windows' mapping tables into one.
+
+    Rows are deduplicated exactly on (pid, start, end, offset, base, object);
+    objects are deduplicated by (path, build_id) so the same libc mapped by
+    every node collapses to one object id (the fan-in the reference's
+    debuginfo dedup relies on, pkg/debuginfo/manager.go:116-127).
+    Genuinely conflicting tables — the same pid with overlapping but
+    different ranges — fail MappingTable's own overlap validation."""
+    tables = [t for t in tables if len(t)]
+    if not tables:
+        return MappingTable.empty()
+    obj_ids: dict[tuple[str, str], int] = {}
+    paths: list[str] = []
+    buildids: list[str] = []
+    cols: list[np.ndarray] = []
+    for t in tables:
+        bids = t.obj_buildids or ("",) * len(t.obj_paths)
+        remap = np.full(max(len(t.obj_paths), 1), -1, np.int64)
+        for i, (p, b) in enumerate(zip(t.obj_paths, bids)):
+            key = (p, b)
+            if key not in obj_ids:
+                obj_ids[key] = len(paths)
+                paths.append(p)
+                buildids.append(b)
+            remap[i] = obj_ids[key]
+        objs = t.objs.astype(np.int64)
+        pos = (objs >= 0) & (objs < len(remap))
+        objs = np.where(pos, remap[np.clip(objs, 0, len(remap) - 1)], -1)
+        rec = np.zeros((len(t), 6), np.uint64)
+        rec[:, 0] = t.pids.astype(np.uint64)
+        rec[:, 1] = t.starts
+        rec[:, 2] = t.ends
+        rec[:, 3] = t.offsets
+        rec[:, 4] = t.bases
+        rec[:, 5] = objs.astype(np.uint64)  # -1 wraps; exact dedup only
+        cols.append(rec)
+    rec = np.concatenate(cols, axis=0)
+    void = np.ascontiguousarray(rec).view(
+        np.dtype((np.void, rec.shape[1] * 8))).ravel()
+    _, first = np.unique(void, return_index=True)
+    rec = rec[np.sort(first)]
+    pids = rec[:, 0].astype(np.int32)
+    order = np.lexsort((rec[:, 1], pids))
+    rec = rec[order]
+    return MappingTable(
+        pids=rec[:, 0].astype(np.int32),
+        starts=rec[:, 1],
+        ends=rec[:, 2],
+        offsets=rec[:, 3],
+        objs=rec[:, 5].astype(np.int64).astype(np.int32),
+        obj_paths=tuple(paths),
+        obj_buildids=tuple(buildids),
+        bases=rec[:, 4],
+    )
+
+
+def concat_snapshots(windows: Sequence[WindowSnapshot]) -> WindowSnapshot:
+    """Concatenate several windows (e.g. one per fleet node) into one:
+    row arrays appended, mapping tables unioned. Rows are NOT deduplicated —
+    aggregation semantics already sum identical (pid, stack) rows, which is
+    what makes this the fleet-merge correctness oracle input."""
+    ws = list(windows)
+    if not ws:
+        raise ValueError("concat_snapshots needs at least one window")
+    return WindowSnapshot(
+        pids=np.concatenate([w.pids for w in ws]),
+        tids=np.concatenate([w.tids for w in ws]),
+        counts=np.concatenate([w.counts for w in ws]),
+        user_len=np.concatenate([w.user_len for w in ws]),
+        kernel_len=np.concatenate([w.kernel_len for w in ws]),
+        stacks=np.concatenate([w.stacks for w in ws], axis=0),
+        mappings=merge_mapping_tables([w.mappings for w in ws]),
+        period_ns=ws[0].period_ns,
+        window_ns=ws[0].window_ns,
+        time_ns=min(w.time_ns for w in ws),
+    )
+
+
 def _write_arr(out: BinaryIO, arr: np.ndarray) -> None:
     data = np.ascontiguousarray(arr).tobytes()
     out.write(len(data).to_bytes(8, "little"))

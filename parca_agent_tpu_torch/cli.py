@@ -9,8 +9,12 @@ store. With --fast-encode (dictionary aggregators only) the per-pid pprof
 comes from the vectorized window encoder, on an encode worker thread
 unless --no-encode-pipeline is given (profiler/cpu.py); with
 --statics-snapshot-path the worker also keeps a warm statics snapshot,
-which the next run adopts before its first window. Flag names are
-those of parca_agent_tpu's CLI. The aggregation runs on the CUDA card
+which the next run adopts before its first window. With
+--fleet-coordinator the agent joins a fleet of agent processes
+(torch.distributed: NCCL on the card, gloo with --device cpu) before any
+device work and runs the fleet merge actor beside the window loop: every
+window's rows are merged fleet-wide each interval (parallel/). Flag
+names are those of parca_agent_tpu's CLI. The aggregation runs on the CUDA card
 unless ``--device cpu`` is given; without a CUDA device the run stops
 with an error that names the missing device.
 """
@@ -96,6 +100,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the aggregation: cuda (default) "
                         "or cpu")
+    p.add_argument("--fleet-coordinator", default="",
+                   help="host:port of fleet node 0; joining forms the "
+                        "fleet's process group (torch.distributed: NCCL "
+                        "on the card, gloo with --device cpu) and starts "
+                        "the per-window fleet merge actor: every window, "
+                        "all nodes merge their stack streams into "
+                        "fleet-wide exact unique-stack counts, printed at "
+                        "exit as a {\"fleet\": ...} line "
+                        "(parallel/distributed.py; the offline "
+                        "cluster-wide pprof assembly is "
+                        "parallel/fleet.py fleet_merge_profiles)")
+    p.add_argument("--fleet-nodes", type=int, default=0,
+                   help="total agent processes in the fleet")
+    p.add_argument("--fleet-node-id", type=int, default=-1,
+                   help="this agent's rank (0 = coordinator)")
+    p.add_argument("--fleet-join-timeout", type=float, default=60.0,
+                   help="seconds the fleet join may take before it is "
+                        "abandoned and the agent continues SINGLE-NODE (a "
+                        "dead coordinator would block startup forever); "
+                        "0 = unbounded")
+    p.add_argument("--collective-timeout", type=float, default=30.0,
+                   help="seconds one fleet merge collective may take "
+                        "before it is abandoned and fleet mode degrades "
+                        "to node-local profiles (counted, rejoin after a "
+                        "bounded re-probe — a hung peer must not wedge "
+                        "this node's merge actor); 0 = unbounded")
     return p
 
 
@@ -139,6 +169,7 @@ def run(argv=None) -> int:
     from parca_agent_tpu_torch.pprof.builder import build_pprof
     from parca_agent_tpu_torch.profiler.cpu import labels_for
     from parca_agent_tpu_torch.utils.device import resolve_device
+    from parca_agent_tpu_torch.utils.log import get_logger
     from parca_agent_tpu_torch.utils.window_clock import windows_for
 
     try:
@@ -146,6 +177,33 @@ def run(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"parca-agent-tpu-torch: {e}", file=sys.stderr)
         return 2
+
+    # The fleet join precedes any device work, on --device's backend.
+    if args.fleet_coordinator:
+        if args.fleet_nodes < 2 or not (0 <= args.fleet_node_id
+                                        < args.fleet_nodes):
+            print("parca-agent-tpu-torch: --fleet-coordinator needs "
+                  "--fleet-nodes >= 2 and a valid --fleet-node-id",
+                  file=sys.stderr)
+            return 2
+        from parca_agent_tpu_torch.parallel.distributed import (
+            fleet_initialize,
+        )
+
+        try:
+            fleet_initialize(args.fleet_coordinator, args.fleet_nodes,
+                             args.fleet_node_id,
+                             timeout_s=args.fleet_join_timeout or None,
+                             device=device)
+        except Exception as e:  # noqa: BLE001 - degrade, don't crash
+            # A dead or refusing coordinator must not kill the agent at
+            # startup: this host still deserves its profiler. Continue
+            # single-node; only the fleet-wide merge is forfeited until a
+            # restart rejoins.
+            get_logger("cli").error(
+                "fleet join failed; continuing single-node",
+                coordinator=args.fleet_coordinator, error=repr(e))
+            args.fleet_coordinator = ""
 
     if args.capture == "replay":
         from parca_agent_tpu_torch.capture.replay import ReplaySource
@@ -175,7 +233,6 @@ def run(argv=None) -> int:
         from parca_agent_tpu_torch.aggregator.sharded import (
             ShardedDictAggregator,
         )
-        from parca_agent_tpu_torch.utils.log import get_logger
 
         # The largest power-of-two device count: sub-tables are powers of
         # two, and a 6-card host shards 4 ways rather than stop.
@@ -213,6 +270,34 @@ def run(argv=None) -> int:
         with print_mu:
             print(json.dumps(line), flush=True)
 
+    # The fleet merge actor (multi-node mode): a daemon thread runs one
+    # merge round each window interval; each window's rows reach it
+    # through the window sink, hashed lazily on the actor's thread.
+    fleet_merger = fleet_stop = fleet_thread = window_sink = None
+    if args.fleet_coordinator:
+        from parca_agent_tpu_torch.ops.hashing import row_hash_np
+        from parca_agent_tpu_torch.parallel.distributed import (
+            FleetWindowMerger,
+        )
+
+        fleet_merger = FleetWindowMerger(
+            interval_s=args.profiling_duration,
+            collective_timeout_s=args.collective_timeout or None,
+            device=device)
+
+        def window_sink(snapshot):
+            fleet_merger.submit_window(
+                lambda: row_hash_np(snapshot.stacks, snapshot.pids,
+                                    snapshot.user_len, snapshot.kernel_len,
+                                    n_hashes=2),
+                snapshot.counts)
+
+        fleet_stop = threading.Event()
+        fleet_thread = threading.Thread(
+            target=fleet_merger.run, args=(fleet_stop,), name="fleet-merge",
+            daemon=True)
+        fleet_thread.start()
+
     statics_store = None
     if args.statics_snapshot_path:
         if not args.fast_encode:
@@ -235,7 +320,8 @@ def run(argv=None) -> int:
                                statics_cache_bytes=args.statics_cache_bytes,
                                on_window=emit, statics_store=statics_store,
                                statics_snapshot_every=max(
-                                   1, args.statics_snapshot_interval))
+                                   1, args.statics_snapshot_interval),
+                               window_sink=window_sink)
         if statics_store is not None:
             # Adopt the previous run's snapshot before anything touches
             # the aggregator or the encoder (registries install only into
@@ -266,6 +352,12 @@ def run(argv=None) -> int:
                   "mass": sum(p.total() for p in profiles),
                   "aggregate_ms": t_agg * 1e3,
                   "window_ms": (time.perf_counter() - t0) * 1e3})
+            if window_sink is not None:
+                try:
+                    window_sink(snapshot)
+                except Exception as e:  # noqa: BLE001 - a tee, not a result
+                    get_logger("cli").warn("window sink failed",
+                                           error=repr(e))
             return True
 
     n = 0
@@ -280,17 +372,29 @@ def run(argv=None) -> int:
                 break
             n += 1
     finally:
-        if profiler is not None:
-            # Flush the in-flight window (and surface a pipelined
-            # failure).
-            profiler.close()
-            if statics_store is not None:
-                st = statics_store.stats
-                print(json.dumps({"statics_snapshot": {
-                    k: st[k] for k in ("snapshots_written",
-                                       "snapshots_skipped_clean",
-                                       "snapshot_bytes", "snapshot_records",
-                                       "snapshot_write_errors",
-                                       "records_dropped_cap")}}),
-                      flush=True)
+        try:
+            if profiler is not None:
+                # Flush the in-flight window (and surface a pipelined
+                # failure).
+                profiler.close()
+                if statics_store is not None:
+                    st = statics_store.stats
+                    keys = ("snapshots_written", "snapshots_skipped_clean",
+                            "snapshot_bytes", "snapshot_records",
+                            "snapshot_write_errors", "records_dropped_cap")
+                    print(json.dumps({"statics_snapshot": {
+                        k: st[k] for k in keys}}), flush=True)
+        finally:
+            if fleet_merger is not None:
+                # A round in flight finishes (or hits its collective bound)
+                # before the actor sees the stop.
+                fleet_stop.set()
+                fleet_thread.join(args.profiling_duration
+                                  + (args.collective_timeout or 0.0) + 1.0)
+                failed = fleet_merger.failed
+                print(json.dumps({
+                    "fleet": fleet_merger.fleet_stats,
+                    "fleet_merger": fleet_merger.stats,
+                    "degraded": fleet_merger.degraded,
+                    "failed": repr(failed) if failed else None}), flush=True)
     return 0

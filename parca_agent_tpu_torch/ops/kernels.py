@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -64,6 +66,18 @@ SIGNATURES = {
     "row_hash": {
         "pa_row_hash": ([_P, _P, _P, _P, _P, _I64, _I64, _P, _U32, _U32, _P,
                          _P, _P], ctypes.c_int),
+        "pa_cuda_error_string": _ERR,
+    },
+    "sketch_build": {
+        "pa_sketch_build": ([_P, _P, _P, _I64, _I64, _I64, _P, _I64, _I64,
+                             *[_U32] * 8, _P, _I64, _U32, _I64, _P, _P],
+                            ctypes.c_int),
+        "pa_cuda_error_string": _ERR,
+    },
+    "fleet_merge": {
+        "pa_fleet_segment_scratch_words": ([_I64], ctypes.c_int64),
+        "pa_fleet_segment": ([_P, _P, _I64, _P, _P, _P, _P, _P, _P],
+                             ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
 }
@@ -145,6 +159,27 @@ def load(name: str) -> ctypes.CDLL:
             f.restype = restype
         _loaded[name] = lib
         return lib
+
+
+# The scratch of the kernels that run a single pass with decoupled
+# look-back (close_pack, sharded_feed, fleet_merge): one per (source,
+# device, stream, tag), zeroed once when it is created and replaced by a
+# larger one (zeroed once too) when a call needs more words. The kernels'
+# status records carry an epoch that the scratch holds itself, so it is
+# never cleared between calls. Keyed by the stream, so calls on one
+# scratch are in stream order and never overlap.
+SCRATCH: dict = {}
+
+
+def epoch_scratch(name: str, dev: torch.device, stream, words: int,
+                  dtype: torch.dtype, tag=None) -> torch.Tensor:
+    """The cached scratch of csrc/<name>.cu on `stream`: at least `words`
+    elements of `dtype`, zeroed once, on `stream` (the current one)."""
+    key = (name, dev.index, stream.cuda_stream, tag)
+    buf = SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = SCRATCH[key] = torch.zeros(words, dtype=dtype, device=dev)
+    return buf
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:

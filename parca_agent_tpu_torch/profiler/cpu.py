@@ -13,7 +13,10 @@ profiler/streaming.py), else from ``window_counts`` of the snapshot. A
 window the feeder did not see whole is re-aggregated by window_counts on
 the same aggregator (the feeder counts it). With a statics store
 (pprof/statics_store.py) and the pipeline, the worker writes the warm
-statics snapshot every ``statics_snapshot_every`` windows.
+statics snapshot every ``statics_snapshot_every`` windows. A
+``window_sink`` gets each window's snapshot once the window is handed to
+the encoder (the fleet merge actor feeds on it: cli.py); a sink that
+raises is logged and the window goes on, as the original's tee.
 
 There is no fallback: no CPU aggregator stands behind the card and no
 scalar pprof builder behind the encoder. So, as in the original's loop
@@ -100,7 +103,8 @@ class CPUProfiler:
                  statics_cache_bytes: int = 256 << 20,
                  on_window: Callable[[dict], None] | None = None,
                  streaming_feeder=None, statics_store=None,
-                 statics_snapshot_every: int = 6):
+                 statics_snapshot_every: int = 6,
+                 window_sink: Callable[[WindowSnapshot], None] | None = None):
         if not hasattr(aggregator, "window_counts"):
             raise ValueError(
                 "fast_encode requires a dict-style aggregator "
@@ -109,6 +113,9 @@ class CPUProfiler:
         self._aggregator = aggregator
         self._writer = profile_writer
         self._on_window = on_window
+        # Optional tee of each window's snapshot; its failures must not
+        # fail the window.
+        self._window_sink = window_sink
         self._encoder = WindowEncoder(
             aggregator, statics_cache_bytes=statics_cache_bytes)
         # The warm statics snapshot is written on the encode worker only:
@@ -163,6 +170,11 @@ class CPUProfiler:
             return False
         self.metrics.attempts_total += 1
         self._aggregate_encode_write(snapshot, self.metrics.attempts_total)
+        if self._window_sink is not None:
+            try:
+                self._window_sink(snapshot)
+            except Exception as e:  # noqa: BLE001 - tee must not fail us
+                _log.warn("window sink failed", error=repr(e))
         return True
 
     def close(self) -> None:

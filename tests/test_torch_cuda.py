@@ -575,8 +575,8 @@ def test_close_kernel_back_to_back_calls_reuse_the_scratch(cuda):
         differ |= (fn() != want).any()
     assert not bool(differ)
     stream = torch.cuda.current_stream(cuda).cuda_stream
-    assert {k[2] for k in close._SCRATCH
-            if k[1] == stream} >= {1 << 16, 1 << 18}
+    assert {k[3] for k in kernels.SCRATCH
+            if k[0] == "close_pack" and k[2] == stream} >= {1 << 16, 1 << 18}
 
 
 def test_close_kernel_on_a_second_stream(cuda):
@@ -593,7 +593,8 @@ def test_close_kernel_on_a_second_stream(cuda):
     side.synchronize()
     assert torch.equal(got, want)
     assert (cuda.index or 0, side.cuda_stream, 1 << 20) in {
-        (k[0] or 0, k[1], k[2]) for k in close._SCRATCH}
+        (k[1] or 0, k[2], k[3]) for k in kernels.SCRATCH
+        if k[0] == "close_pack"}
 
 
 def _close_edge(edge: str, width: int, delta: bool, id_cap: int = 1 << 20):
@@ -951,6 +952,11 @@ def test_sharded_feed_look_back_edges(cuda, n_shards, n_pad, n_live, fill):
         assert not acc.any()
 
 
+def _feed_scratch() -> dict:
+    return {k: v for k, v in kernels.SCRATCH.items()
+            if k[0] == "sharded_feed"}
+
+
 def test_sharded_feed_scratch_epochs(cuda):
     """Feeds back to back on one stream share one scratch, zeroed once and
     replaced only by a larger one; 300 feeds of three sizes and shard
@@ -959,7 +965,8 @@ def test_sharded_feed_scratch_epochs(cuda):
     cases = [_b7_inputs(n_shards, 1 << 9, n_pad, n_pad - 5, 0.5, seed, cuda)
              for n_shards, n_pad, seed in ((8, 1 << 12, 1), (3, 1 << 9, 2),
                                            (5, 1 << 14, 3))]
-    sharded._SCRATCH.clear()
+    for key in _feed_scratch():
+        del kernels.SCRATCH[key]
     before = sharded.LAUNCHES["sharded_feed"]
     got = []
     for i in range(300):
@@ -968,10 +975,10 @@ def test_sharded_feed_scratch_epochs(cuda):
                           device=cuda)
         got.append((acc, *sharded.sharded_feed_step(tab, acc, pk, False)))
         if i == 2:
-            ptr = {k: v.data_ptr() for k, v in sharded._SCRATCH.items()}
+            ptr = {k: v.data_ptr() for k, v in _feed_scratch().items()}
     torch.cuda.synchronize()
     assert sharded.LAUNCHES["sharded_feed"] == before + 300
-    assert {k: v.data_ptr() for k, v in sharded._SCRATCH.items()} == ptr
+    assert {k: v.data_ptr() for k, v in _feed_scratch().items()} == ptr
     assert len(ptr) == 1
     want = []
     for tab, pk, _ in cases:
@@ -991,7 +998,7 @@ def test_sharded_feed_scratch_epochs(cuda):
                           device=cuda)
         n_miss, _ = sharded.sharded_feed_step(tab, acc, pk, False)
     torch.cuda.synchronize()
-    assert len(sharded._SCRATCH) == 2
+    assert len(_feed_scratch()) == 2
     assert torch.equal(acc, want[0][0]) and torch.equal(n_miss, want[0][1])
 
 
@@ -1073,3 +1080,186 @@ def test_sharded_aggregator_cuda_equals_cpu(cuda):
     assert dc._key_to_id == dh._key_to_id
     assert np.array_equal(dc._ids, dh._ids)
     assert torch.equal(dc._dev.cpu(), dh._dev)
+
+
+# -- the fleet merge: the sketch build (B6) and the segment pass (B8) --------
+
+
+def _fleet_stream(seed: int, n_nodes: int, r: int):
+    """u32 hashes with some at and above 2^31 and repeats across nodes,
+    counts 0-8 (zeros are dead rows), node 1 dead when there is one."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 2**32, max(r // 3, 1), dtype=np.uint64)
+    h = pool[rng.integers(0, len(pool), (n_nodes, r))].astype(np.uint32)
+    c = rng.integers(0, 9, (n_nodes, r)).astype(np.int32)
+    if n_nodes > 1:
+        c[1] = 0
+    return h, c
+
+
+@pytest.mark.parametrize("depth,width", [(1, 1 << 4), (8, 1 << 22)])
+@pytest.mark.parametrize("p", [4, 12, 18])
+@pytest.mark.parametrize("live", [None, "counts", "mask"])
+def test_sketch_build_kernel_equals_plain(cuda, depth, width, p, live):
+    from parca_agent_tpu_torch.ops import sketch
+
+    # 70,001 rows a node: not a multiple of a block's 256 threads.
+    h, c = _fleet_stream(depth * 100 + p, 3, 70_001)
+    mask = np.random.default_rng(p).random(c.shape) < 0.6
+    cm_spec, hll_spec = sketch.CountMinSpec(depth, width), sketch.HLLSpec(p)
+    args = {dev: (_t(h, dev), torch.from_numpy(c).to(dev),
+                  torch.from_numpy(mask).to(dev) if live == "mask" else live)
+            for dev in (cuda, torch.device("cpu"))}
+    before = sketch.LAUNCHES["sketch_build"]
+    got = sketch.sketch_build(*args[cuda][:2], cm_spec, hll_spec,
+                              args[cuda][2])
+    torch.cuda.synchronize()
+    assert sketch.LAUNCHES["sketch_build"] == before + 1
+    want = sketch.sketch_build_plain(*args[torch.device("cpu")][:2], cm_spec,
+                                     hll_spec, args[torch.device("cpu")][2])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(want[1].max()) > 0
+    assert int(want[0].sum()) == depth * int(c.sum())
+
+
+def test_sketch_single_entries_launch_the_kernel(cuda):
+    from parca_agent_tpu_torch.ops import sketch
+
+    h, c = _fleet_stream(5, 1, 4099)
+    ht, ct = _t(h[0], cuda), torch.from_numpy(c[0]).to(cuda)
+    cm_spec, hll_spec = sketch.CountMinSpec(), sketch.HLLSpec()
+    before = sketch.LAUNCHES["sketch_build"]
+    cm = sketch.cm_build(ht, ct, cm_spec)
+    regs = sketch.hll_build(ht, hll_spec, live=ct > 0)
+    torch.cuda.synchronize()
+    assert sketch.LAUNCHES["sketch_build"] == before + 2
+    assert np.array_equal(cm.cpu().numpy(), sketch.cm_build(h[0], c[0],
+                                                            cm_spec))
+    assert np.array_equal(regs.cpu().numpy(), sketch.hll_build(
+        h[0], hll_spec, live=c[0] > 0))
+
+
+def _segment_keys(kind: str, n: int):
+    """(h1, h2, counts) of a segment-pass case."""
+    rng = np.random.default_rng(len(kind) + n)
+    if kind == "single":
+        h1 = np.full(n, 0x9000_0001, np.uint32)
+        h2 = np.full(n, 0xFFFF_FFFF, np.uint32)
+    elif kind == "unique":
+        k = rng.permutation(n).astype(np.uint64) * np.uint64(0x9E37_79B9)
+        h1 = (k >> np.uint64(3)).astype(np.uint32) | np.uint32(1 << 31)
+        h2 = k.astype(np.uint32)
+        h1[::2] &= np.uint32(0x7FFF_FFFF)
+    elif kind == "straddle":
+        # Groups of 5,000-9,000 rows: each crosses one or two 4,096-row
+        # tiles.
+        sizes = rng.integers(5000, 9000, n // 5000 + 2)
+        g = np.repeat(np.arange(len(sizes)), sizes)[:n]
+        h1 = (g.astype(np.uint32) * np.uint32(0x8100_0003))
+        h2 = (g.astype(np.uint32) ^ np.uint32(0xC000_0000))
+    else:  # "mixed": h1 at and above 2^31, h1-only collisions, repeats
+        pool1 = rng.integers(0, 2**32, n // 4 + 1, dtype=np.uint64)
+        pool1[::2] |= np.uint64(1 << 31)
+        pick = rng.integers(0, len(pool1), n)
+        h1 = pool1[pick].astype(np.uint32)
+        h2 = (pick % 7).astype(np.uint32) * np.uint32(0x2492_4925)
+    c = rng.integers(0, 50, n).astype(np.int32)
+    return h1, h2, c
+
+
+@pytest.mark.parametrize("kind,n", [("mixed", 1), ("mixed", 4095),
+                                    ("mixed", 4097), ("mixed", 1 << 20),
+                                    ("single", 3 * 4096 + 17),
+                                    ("unique", 1_000_003),
+                                    ("straddle", 600_001)])
+@pytest.mark.parametrize("two_lanes", [False, True])
+def test_fleet_segment_kernel_equals_plain(cuda, kind, n, two_lanes):
+    from parca_agent_tpu_torch.parallel import fleet
+
+    h1, h2, c = _segment_keys(kind, n)
+    keys = (fleet.keys64(_t(h1, cuda), _t(h2, cuda)) if two_lanes
+            else fleet.keys32(_t(h1, cuda)))
+    ks, cs = fleet.sort_rows(keys, torch.from_numpy(c).to(cuda))
+    before = fleet.LAUNCHES["fleet_segment"]
+    got = fleet.fleet_segment(ks, cs, two_lanes)
+    torch.cuda.synchronize()
+    assert fleet.LAUNCHES["fleet_segment"] == before + 1
+    want = fleet.fleet_segment_plain(ks.cpu(), cs.cpu(), two_lanes)
+    k = int(want[3][0])
+    assert int(got[3][0]) == k
+    for g, w in zip(got[:3], want[:3]):
+        if w is None:
+            assert g is None
+        else:
+            assert torch.equal(g[:k].cpu(), w[:k])
+    if kind == "single":
+        assert k == 1
+    if kind == "unique":
+        assert k == n
+
+
+def test_fleet_segment_scratch_serves_calls_of_any_size(cuda):
+    from parca_agent_tpu_torch.parallel import fleet
+
+    for n in (1 << 20, 5000, 1 << 21, 3, 77_777) * 3:
+        h1, h2, c = _segment_keys("mixed", n)
+        ks, cs = fleet.sort_rows(fleet.keys64(_t(h1, cuda), _t(h2, cuda)),
+                                 torch.from_numpy(c).to(cuda))
+        got = fleet.fleet_segment(ks, cs, True)
+        want = fleet.fleet_segment_plain(ks.cpu(), cs.cpu(), True)
+        k = int(want[3][0])
+        assert int(got[3][0]) == k
+        assert torch.equal(got[2][:k].cpu(), want[2][:k])
+
+
+@pytest.mark.parametrize("n_nodes", [1, 8])
+def test_fleet_merges_cuda_equal_cpu(cuda, n_nodes):
+    from parca_agent_tpu_torch.parallel import fleet
+
+    h1, c = _fleet_stream(n_nodes, n_nodes, 50_001)
+    h2 = (h1 * np.uint32(7)) ^ np.uint32(0x8000_0000)
+    for merge, args in ((fleet.fleet_merge_sketches, (h1, c)),
+                        (fleet.fleet_merge_exact, (h1, c)),
+                        (fleet.fleet_merge_exact64, (h1, h2, c))):
+        got, want = merge(*args, device="cuda"), merge(*args, device="cpu")
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+
+
+def test_nccl_merges_at_world_size_one(cuda):
+    import socket
+
+    import torch.distributed as dist
+
+    from parca_agent_tpu_torch.parallel import distributed, fleet
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already formed in this process")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.fleet_initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = distributed.local_fleet_mesh()
+        assert mesh.n_nodes == 1 and mesh.device.type == "cuda"
+        h1, c = _fleet_stream(3, 1, 100_003)
+        h2 = h1 ^ np.uint32(0xF000_000F)
+        got = distributed.fleet_merge_sketches_dist(h1[0], c[0])
+        want = fleet.fleet_merge_sketches(h1, c)
+        assert all(np.array_equal(g, w) for g, w in zip(got[:2], want[:2]))
+        assert got[2] == want[2]
+        got = distributed.fleet_merge_exact64_dist(h1[0], h2[0], c[0])
+        want = fleet.fleet_merge_exact64(h1, h2, c)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+        merger = distributed.FleetWindowMerger(interval_s=0.0)
+        merger.submit_window((h1[0], h2[0]), c[0])
+        merger.merge_round()
+        assert merger.fleet_stats == {
+            "fleet_total_samples": int(want[2].astype(np.int64).sum()),
+            "fleet_unique_stacks": len(want[0]), "fleet_rounds": 1}
+        merger.merge_round()
+        assert merger.fleet_stats["fleet_unique_stacks"] == 0
+    finally:
+        dist.destroy_process_group()

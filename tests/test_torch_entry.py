@@ -51,7 +51,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "profiler.encode_pipeline", "profiler.cpu",
                 "runtime.trace", "utils.log", "tools.cold_window",
                 "process.maps", "capture.live", "pprof.statics_store",
-                "profiler.streaming"):
+                "profiler.streaming", "parallel", "parallel.mesh",
+                "parallel.fleet", "parallel.distributed", "utils.bounded"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
