@@ -5,6 +5,8 @@
                           [--rh-reference ROW_HASH_CU ...]
                           [--close-reference CLOSE_PACK_CU ...]
                           [--b7-reference SHARDED_FEED_CU]
+                          [--fleet-reference FLEET_MERGE_CU]
+                          [--sketch-reference SKETCH_BUILD_CU]
 
 Needs one CUDA device, nvcc and this checkout; imports nothing of jax or
 of parca_agent_tpu. Phases, each printing one JSON line:
@@ -31,10 +33,13 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                timed with its bound, the device kernels one call enqueues
                (torch.profiler: must be 1) and the wrapper's host cost
                (with the earlier wrapper's per-call extras timed apart).
-               Last, the sketch build kernel B6 at a phase-6 window's 2^16
-               rows against its plain version and the numpy paths, timed,
-               beside the library calls (count-min index_add_, HLL
-               scatter_reduce_ amax) and its bound
+               Last, the sketch build B6 at a phase-6 window's 2^16
+               rows (the shape rule's global kernel) against its plain
+               version and the numpy paths, timed, beside the library
+               calls (count-min index_add_, HLL scatter_reduce_ amax) and
+               its bound; and both B6 kernels, called directly, timed in
+               turns at 2^16 to 2^22 rows (sketch_b6_rows: where the rule
+               hands the stream to the cluster kernel)
   4. main path the port's DictAggregator on the card over the bench's
                window (50,000 pids, 2^20 unique stacks, 5M samples): a cold
                window, then a steady window fed as 10 drains and closed,
@@ -131,18 +136,26 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                card: 8 nodes, each the bench window's 2^20 rows (phase
                4's hashes, counts 1-9 a node) plus 65,536 node-private
                new stacks, a [8, 1,114,112] stream: fleet_merge_sketches
-               (one launch of the sketch build kernel, B6),
-               fleet_merge_exact64 and fleet_merge_exact (torch.sort, then
-               the segment kernel B8), held against numpy's count-min,
-               HLL, int64 total and exact merge; fleet_merge_profiles of 8
-               node windows of 2^17 rows (each node's own pids plus
-               16,384 rows every node holds) against CPUAggregator on
-               concat_snapshots; the process boundary through NCCL at
-               world size 1 (fleet_initialize on a localhost port, the
-               _dist merges against the one-process merges of node 0, two
-               FleetWindowMerger rounds against numpy). B6 and B8 against
-               their plain versions at the stream, timed (the sort apart),
-               with their bounds and library yardsticks.
+               (B6's cluster kernel, the table in a thread-block
+               cluster's shared memory), fleet_merge_exact64 and
+               fleet_merge_exact (B8: the rows partitioned by key and
+               each bucket reduced in shared memory, no sort), held
+               against numpy's count-min, HLL, int64 total and exact
+               merge; fleet_merge_profiles of 8 node windows of 2^17 rows
+               (each node's own pids plus 16,384 rows every node holds)
+               against CPUAggregator on concat_snapshots; the process
+               boundary through NCCL at world size 1 (fleet_initialize on
+               a localhost port; node 0's first 2^18 rows, a node below
+               the cluster kernel's 2^20, so its sketch merge takes B6's
+               global kernel; the _dist merges against the one-process
+               merges of that node, two FleetWindowMerger rounds against
+               numpy). B6 (the cluster kernel at the stream, in turns
+               with the global one; the global kernel at NCCL's node) and
+               B8 against their plain versions, timed (B8 from the
+               unsorted rows), with their bounds and library yardsticks;
+               B8 also on two fleets of the stream's shape that share few
+               stacks (every key distinct; 1/8 of a node's stacks on
+               every node), and at 2^10..2^13 first-level buckets.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -159,7 +172,14 @@ With --b7-reference, a source with the two-stage B7-feed's C interface
 partition, found ids out) is built, its kernel plus the torch miss
 compaction that followed it held against the one-launch kernel at phase
 8's steady drain, on a partition made here for that timing only, and
-timed in turns with it.
+timed in turns with it. With --fleet-reference, a source with the
+segment pass's C interface (pa_fleet_segment, the commits before the
+partition and reduce) is built, and its route (torch.sort of the rows,
+the counts' gather, its kernel) held against fleet_group and timed in
+turns with it at phase 9's stream and on its two low-overlap fleets.
+With --sketch-reference, a source
+with csrc/sketch_build.cu's pa_sketch_build is built, held against the
+cluster kernel and timed in turns with it at phase 9's stream.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
@@ -171,6 +191,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -432,6 +453,30 @@ def device_kernels(fn):
             return [n for n in names if "spin_kernel" not in n], sessions
     raise AssertionError(f"torch.profiler showed no control kernel in "
                          f"{PROFILER_SESSIONS} sessions")
+
+
+def kernel_us(fn, reps: int = 10):
+    """Device microseconds a call of each kernel that fn() launches, the
+    mean over `reps` calls, from torch.profiler's key_averages (None when
+    a session shows no device time: torch.profiler at times drops it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t > 0 and e.count > 0:
+            name = re.search(r"(\w+)\(", e.key)
+            out[name.group(1) if name else e.key] = t / reps
+    return out or None
 
 
 def host_us(fn, reps: int = 200):
@@ -966,36 +1011,90 @@ def phase_close_kernels(dev, close_refs=None) -> None:
 # The count-min and HLL of the dict+cm path (ops/sketch.py's shapes) at a
 # phase-6 window's absorb.
 SKETCH_ROWS = 1 << 16
+# Streams of the default specs at which both B6 kernels are timed (the
+# shape rule's CLUSTER_MIN_ROWS lies among them).
+SKETCH_SWEEP_ROWS = (1 << 16, 1 << 18, 1 << 20, 1 << 21, 1 << 22)
 
 
-def b6_case(dev, h, cnt, live_counts: bool, reps: int = 20) -> dict:
-    """B6, the sketch build kernel (csrc/sketch_build.cu, replacing
+def sketch_direct(lib, kind, ht, ct, cm_spec, hll_spec, live_counts):
+    """One B6 kernel of `lib` called as ops/sketch.py calls it, whatever
+    the shape rule says: "global" (pa_sketch_build, PR 11's C interface)
+    or "cluster" (pa_sketch_build_cluster). Returns (cm, regs, totals);
+    launches are not counted."""
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels, sketch
+
+    dev = ht.device
+    n_nodes = ht.shape[0] if ht.dim() == 2 else 1
+    r = ht.shape[-1]
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    cm = zeros(cm_spec.depth, cm_spec.width)
+    regs, totals = zeros(hll_spec.m), zeros(n_nodes)
+    seeds = tuple(sketch._ROW_SEEDS[:cm_spec.depth]) \
+        + (0,) * (sketch._MAX_DEPTH - cm_spec.depth)
+    mode = 2 if live_counts else 0
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kind == "global":
+        code = lib.pa_sketch_build(
+            ht.data_ptr(), ct.data_ptr(), None, n_nodes, r, mode,
+            cm.data_ptr(), cm_spec.depth, cm_spec.width, *seeds,
+            regs.data_ptr(), hll_spec.p, sketch._HLL_SEED,
+            int(hll_spec.p <= sketch.SHARED_REGS_MAX_P), totals.data_ptr(),
+            stream)
+    else:
+        parts = lib.pa_sketch_cluster_parts(n_nodes, r, cm_spec.depth,
+                                            cm_spec.width, hll_spec.p, 1)
+        if parts < 0:
+            kernels.check_launch(lib, -parts, "sketch_build_cluster")
+        code = lib.pa_sketch_build_cluster(
+            ht.data_ptr(), ct.data_ptr(), None, n_nodes, r, mode,
+            cm.data_ptr(), cm_spec.depth, cm_spec.width, *seeds,
+            regs.data_ptr(), hll_spec.p, sketch._HLL_SEED, totals.data_ptr(),
+            parts, stream)
+    kernels.check_launch(lib, code, f"direct sketch_build ({kind})")
+    return cm, regs, totals
+
+
+def b6_case(dev, h, cnt, live_counts: bool, reps: int = 20, cm_spec=None,
+            ref=None, want=None) -> dict:
+    """B6, the sketch build (csrc/sketch_build.cu, replacing
     parca_agent_tpu/ops/sketch.py cm_build and hll_build) on one stream:
     hashes `h` (u32) and counts `cnt` (int32), [R] or [n_nodes, R], into a
-    count-min table of 4 x 2^18 int32 and 2^12 HLL registers (the default
-    specs), with each node's total; HLL liveness count > 0 when
-    `live_counts` (the fleet's), else every row. The kernel must equal
-    its plain version on the card and the numpy paths (cm_build,
-    hll_build, the int64 totals) word for word. Times the kernel, the
+    count-min table (cm_spec, default 4 x 2^18 int32) and 2^12 HLL
+    registers, with each node's total; HLL liveness count > 0 when
+    `live_counts` (the fleet's), else every row. `kernel` is the shape
+    rule's choice (ops/sketch.py:sketch_kernel_for). The wrapper must
+    equal its plain version on the card and the numpy paths (cm_build,
+    hll_build, the int64 totals) word for word. Times the wrapper, the
     plain version, the library calls given the buckets, registers and
     ranks (index_add_ into the flattened table; scatter_reduce_ "amax"),
     and the bound: hashes and counts read once, each cell and register
-    the rows touch read and written once. Its launches are restored."""
+    the rows touch read and written once. Where the cluster kernel takes
+    the stream: the global kernel (PR 11's) and `ref` (a reference
+    build's, --sketch-reference) held against it and timed in turns with
+    it. `want`: the numpy paths' (cm, registers) when the caller has them.
+    Its launches are restored."""
     import numpy as np
     import torch
 
-    from parca_agent_tpu_torch.ops import sketch
+    from parca_agent_tpu_torch.ops import kernels, sketch
     from parca_agent_tpu_torch.ops.hashing import mix32
 
     saved = dict(sketch.LAUNCHES)
-    cm_spec, hll_spec = sketch.CountMinSpec(), sketch.HLLSpec()
+    cm_spec = cm_spec or sketch.CountMinSpec()
+    hll_spec = sketch.HLLSpec()
+    kind = sketch.sketch_kernel_for(h.size, cm_spec, hll_spec)
     fh, fc = h.ravel(), cnt.ravel()
     live = fc > 0 if live_counts else np.ones(len(fh), bool)
     ht = torch.from_numpy(np.ascontiguousarray(h).view(np.int32)).to(dev)
     ct = torch.from_numpy(np.ascontiguousarray(cnt)).to(dev)
     arg = "counts" if live_counts else None
-    want_cm = sketch.cm_build(fh, fc, cm_spec)
-    want_hll = sketch.hll_build(fh, hll_spec, live=live)
+    want_cm, want_hll = want or (sketch.cm_build(fh, fc, cm_spec),
+                                 sketch.hll_build(fh, hll_spec, live=live))
     want_tot = cnt.reshape(-1, cnt.shape[-1]).astype(np.int64).sum(axis=1)
     got = [x.cpu().numpy() for x in sketch.sketch_build(ht, ct, cm_spec,
                                                         hll_spec, arg)]
@@ -1028,7 +1127,7 @@ def b6_case(dev, h, cnt, live_counts: bool, reps: int = 20) -> dict:
                         device=dev)
     hll = torch.zeros(hll_spec.m, dtype=torch.int32, device=dev)
     out = {
-        "rows": int(len(fh)), "shape": list(h.shape),
+        "rows": int(len(fh)), "shape": list(h.shape), "kernel": kind,
         "cm": [cm_spec.depth, cm_spec.width], "hll_p": hll_spec.p,
         "live": "count > 0" if live_counts else "every row",
         "ms": time_ms(lambda: sketch.sketch_build(ht, ct, cm_spec, hll_spec,
@@ -1042,6 +1141,25 @@ def b6_case(dev, h, cnt, live_counts: bool, reps: int = 20) -> dict:
                 0, reg_t, rank_t, "amax"), reps)},
         "touched_cells": int(len(np.unique(cells))),
         "touched_registers": int(len(np.unique(reg)))}
+    if kind == "cluster":
+        lib = kernels.load("sketch_build")
+        out["parts"] = lib.pa_sketch_cluster_parts(
+            *((h.shape[0], h.shape[1]) if h.ndim == 2 else (1, h.shape[0])),
+            cm_spec.depth, cm_spec.width, hll_spec.p, 1)
+        impls = {
+            "cluster": lambda: sketch.sketch_build(ht, ct, cm_spec, hll_spec,
+                                                   arg),
+            "global": lambda: sketch_direct(lib, "global", ht, ct, cm_spec,
+                                            hll_spec, live_counts)}
+        if ref is not None:
+            impls["reference"] = lambda: sketch_direct(
+                ref, "global", ht, ct, cm_spec, hll_spec, live_counts)
+        for name, fn in impls.items():
+            if not all(np.array_equal(x.cpu().numpy(), w) for x, w in
+                       zip(fn(), (want_cm, want_hll, want_tot))):
+                raise AssertionError(f"B6: {name} differs from the numpy "
+                                     "paths")
+        out["turns_ms"] = time_turns(impls, reps)
     out["library_ms"] = sum(out["library_calls_ms"].values())
     nbytes = 8 * len(fh) + 8 * (out["touched_cells"]
                                 + out["touched_registers"])
@@ -1058,14 +1176,38 @@ def sketch_library(dev) -> None:
     """B6 at a phase-6 window's absorb: SKETCH_ROWS rows of random hashes
     and counts into the dict+cm path's sketch shapes (the port absorbs
     on the host; this is the yardstick of the kernel's row in PERF.md at
-    that shape)."""
+    that shape); then both B6 kernels, called directly and held against
+    the numpy paths, timed in turns at SKETCH_SWEEP_ROWS rows (where the
+    shape rule's CLUSTER_MIN_ROWS comes from)."""
     import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels, sketch
 
     rng = np.random.default_rng(6)
-    h = rng.integers(0, 1 << 32, SKETCH_ROWS, dtype=np.uint64).astype(
-        np.uint32)
-    cnt = rng.integers(1, 16, SKETCH_ROWS).astype(np.int32)
-    emit("sketch_b6", **b6_case(dev, h, cnt, live_counts=False, reps=50))
+    h = rng.integers(0, 1 << 32, SKETCH_SWEEP_ROWS[-1], dtype=np.uint64
+                     ).astype(np.uint32)
+    cnt = rng.integers(1, 16, len(h)).astype(np.int32)
+    emit("sketch_b6", **b6_case(dev, h[:SKETCH_ROWS], cnt[:SKETCH_ROWS],
+                                live_counts=False, reps=50))
+    lib = kernels.load("sketch_build")
+    spec, hll = sketch.CountMinSpec(), sketch.HLLSpec()
+    sweep = {}
+    for rows in SKETCH_SWEEP_ROWS:
+        ht = torch.from_numpy(h[:rows].view(np.int32)).to(dev)
+        ct = torch.from_numpy(cnt[:rows]).to(dev)
+        want = sketch.sketch_build_plain(ht, ct, spec, hll)
+        impls = {k: (lambda k=k: sketch_direct(lib, k, ht, ct, spec, hll,
+                                               False))
+                 for k in ("global", "cluster")}
+        for k, fn in impls.items():
+            if not all(torch.equal(x, w) for x, w in zip(fn(), want)):
+                raise AssertionError(f"B6: the {k} kernel differs from the "
+                                     f"plain version at {rows} rows")
+        sweep[rows] = {"rule": sketch.sketch_kernel_for(rows, spec, hll),
+                       **time_turns(impls, 50)}
+    emit("sketch_b6_rows", cluster_min_rows=sketch.CLUSTER_MIN_ROWS,
+         ms_turns=sweep)
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -3103,6 +3245,11 @@ def phase_sharded(dev, snap, want, hashes, b7_ref=None) -> tuple:
 
 FLEET_NODES = 8
 FLEET_FRESH = 65_536          # node-private new stacks a node
+FLEET_DIST_ROWS = 1 << 18     # node 0's rows through NCCL: a smaller node,
+                              # below CLUSTER_MIN_ROWS (B6's global kernel)
+FLEET_LOW_SHARED = 8          # a low-overlap fleet: 1/8 of a node's stacks
+                              # are held by every node
+B8_SWEEP_BITS = (10, 11, 12, 13)
 FLEET_PROFILE_ROWS = 1 << 17  # rows a node in the profiles' merge
 FLEET_SHARED = 16_384         # of them, rows every node holds
 
@@ -3152,16 +3299,167 @@ def exact_oracle(h1, h2, c):
             uniq.astype(np.uint32), sums)
 
 
-def b8_case(dev, h1, h2, c, reps: int = 20) -> dict:
-    """B8's segment pass (csrc/fleet_merge.cu, replacing the step after
-    the sort of parca_agent_tpu/parallel/fleet.py _exact_program64) at the
-    stream: the sort (torch.sort of keys64 and the counts' gather) and the
-    segment kernel timed apart; the kernel's [:n_groups] (reps, sums,
-    n_groups) equal to its plain version's on the same sorted rows and to
-    numpy's exact merge; the library yardstick, torch.unique(keys,
-    return_inverse=True) then index_add_ (two calls, the sort included);
-    the bound: 12 B a row read, 12 B a group written. Its launches are
-    restored."""
+def load_fleet_reference(path: str):
+    """PR 11's exact merge of a reference build of csrc/fleet_merge.cu
+    (its C interface: pa_fleet_segment over rows sorted by key): returns
+    route(keys, counts) -> (reps_hi, reps_lo, sums, n_groups), torch.sort
+    of the rows and the counts' gather, then its segment kernel, as
+    parallel/fleet.py ran them. Launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from parca_agent_tpu_torch.ops import kernels
+
+    lib = load_reference("fleet_merge", path)
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.pa_fleet_segment_scratch_words.argtypes = [i64]
+    lib.pa_fleet_segment_scratch_words.restype = i64
+    lib.pa_fleet_segment.argtypes = [ptr, ptr, i64] + [ptr] * 6
+    lib.pa_fleet_segment.restype = ctypes.c_int
+    scratch = {}
+
+    def route(keys, counts):
+        dev = keys.device
+        n = keys.numel()
+        ks, order = torch.sort(keys)
+        cs = counts[order]
+        words = lib.pa_fleet_segment_scratch_words(n)
+        if scratch.get("buf") is None or scratch["buf"].numel() < words:
+            scratch["buf"] = torch.zeros(words, dtype=torch.int64, device=dev)
+        hi, lo, sums, ng = (torch.empty(m, dtype=torch.int32, device=dev)
+                            for m in (n, n, n, 1))
+        kernels.check_launch(lib, lib.pa_fleet_segment(
+            ks.data_ptr(), cs.data_ptr(), n, scratch["buf"].data_ptr(),
+            hi.data_ptr(), lo.data_ptr(), sums.data_ptr(), ng.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream),
+            "reference fleet_segment")
+        return hi, lo, sums, ng
+
+    return route
+
+
+def group_by_bits(keys, ct, reps: int) -> dict:
+    """fleet_group_launch's first level and reduce at each of
+    B8_SWEEP_BITS bucket bits: {bits: {"ms", "overflowed"}} (a time with
+    leaves that overflowed leaves the split's work out)."""
+    from parca_agent_tpu_torch.parallel import fleet
+
+    out = {}
+    for b in B8_SWEEP_BITS:
+        g = fleet.fleet_group_launch(keys, ct, True, bits=b)
+        out[b] = {"overflowed": int(g.info[1].item()),
+                  "ms": time_ms(lambda: fleet.fleet_group_launch(
+                      keys, ct, True, bits=b), reps)}
+    return out
+
+
+def b8_traffic_streams(shape, seed: int = 12) -> dict:
+    """Two fleets of `shape` [n_nodes, R] whose nodes share few stacks,
+    as nodes running different services do: "unique", every row its own
+    64-bit key (no stack on two nodes), and "low_overlap", each node's
+    rows distinct, the first R / FLEET_LOW_SHARED of them stacks every
+    node holds and the rest its own. Counts 1-9. name -> (h1, h2, c)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**64, shape, dtype=np.uint64)
+    c = rng.integers(1, 10, shape).astype(np.int32)
+    low = keys.copy()
+    low[:, :shape[1] // FLEET_LOW_SHARED] = keys[0, :shape[1]
+                                                 // FLEET_LOW_SHARED]
+    return {name: ((k >> np.uint64(32)).astype(np.uint32),
+                   k.astype(np.uint32), c)
+            for name, k in (("unique", keys), ("low_overlap", low))}
+
+
+def b8_traffic(dev, streams: dict, reps: int = 20, ref=None) -> dict:
+    """B8 on fleets that share few stacks (b8_traffic_streams): per
+    stream, fleet_group held against its plain version and numpy's exact
+    merge, `overflowed` (the first level's leaves that did not fit),
+    `ms` (the first level and its reduce, queued back to back), `call_ms`
+    (fleet_group with its sync, the split included), `split_launches`,
+    the sweep of the first level's bits (group_by_bits), and with `ref`
+    (--fleet-reference) PR 11's route held against it and timed in turns
+    with it (the first level's launches against the route, queued, when
+    nothing overflowed). Its launches are restored."""
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.parallel import fleet
+
+    saved = dict(fleet.LAUNCHES)
+    out = {}
+    for name, (h1, h2, c) in streams.items():
+        h1t, h2t = (torch.from_numpy(x.view(np.int32)).to(dev)
+                    for x in (h1, h2))
+        ct = torch.from_numpy(c).to(dev).reshape(-1)
+        keys = fleet.keys64(h1t, h2t)
+        before = fleet.LAUNCHES["fleet_group_split"]
+        got = fleet.fleet_group(keys, ct, True)
+        split = fleet.LAUNCHES["fleet_group_split"] - before
+        k = int(got[3].item())
+        plain = fleet.fleet_group_plain(keys, ct, True)
+        o1, o2, osum = exact_oracle(h1, h2, c)
+        if not (k == int(plain[3].item()) == len(o1)
+                and all(torch.equal(g[:k], p_[:k])
+                        for g, p_ in zip(got[:3], plain[:3]))
+                and np.array_equal(got[1][:k].cpu().numpy().view(np.uint32),
+                                   o2)
+                and np.array_equal(got[2][:k].cpu().numpy(), osum)):
+            raise AssertionError(f"B8 ({name}): fleet_group differs from "
+                                 "its plain version or numpy's exact merge")
+        n = keys.numel()
+        row = {"rows": n, "n_groups": k, "bits": fleet.group_bits(n),
+               "overflowed": int(fleet.fleet_group_launch(
+                   keys, ct, True).info[1].item()),
+               "split_launches": split,
+               "ms": time_ms(lambda: fleet.fleet_group_launch(keys, ct, True),
+                             reps),
+               "call_ms": time_ms(lambda: fleet.fleet_group(keys, ct, True),
+                                  reps, flush=lambda: None),
+               "by_bits": group_by_bits(keys, ct, reps)}
+        if ref is not None:
+            r = ref(keys, ct)
+            if not (int(r[3].item()) == k
+                    and all(torch.equal(a[:k], b[:k])
+                            for a, b in zip(r[:3], got[:3]))):
+                raise AssertionError(f"B8 ({name}): the reference route "
+                                     "differs")
+            # Queued back to back when the first level is the whole
+            # route; else each call (with its sync) between its own events.
+            fits = row["overflowed"] == 0
+            row["turns_ms"] = time_turns(
+                {"fleet_group": (lambda: fleet.fleet_group_launch(
+                    keys, ct, True)) if fits
+                    else lambda: fleet.fleet_group(keys, ct, True),
+                 "reference": lambda: ref(keys, ct)}, reps,
+                None if fits else lambda: None)
+        row["bytes"] = 12 * n + 12 * k
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], 2 * n)
+        out[name] = row
+    fleet.LAUNCHES.update(saved)
+    return out
+
+
+def b8_case(dev, h1, h2, c, reps: int = 20, ref=None, oracle=None) -> dict:
+    """B8, the exact merge's grouping (csrc/fleet_merge.cu, replacing
+    parca_agent_tpu/parallel/fleet.py _exact_program64) at the stream,
+    from its unsorted rows (keys64, the counts): fleet_group's [:n_groups]
+    (reps, sums, n_groups) equal to its plain version's (torch.sort, then
+    the segment ops) and to numpy's exact merge; `ms` is the partition
+    and the reduce (fleet_group_launch, three launches, queued back to
+    back), `kernel_us` each of them (torch.profiler), `call_ms`
+    fleet_group with its one host sync (each call between its own events);
+    `overflowed` the first level's leaves that did not
+    fit (0 on these hash keys), `by_bits` the sweep of the first level's
+    bucket bits (group_by_bits); the library yardstick,
+    torch.unique(keys, return_inverse=True) then index_add_ (two calls,
+    the sort included); the bound: 12 B a row read, 12 B a group written.
+    With `ref` (--fleet-reference), PR 11's route (torch.sort, the
+    counts' gather and its segment kernel) held against it and timed in
+    turns with it. `oracle`: exact_oracle(h1, h2, c) when the caller has
+    it. Its launches are restored."""
     import numpy as np
     import torch
 
@@ -3171,25 +3469,24 @@ def b8_case(dev, h1, h2, c, reps: int = 20) -> dict:
     h1t, h2t = (torch.from_numpy(x.view(np.int32)).to(dev) for x in (h1, h2))
     ct = torch.from_numpy(c).to(dev).reshape(-1)
     keys = fleet.keys64(h1t, h2t)
-    ks, cs = fleet.sort_rows(keys, ct)
-    hi, lo, sums, ng = fleet.fleet_segment(ks, cs, True)
+    hi, lo, sums, ng = fleet.fleet_group(keys, ct, True)
     k = int(ng.item())
-    plain = fleet.fleet_segment_plain(ks, cs, True)
+    plain = fleet.fleet_group_plain(keys, ct, True)
     if int(plain[3].item()) != k:
         raise AssertionError(f"B8: n_groups {k} != the plain version's "
                              f"{int(plain[3].item())}")
     for name, g, p_ in (("reps_hi", hi, plain[0]), ("reps_lo", lo, plain[1]),
                         ("sums", sums, plain[2])):
         if not torch.equal(g[:k], p_[:k]):
-            raise AssertionError(f"B8: the kernel's {name} differ from the "
+            raise AssertionError(f"B8: the kernels' {name} differ from the "
                                  "plain version's")
-    o1, o2, osum = exact_oracle(h1, h2, c)
+    o1, o2, osum = oracle or exact_oracle(h1, h2, c)
     if not (k == len(o1)
             and np.array_equal(hi[:k].cpu().numpy().view(np.uint32), o1)
             and np.array_equal(lo[:k].cpu().numpy().view(np.uint32), o2)
             and np.array_equal(sums[:k].cpu().numpy(), osum)):
-        raise AssertionError("B8: the segment pass differs from numpy's "
-                             "exact merge")
+        raise AssertionError("B8: fleet_group differs from numpy's exact "
+                             "merge")
 
     def library():
         u, inv = torch.unique(keys, return_inverse=True)
@@ -3198,15 +3495,31 @@ def b8_case(dev, h1, h2, c, reps: int = 20) -> dict:
 
     if not np.array_equal(library().cpu().numpy(), osum):
         raise AssertionError("B8: the library yardstick differs")
+    launch = fleet.fleet_group_launch(keys, ct, True)
     n = keys.numel()
-    out = {"rows": n, "n_groups": k,
-           "sort_ms": time_ms(lambda: fleet.sort_rows(keys, ct), reps),
-           "ms": time_ms(lambda: fleet.fleet_segment(ks, cs, True), reps),
-           "plain_ms": time_ms(lambda: fleet.fleet_segment_plain(
-               ks, cs, True), 3),
+    out = {"rows": n, "n_groups": k, "bits": fleet.group_bits(n),
+           "overflowed": int(launch.info[1].item()),
+           "ms": time_ms(lambda: fleet.fleet_group_launch(keys, ct, True),
+                         reps),
+           "kernel_us": kernel_us(
+               lambda: fleet.fleet_group_launch(keys, ct, True)),
+           "call_ms": time_ms(lambda: fleet.fleet_group(keys, ct, True),
+                              reps, flush=lambda: None),
+           "plain_ms": time_ms(lambda: fleet.fleet_group_plain(
+               keys, ct, True), 3),
            "library_ms": time_ms(library, 5),
            "library_calls": "torch.unique(keys, return_inverse=True) + "
-                            "index_add_ (two calls, the sort included)"}
+                            "index_add_ (two calls, the sort included)",
+           "by_bits": group_by_bits(keys, ct, reps)}
+    if ref is not None:
+        r_hi, r_lo, r_sums, r_ng = ref(keys, ct)
+        if not (int(r_ng.item()) == k and torch.equal(r_hi[:k], hi[:k])
+                and torch.equal(r_lo[:k], lo[:k])
+                and torch.equal(r_sums[:k], sums[:k])):
+            raise AssertionError("B8: the reference route differs")
+        out["turns_ms"] = time_turns(
+            {"fleet_group": lambda: fleet.fleet_group_launch(keys, ct, True),
+             "reference": lambda: ref(keys, ct)}, reps)
     out["bytes"] = 12 * n + 12 * k
     out["bound_ms"], out["bound_by"] = bound(out["bytes"], 2 * n)
     fleet.LAUNCHES.update(saved)
@@ -3300,20 +3613,26 @@ def fleet_dist(dev, h1, h2, c) -> dict:
     return out
 
 
-def phase_fleet(dev, snap, hashes) -> tuple:
+def phase_fleet(dev, snap, hashes, sketch_ref=None, fleet_ref=None) -> tuple:
     """The fleet merge's path on `dev`: the 8-node stream (fleet_stream)
-    through fleet_merge_sketches, fleet_merge_exact64 and
-    fleet_merge_exact, the profiles' merge of 8 smaller node windows
-    (fleet_merge_profiles), and the process boundary through NCCL
-    (fleet_dist), with the launches counted from 0 over them; then the
-    checks: the sketches against numpy's (the int64 total), the exact
-    merges against numpy's exact merge, the profiles against the concat
-    oracle (every pid's mass and order from concat_snapshots, every 64th
-    pid's sorted stack counts from CPUAggregator on its rows), NCCL's
-    merges against the one-process merges of node 0 alone and the
-    merger's rounds against numpy; then both kernels against their plain versions, timed, with
-    their bounds (B6 at the stream, B8 at the stream). Returns the kernel
-    rows and the path's launches."""
+    through fleet_merge_sketches (the default spec: B6's cluster kernel),
+    fleet_merge_exact64 and fleet_merge_exact (B8), the profiles' merge
+    of 8 smaller node windows (fleet_merge_profiles), and the process
+    boundary through NCCL (fleet_dist) with node 0's first
+    FLEET_DIST_ROWS rows, a node below CLUSTER_MIN_ROWS (its sketch
+    merge takes B6's global kernel), with the launches counted from 0
+    over them; then the checks: the sketches against
+    numpy's (the int64 total), the exact merges against numpy's exact
+    merge, the profiles against the concat oracle (every pid's mass and
+    order from concat_snapshots, every 64th pid's sorted stack counts from
+    CPUAggregator on its rows), NCCL's merges against the one-process
+    merges of node 0 alone and the merger's rounds against numpy; then
+    the kernels against their plain versions at the stream, timed, with
+    their bounds (b6_case at the stream and at NCCL's node, b8_case),
+    B8 on fleets that share few stacks (b8_traffic), and the reference
+    builds in turns with them. Returns the kernel rows and the path's
+    launches (fleet_group_split is 0 on these hash keys: nothing
+    splits)."""
     import numpy as np
 
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
@@ -3348,18 +3667,18 @@ def phase_fleet(dev, snap, hashes) -> tuple:
     profiles, merged = fleet.fleet_merge_profiles(
         windows, aggregator=CPUAggregator(), device=dev)
     ms["profiles"] = (time.perf_counter() - t0) * 1e3
-    dist_out = fleet_dist(dev, h1, h2, c)
-    launches = {"sketch_build": sketch.LAUNCHES["sketch_build"],
-                "fleet_segment": fleet.LAUNCHES["fleet_segment"]}
+    d1, d2, dc = (x[:1, :FLEET_DIST_ROWS] for x in (h1, h2, c))
+    dist_out = fleet_dist(dev, d1, d2, dc)
+    launches = {**sketch.LAUNCHES, **fleet.LAUNCHES}
 
     # The checks.
     spec = fleet.FleetMergeSpec()
-    if got_total != total or not (
-            np.array_equal(cm, sketch.cm_build(h1.ravel(), c.ravel(),
-                                               spec.cm))
-            and np.array_equal(regs, sketch.hll_build(
-                h1.ravel(), spec.hll, live=c.ravel() > 0))):
-        raise AssertionError("fleet: the merged sketches differ from numpy's")
+    want_regs = sketch.hll_build(h1.ravel(), spec.hll, live=c.ravel() > 0)
+    want_cm = sketch.cm_build(h1.ravel(), c.ravel(), spec.cm)
+    if got_total != total or not (np.array_equal(cm, want_cm)
+                                  and np.array_equal(regs, want_regs)):
+        raise AssertionError("fleet: the merged sketches differ from "
+                             "numpy's")
     o1, o2, osum = exact_oracle(h1, h2, c)
     if not (np.array_equal(u1, o1) and np.array_equal(u2, o2)
             and np.array_equal(uc, osum)):
@@ -3391,18 +3710,18 @@ def phase_fleet(dev, snap, hashes) -> tuple:
             raise AssertionError(f"fleet: pid {p.pid} stack counts")
     if len(want) != len(sample):
         raise AssertionError("fleet: the oracle's sample lost pids")
-    one = fleet.fleet_merge_sketches(h1[:1], c[:1], device=dev)
+    one = fleet.fleet_merge_sketches(d1, dc, device=dev)
     d_cm, d_regs, d_total = dist_out["sketches"]
     if not (np.array_equal(d_cm, one[0]) and np.array_equal(d_regs, one[1])
             and d_total == one[2] == dist_out["node0_total"]):
         raise AssertionError("fleet: NCCL's sketch merge differs from the "
                              "one-process merge")
-    one = fleet.fleet_merge_exact64(h1[:1], h2[:1], c[:1], device=dev)
+    one = fleet.fleet_merge_exact64(d1, d2, dc, device=dev)
     if not all(np.array_equal(a, b)
                for a, b in zip(dist_out["exact64"], one)):
         raise AssertionError("fleet: NCCL's exact merge differs from the "
                              "one-process merge")
-    n1, _, _ = exact_oracle(h1[:1], h2[:1], c[:1])
+    n1, _, _ = exact_oracle(d1, d2, dc)
     want_rounds = [{"fleet_total_samples": dist_out["node0_total"],
                     "fleet_unique_stacks": len(n1), "fleet_rounds": 1},
                    {"fleet_total_samples": 0, "fleet_unique_stacks": 0,
@@ -3411,11 +3730,17 @@ def phase_fleet(dev, snap, hashes) -> tuple:
         raise AssertionError(f"fleet: the merger's rounds "
                              f"{dist_out['rounds']} != {want_rounds}")
     for name, n in launches.items():
-        if n < 1:
+        if n < 1 and name != "fleet_group_split":
             raise AssertionError(f"fleet: {name} never launched")
 
-    b6 = b6_case(dev, h1, c, live_counts=True)
-    b8 = b8_case(dev, h1, h2, c)
+    b6 = b6_case(dev, h1, c, live_counts=True, ref=sketch_ref,
+                 want=(want_cm, want_regs))
+    b6n = b6_case(dev, d1, dc, live_counts=True, ref=sketch_ref)
+    if (b6["kernel"], b6n["kernel"]) != ("cluster", "global"):
+        raise AssertionError(f"fleet: the shape rule took {b6['kernel']} at "
+                             f"the stream and {b6n['kernel']} at NCCL's node")
+    b8 = b8_case(dev, h1, h2, c, ref=fleet_ref, oracle=(o1, o2, osum))
+    traffic = b8_traffic(dev, b8_traffic_streams(h1.shape), ref=fleet_ref)
     emit("fleet_path", nodes=FLEET_NODES, stream=list(h1.shape),
          total=total, n_groups=len(o1), n_groups_32=len(p1),
          merged_rows=len(merged), profiles=len(profiles),
@@ -3423,23 +3748,22 @@ def phase_fleet(dev, snap, hashes) -> tuple:
          setup_s=setup_s, oracle_s=oracle_s, launches=launches,
          nccl={k: v for k, v in dist_out.items()
                if k not in ("sketches", "exact64")},
-         sketch_build=b6, fleet_segment=b8)
+         sketch_build_cluster=b6, sketch_build=b6n, fleet_group=b8,
+         fleet_group_traffic=traffic)
     source = "parca_agent_tpu_torch/csrc/"
-    rows = {
-        "sketch_build": {
-            "name": "sketch_build", "route": "cuda",
-            "source": source + "sketch_build.cu",
-            "replaces": "parca_agent_tpu/ops/sketch.py:79",
-            "max_abs_err": 0, "ms": b6["ms"], "plain_ms": b6["plain_ms"],
-            "bound_ms": b6["bound_ms"], "bound_by": b6["bound_by"],
-            "library_ms": b6["library_ms"]},
-        "fleet_segment": {
-            "name": "fleet_segment", "route": "cuda",
-            "source": source + "fleet_merge.cu",
-            "replaces": "parca_agent_tpu/parallel/fleet.py:164",
-            "max_abs_err": 0, "ms": b8["ms"], "plain_ms": b8["plain_ms"],
-            "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
-            "library_ms": b8["library_ms"]}}
+    rows = {}
+    for name, case, src, replaces in (
+            ("sketch_build_cluster", b6, "sketch_build.cu",
+             "parca_agent_tpu/ops/sketch.py:79"),
+            ("sketch_build", b6n, "sketch_build.cu",
+             "parca_agent_tpu/ops/sketch.py:79"),
+            ("fleet_group", b8, "fleet_merge.cu",
+             "parca_agent_tpu/parallel/fleet.py:164")):
+        rows[name] = {
+            "name": name, "route": "cuda", "source": source + src,
+            "replaces": replaces, "max_abs_err": 0, "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
     return rows, launches
 
 
@@ -3464,6 +3788,15 @@ def main() -> int:
                          "(a kernel over a host partition), built, held "
                          "against the one-launch feed and timed in turns "
                          "with it at phase 8's steady drain")
+    ap.add_argument("--fleet-reference", metavar="FLEET_MERGE_CU",
+                    help="a source with the segment pass's C interface "
+                         "(pa_fleet_segment over rows sorted by torch.sort), "
+                         "built, held against fleet_group and timed in "
+                         "turns with it at phase 9's stream")
+    ap.add_argument("--sketch-reference", metavar="SKETCH_BUILD_CU",
+                    help="a source with csrc/sketch_build.cu's pa_sketch_build, "
+                         "built, held against the cluster kernel and timed "
+                         "in turns with it at phase 9's stream")
     opts = ap.parse_args()
     try:
         import torch
@@ -3530,6 +3863,13 @@ def main() -> int:
     if opts.b7_reference:
         b7_ref = load_b7_reference(opts.b7_reference)
         emit("b7_reference", source=opts.b7_reference)
+    fleet_ref = sketch_ref = None
+    if opts.fleet_reference:
+        fleet_ref = load_fleet_reference(opts.fleet_reference)
+        emit("fleet_reference", source=opts.fleet_reference)
+    if opts.sketch_reference:
+        sketch_ref = load_reference("sketch_build", opts.sketch_reference)
+        emit("sketch_reference", source=opts.sketch_reference)
     phases_s = {"identity_and_build": time.perf_counter() - t_start}
 
     def timed(name, fn, *a):
@@ -3553,7 +3893,7 @@ def main() -> int:
                                            snap, want, hashes, b7_ref)
     rows.update(sharded_rows)
     fleet_rows, launches_fleet = timed("fleet", phase_fleet, dev, snap,
-                                       hashes)
+                                       hashes, sketch_ref, fleet_ref)
     rows.update(fleet_rows)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the

@@ -72,12 +72,25 @@ SIGNATURES = {
         "pa_sketch_build": ([_P, _P, _P, _I64, _I64, _I64, _P, _I64, _I64,
                              *[_U32] * 8, _P, _I64, _U32, _I64, _P, _P],
                             ctypes.c_int),
+        "pa_sketch_cluster_parts": ([_I64] * 6, ctypes.c_int64),
+        "pa_sketch_build_cluster": ([_P, _P, _P, _I64, _I64, _I64, _P, _I64,
+                                     _I64, *[_U32] * 8, _P, _I64, _U32, _P,
+                                     _I64, _P], ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
     "fleet_merge": {
-        "pa_fleet_segment_scratch_words": ([_I64], ctypes.c_int64),
-        "pa_fleet_segment": ([_P, _P, _I64, _P, _P, _P, _P, _P, _P],
+        "pa_fleet_group_tile": ([], ctypes.c_int64),
+        "pa_fleet_group_leaf_rows": ([], ctypes.c_int64),
+        "pa_fleet_group_scratch_words": ([_I64], ctypes.c_int64),
+        "pa_fleet_group": ([_P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P], ctypes.c_int),
+        "pa_fleet_minmax": ([_P, _P, _P, _I64, _P, _P, _P, _P],
+                            ctypes.c_int),
+        "pa_fleet_hist": ([_P, _P, _P, _I64, _P, _P], ctypes.c_int),
+        "pa_fleet_scatter": ([_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P],
                              ctypes.c_int),
+        "pa_fleet_reduce": ([_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P], ctypes.c_int),
         "pa_cuda_error_string": _ERR,
     },
 }

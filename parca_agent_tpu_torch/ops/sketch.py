@@ -12,8 +12,9 @@ bucket.
 numpy arrays take the numpy paths, bit for bit as parca_agent_tpu's.
 torch tensors (u32 hashes carried as int32 bits, the port's device
 convention) give the values of parca_agent_tpu's jnp paths: on a CUDA
-tensor cm_build and hll_build launch the sketch build kernel (B6,
-csrc/sketch_build.cu; a failed build or launch raises), on a CPU tensor
+tensor cm_build and hll_build launch a sketch build kernel (B6,
+csrc/sketch_build.cu: the cluster kernel or the global one, chosen by
+shape in sketch_build; a failed build or launch raises), on a CPU tensor
 they run its plain torch versions. sketch_build is the fused entry the
 fleet merge calls (parallel/fleet.py): the count-min table, the HLL
 registers and each node's total of an [n_nodes, R] stream in one launch.
@@ -44,9 +45,19 @@ _HLL_SEED = 0x5BD1E995
 # (2^13 int32 = 32 KB); past it they take global atomics.
 SHARED_REGS_MAX_P = 13
 
-# Kernel launches: the wrapper adds one where it launches the sketch
-# build kernel and nowhere else (the plain versions count nothing).
-LAUNCHES = {"sketch_build": 0}
+# The cluster kernel's shape rule (sketch_kernel_for): a CTA holds an eighth
+# of a depth row, the HLL registers and its rounds' boxes (CLUSTER_BOXES)
+# in at most CLUSTER_SMEM of shared memory, and the stream has at least
+# CLUSTER_MIN_ROWS rows: below that the global kernel is the faster
+# (chip_smoke.py's sketch_b6_rows line times both from 2^16 to 2^22 rows).
+CLUSTER_SMEM = 227 * 1024
+CLUSTER_BOXES = 80 * 1024
+CLUSTER_MIN_ROWS = 1 << 20
+
+# Kernel launches: the wrapper adds one where it launches a sketch build
+# kernel (the global one, "sketch_build", or the cluster one) and nowhere
+# else (the plain versions count nothing).
+LAUNCHES = {"sketch_build": 0, "sketch_build_cluster": 0}
 
 
 def reset_launches() -> None:
@@ -263,6 +274,25 @@ def sketch_build_plain(hashes: torch.Tensor, counts, cm_spec, hll_spec,
     return cm, regs, totals
 
 
+def sketch_kernel_for(n_rows: int, cm_spec, hll_spec) -> str:
+    """The kernel sketch_build launches for a CUDA stream of n_rows rows:
+    "cluster" when the call builds a table, its HLL registers (if any) sit
+    in shared memory (p <= SHARED_REGS_MAX_P), an eighth of a depth row,
+    the registers and the kernel's boxes fit one CTA's shared memory
+    (width <= 2^18 at p <= 12) and n_rows >= CLUSTER_MIN_ROWS; "global"
+    otherwise (wider tables, HLL-only calls, small streams). A choice by
+    shape: each kernel raises on its own failures."""
+    if cm_spec is None or cm_spec.width < 8 or n_rows < CLUSTER_MIN_ROWS:
+        return "global"
+    regs = 0
+    if hll_spec is not None:
+        if hll_spec.p > SHARED_REGS_MAX_P:
+            return "global"
+        regs = 4 << hll_spec.p
+    return "cluster" if cm_spec.width // 2 + regs + CLUSTER_BOXES \
+        <= CLUSTER_SMEM else "global"
+
+
 def sketch_build(hashes: torch.Tensor, counts, cm_spec, hll_spec,
                  live=None):
     """The count-min table, the HLL registers and each node's total of
@@ -277,11 +307,13 @@ def sketch_build(hashes: torch.Tensor, counts, cm_spec, hll_spec,
     count-min table takes every row's count (a zero adds nothing), the
     totals are int32 sums that wrap, as the JAX programs' int32 sums.
 
-    CUDA tensors: one launch of csrc/sketch_build.cu (its HLL registers
-    in shared memory up to p = SHARED_REGS_MAX_P, global atomics past
-    it); a failed build or launch raises. CPU tensors run
-    sketch_build_plain. Integer sums and maxima are exact in any order,
-    so both give the same words."""
+    CUDA tensors: csrc/sketch_build.cu, by shape (sketch_kernel_for):
+    the cluster kernel (the table in a thread-block cluster's distributed
+    shared memory, each row's add routed to its owning CTA) or the global
+    kernel (its HLL registers in shared memory up to p =
+    SHARED_REGS_MAX_P, global atomics past it); a failed build or launch
+    raises. CPU tensors run sketch_build_plain. Integer sums and maxima
+    are exact in any order, so all give the same words."""
     _check_stream(hashes, counts, cm_spec, hll_spec, live)
     dev = hashes.device
     if dev.type == "cpu":
@@ -313,8 +345,22 @@ def sketch_build(hashes: torch.Tensor, counts, cm_spec, hll_spec,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    live_ptr = ptr(live) if mode == 1 else None
+    if sketch_kernel_for(n_nodes * r, cm_spec, hll_spec) == "cluster":
+        p = hll_spec.p if hll_spec else 0
+        n_parts = lib.pa_sketch_cluster_parts(
+            n_nodes, r, cm_spec.depth, cm_spec.width, p, int(regs is not None))
+        if n_parts < 0:
+            kernels.check_launch(lib, -n_parts, "sketch_build_cluster")
+        code = lib.pa_sketch_build_cluster(
+            hashes.data_ptr(), counts.data_ptr(), live_ptr, n_nodes, r, mode,
+            cm.data_ptr(), cm_spec.depth, cm_spec.width, *seeds, ptr(regs),
+            p, _HLL_SEED, ptr(totals), n_parts, stream.cuda_stream)
+        kernels.check_launch(lib, code, "sketch_build_cluster")
+        LAUNCHES["sketch_build_cluster"] += 1
+        return cm, regs, totals
     code = lib.pa_sketch_build(
-        hashes.data_ptr(), ptr(counts), ptr(live) if mode == 1 else None,
+        hashes.data_ptr(), ptr(counts), live_ptr,
         n_nodes, r, mode, ptr(cm), cm_spec.depth if cm_spec else 0,
         cm_spec.width if cm_spec else 0, *seeds, ptr(regs),
         hll_spec.p if hll_spec else 0, _HLL_SEED,

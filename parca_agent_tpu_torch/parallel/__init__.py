@@ -1,9 +1,10 @@
 """Distributed fleet merge (the port of parca_agent_tpu/parallel/).
 
 Per-node window streams merged into one cluster-wide view: count-min and
-HLL sketches (summed, max'd) and the exact per-stack counts (sorted,
-segment-summed), in one process over the leading node axis of [n_nodes,
-R] tensors on one device (fleet.py, mesh.py), or across agent processes
+HLL sketches (summed, max'd) and the exact per-stack counts (grouped by
+key: partitioned by the key's top bits, each bucket reduced), in one
+process over the leading node axis of [n_nodes, R] tensors on one device
+(fleet.py, mesh.py), or across agent processes
 over a torch.distributed group (distributed.py), with the runtime merge
 actor FleetWindowMerger (BASELINE config #5).
 """

@@ -15,8 +15,9 @@ axis is "one agent daemon = one node", not "one card = one node". The
 sketch merge builds the local stream's sketches (the sketch build
 kernel), then all_reduce SUM over the int32 count-min table and MAX over
 the int32 registers; the exact merge all-gathers every node's rows, then
-runs the one-process path's sort and segment kernel on the gathered
-stream, identically on every node.
+runs the one-process path's grouping (fleet_group: the partition and
+per-bucket reduce kernels) on the gathered stream, identically on every
+node.
 
 With no group formed the world is one node, as jax.process_count() is 1
 uninitialized: the merges then run on the caller's device with no
@@ -204,8 +205,7 @@ def fleet_merge_exact64_dist(local_h1, local_h2, local_counts, mesh=None):
     """Cluster-wide exact (hash64 -> count) merge from local streams.
 
     Returns (h1, h2, counts) of the deduplicated fleet rows, identical on
-    every node (each runs the sort and segment pass on the gathered
-    rows)."""
+    every node (each groups the gathered rows with fleet_group)."""
     local_h1 = np.ascontiguousarray(local_h1, np.uint32)
     local_h2 = np.ascontiguousarray(local_h2, np.uint32)
     if local_h2.shape != local_h1.shape:

@@ -1082,7 +1082,7 @@ def test_sharded_aggregator_cuda_equals_cpu(cuda):
     assert torch.equal(dc._dev.cpu(), dh._dev)
 
 
-# -- the fleet merge: the sketch build (B6) and the segment pass (B8) --------
+# -- the fleet merge: the sketch build (B6) and the exact merge (B8) ---------
 
 
 def _fleet_stream(seed: int, n_nodes: int, r: int):
@@ -1097,30 +1097,68 @@ def _fleet_stream(seed: int, n_nodes: int, r: int):
     return h, c
 
 
-@pytest.mark.parametrize("depth,width", [(1, 1 << 4), (8, 1 << 22)])
-@pytest.mark.parametrize("p", [4, 12, 18])
-@pytest.mark.parametrize("live", [None, "counts", "mask"])
-def test_sketch_build_kernel_equals_plain(cuda, depth, width, p, live):
+def _sketch_case(cuda, h, c, cm_spec, hll_spec, live, seed=0):
+    """One sketch build on the card against its plain version; the launch
+    counted under the kernel the shape rule names."""
     from parca_agent_tpu_torch.ops import sketch
 
-    # 70,001 rows a node: not a multiple of a block's 256 threads.
-    h, c = _fleet_stream(depth * 100 + p, 3, 70_001)
-    mask = np.random.default_rng(p).random(c.shape) < 0.6
-    cm_spec, hll_spec = sketch.CountMinSpec(depth, width), sketch.HLLSpec(p)
+    mask = np.random.default_rng(seed).random(c.shape) < 0.6
     args = {dev: (_t(h, dev), torch.from_numpy(c).to(dev),
                   torch.from_numpy(mask).to(dev) if live == "mask" else live)
             for dev in (cuda, torch.device("cpu"))}
-    before = sketch.LAUNCHES["sketch_build"]
+    kind = sketch.sketch_kernel_for(h.size, cm_spec, hll_spec)
+    name = "sketch_build_cluster" if kind == "cluster" else "sketch_build"
+    before = dict(sketch.LAUNCHES)
     got = sketch.sketch_build(*args[cuda][:2], cm_spec, hll_spec,
                               args[cuda][2])
     torch.cuda.synchronize()
-    assert sketch.LAUNCHES["sketch_build"] == before + 1
+    assert sketch.LAUNCHES[name] == before[name] + 1
+    assert sum(sketch.LAUNCHES.values()) == sum(before.values()) + 1
     want = sketch.sketch_build_plain(*args[torch.device("cpu")][:2], cm_spec,
                                      hll_spec, args[torch.device("cpu")][2])
     for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+        assert (g is None and w is None) or torch.equal(g.cpu(), w)
+    return kind, want
+
+
+@pytest.mark.parametrize("depth,width", [(1, 1 << 4), (4, 1 << 18),
+                                         (8, 1 << 22)])
+@pytest.mark.parametrize("p", [4, 12, 18])
+@pytest.mark.parametrize("live", [None, "counts", "mask"])
+def test_sketch_build_kernel_equals_plain(cuda, depth, width, p, live):
+    """Both B6 kernels: the cluster kernel where the shape rule takes it
+    (width 2^4 and 2^18 with shared registers), the global one for a
+    width too wide for a cluster (2^22) and registers past shared (p =
+    18)."""
+    from parca_agent_tpu_torch.ops import sketch
+
+    # 3 x 350,001 rows: not a multiple of a block's threads, above
+    # CLUSTER_MIN_ROWS.
+    h, c = _fleet_stream(depth * 100 + p, 3, 350_001)
+    cm_spec, hll_spec = sketch.CountMinSpec(depth, width), sketch.HLLSpec(p)
+    kind, want = _sketch_case(cuda, h, c, cm_spec, hll_spec, live, p)
+    assert kind == ("cluster" if width <= 1 << 18 and p <= 13 else "global")
     assert int(want[1].max()) > 0
     assert int(want[0].sum()) == depth * int(c.sum())
+
+
+@pytest.mark.parametrize("shape", ["absorb", "stream", "skew"])
+def test_sketch_build_kernels_at_the_paths_shapes(cuda, shape):
+    """The default specs at a dict+cm absorb (2^16 rows: below
+    CLUSTER_MIN_ROWS, the global kernel), at the fleet's stream [8,
+    1,114,112] (the cluster kernel, several parts), and at the stream's
+    shape with one hash repeated and counts past an entry's 17 bits
+    (full boxes and wide counts: the cluster kernel's DSMEM atomics)."""
+    from parca_agent_tpu_torch.ops import sketch
+
+    n_nodes, r = (1, 1 << 16) if shape == "absorb" else (8, 1_114_112)
+    h, c = _fleet_stream(17, n_nodes, r)
+    if shape == "skew":
+        h[:, ::3] = 0x1234_5678
+        c[:, 1::97] = 200_000
+    kind, _ = _sketch_case(cuda, h, c, sketch.CountMinSpec(),
+                           sketch.HLLSpec(), "counts")
+    assert kind == ("global" if shape == "absorb" else "cluster")
 
 
 def test_sketch_single_entries_launch_the_kernel(cuda):
@@ -1141,7 +1179,7 @@ def test_sketch_single_entries_launch_the_kernel(cuda):
 
 
 def _segment_keys(kind: str, n: int):
-    """(h1, h2, counts) of a segment-pass case."""
+    """(h1, h2, counts) of an exact-merge case, rows unsorted."""
     rng = np.random.default_rng(len(kind) + n)
     if kind == "single":
         h1 = np.full(n, 0x9000_0001, np.uint32)
@@ -1152,12 +1190,28 @@ def _segment_keys(kind: str, n: int):
         h2 = k.astype(np.uint32)
         h1[::2] &= np.uint32(0x7FFF_FFFF)
     elif kind == "straddle":
-        # Groups of 5,000-9,000 rows: each crosses one or two 4,096-row
-        # tiles.
+        # Groups of 5,000-9,000 rows: a bucket holds one group or several.
         sizes = rng.integers(5000, 9000, n // 5000 + 2)
         g = np.repeat(np.arange(len(sizes)), sizes)[:n]
         h1 = (g.astype(np.uint32) * np.uint32(0x8100_0003))
         h2 = (g.astype(np.uint32) ^ np.uint32(0xC000_0000))
+    elif kind == "small":
+        # Small integer keys: every row in the first level's first bucket,
+        # split again (and h2's top bit sets apart the 64-bit keys).
+        h1 = rng.integers(0, 1000, n).astype(np.uint32)
+        h2 = rng.integers(0, 2, n).astype(np.uint32) << np.uint32(31)
+    elif kind == "dense":
+        # 5,000 small keys in one first-level bucket of fewer than 32,768
+        # rows: too many groups for a pass, all in one pass (the bits
+        # below the bucket's are zero), so the bucket is split again.
+        h1 = rng.integers(0, 5000, n).astype(np.uint32)
+        h2 = h1 * np.uint32(3)
+    elif kind == "stream":
+        # The fleet's stream: hash keys, ~5.67 rows a group.
+        pool = rng.integers(0, 2**64, n * 3 // 17, dtype=np.uint64)
+        k = pool[rng.integers(0, len(pool), n)]
+        h1 = (k >> np.uint64(32)).astype(np.uint32)
+        h2 = k.astype(np.uint32)
     else:  # "mixed": h1 at and above 2^31, h1-only collisions, repeats
         pool1 = rng.integers(0, 2**32, n // 4 + 1, dtype=np.uint64)
         pool1[::2] |= np.uint64(1 << 31)
@@ -1165,27 +1219,51 @@ def _segment_keys(kind: str, n: int):
         h1 = pool1[pick].astype(np.uint32)
         h2 = (pick % 7).astype(np.uint32) * np.uint32(0x2492_4925)
     c = rng.integers(0, 50, n).astype(np.int32)
-    return h1, h2, c
+    order = rng.permutation(n)
+    return h1[order], h2[order], c[order]
+
+
+def _group_keys(h1, h2, two_lanes, dev):
+    from parca_agent_tpu_torch.parallel import fleet
+
+    return (fleet.keys64(_t(h1, dev), _t(h2, dev)) if two_lanes
+            else fleet.keys32(_t(h1, dev)))
 
 
 @pytest.mark.parametrize("kind,n", [("mixed", 1), ("mixed", 4095),
                                     ("mixed", 4097), ("mixed", 1 << 20),
                                     ("single", 3 * 4096 + 17),
+                                    ("single", 1 << 20),
                                     ("unique", 1_000_003),
-                                    ("straddle", 600_001)])
+                                    ("straddle", 600_001),
+                                    ("small", 1 << 20),
+                                    ("dense", 10_000),
+                                    ("stream", 8 * 1_114_112)])
 @pytest.mark.parametrize("two_lanes", [False, True])
 def test_fleet_segment_kernel_equals_plain(cuda, kind, n, two_lanes):
+    """fleet_group on the card (the partition and the reduce, and the
+    split levels where a bucket does not fit) against its plain version
+    on the same unsorted rows: [:n_groups] word for word. The first
+    level counts one launch; a split counts each of its launches: one
+    key repeated past a leaf's rows is one minmax and the reduce, small
+    keys (one first-level bucket past a leaf's rows, or with too many
+    groups for a pass) a minmax, a hist, a scatter and the reduce; no
+    other case splits (the buckets of "unique" and "mixed" whose groups
+    overflow the table take several passes in their CTA)."""
     from parca_agent_tpu_torch.parallel import fleet
 
     h1, h2, c = _segment_keys(kind, n)
-    keys = (fleet.keys64(_t(h1, cuda), _t(h2, cuda)) if two_lanes
-            else fleet.keys32(_t(h1, cuda)))
-    ks, cs = fleet.sort_rows(keys, torch.from_numpy(c).to(cuda))
-    before = fleet.LAUNCHES["fleet_segment"]
-    got = fleet.fleet_segment(ks, cs, two_lanes)
+    keys = _group_keys(h1, h2, two_lanes, cuda)
+    before = dict(fleet.LAUNCHES)
+    got = fleet.fleet_group(keys, torch.from_numpy(c).to(cuda), two_lanes)
     torch.cuda.synchronize()
-    assert fleet.LAUNCHES["fleet_segment"] == before + 1
-    want = fleet.fleet_segment_plain(ks.cpu(), cs.cpu(), two_lanes)
+    split = {("single", 1 << 20): 2, ("small", 1 << 20): 4,
+             ("dense", 10_000): 4}.get((kind, n), 0)
+    assert fleet.LAUNCHES == {"fleet_group": before["fleet_group"] + 1,
+                              "fleet_group_split":
+                                  before["fleet_group_split"] + split}
+    want = fleet.fleet_group_plain(keys.cpu(), torch.from_numpy(c),
+                                   two_lanes)
     k = int(want[3][0])
     assert int(got[3][0]) == k
     for g, w in zip(got[:3], want[:3]):
@@ -1199,15 +1277,42 @@ def test_fleet_segment_kernel_equals_plain(cuda, kind, n, two_lanes):
         assert k == n
 
 
+@pytest.mark.parametrize("kind,n,splits", [("stream", 8 * 1_114_112, False),
+                                           ("small", 1 << 20, True),
+                                           ("single", 1 << 20, True),
+                                           ("unique", 1_000_003, False),
+                                           ("unique", 8 * 1_114_112, False)])
+def test_fleet_group_splits_only_what_does_not_fit(cuda, kind, n, splits):
+    """Hash-uniform keys: no bucket overflows its reduce CTA (info[1] is
+    0 after the first level), however few rows a group has: a bucket of
+    distinct keys (at the stream's size too) takes several passes in its
+    CTA. Skewed keys do overflow, and fleet_group's split levels then
+    give the plain version's words."""
+    from parca_agent_tpu_torch.parallel import fleet
+
+    h1, h2, c = _segment_keys(kind, n)
+    keys = _group_keys(h1, h2, True, cuda)
+    ct = torch.from_numpy(c).to(cuda)
+    g = fleet.fleet_group_launch(keys, ct, True)
+    assert (int(g.info[1].item()) > 0) == splits
+    before = fleet.LAUNCHES["fleet_group_split"]
+    got = fleet.fleet_group(keys, ct, True)
+    assert (fleet.LAUNCHES["fleet_group_split"] > before) == splits
+    want = fleet.fleet_group_plain(keys.cpu(), torch.from_numpy(c), True)
+    k = int(want[3][0])
+    assert int(got[3][0]) == k
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a[:k].cpu(), b[:k])
+
+
 def test_fleet_segment_scratch_serves_calls_of_any_size(cuda):
     from parca_agent_tpu_torch.parallel import fleet
 
     for n in (1 << 20, 5000, 1 << 21, 3, 77_777) * 3:
         h1, h2, c = _segment_keys("mixed", n)
-        ks, cs = fleet.sort_rows(fleet.keys64(_t(h1, cuda), _t(h2, cuda)),
-                                 torch.from_numpy(c).to(cuda))
-        got = fleet.fleet_segment(ks, cs, True)
-        want = fleet.fleet_segment_plain(ks.cpu(), cs.cpu(), True)
+        keys = _group_keys(h1, h2, True, cuda)
+        got = fleet.fleet_group(keys, torch.from_numpy(c).to(cuda), True)
+        want = fleet.fleet_group_plain(keys.cpu(), torch.from_numpy(c), True)
         k = int(want[3][0])
         assert int(got[3][0]) == k
         assert torch.equal(got[2][:k].cpu(), want[2][:k])

@@ -3,12 +3,16 @@
 parca_agent_tpu's fleet programs run over a mesh of n of the 8 virtual
 CPU devices (tests/conftest.py), the port's on the CPU with the node axis
 as the leading dimension of one stream (the plain versions of the sketch
-build and segment kernels). The same seeded streams go through both at
-1, 2 and 8 nodes and an R that is not a power of two, with hashes at and
-above 2^31, padding, all-padding streams and a dead node; every output
-is compared exactly: the sketches and the total, the exact merges'
-arrays and dtypes, the segment pass against the JAX program's own
-outputs, the merged profiles (pprof bytes) and snapshot, and the errors.
+build and exact-merge kernels). The same seeded streams go through both
+at 1, 2 and 8 nodes and an R that is not a power of two, with hashes at
+and above 2^31, padding, all-padding streams and a dead node; every
+output is compared exactly: the sketches and the total, the exact merges'
+arrays and dtypes, fleet_group on unsorted rows against the JAX
+programs' own outputs (also on one key repeated, unique keys, small
+integer keys, padding only), the merged profiles (pprof bytes) and
+snapshot, and the errors. The exact merge's host bookkeeping for
+skewed keys (group_bits, pack_leaves) and the sketch kernels' shape
+rule are pinned here too.
 The host copies (merge_mapping_tables, concat_snapshots,
 filter_snapshot_rows, bounded_call) are held to their originals.
 """
@@ -121,36 +125,150 @@ def test_all_padding_streams_equal_jax(n):
     assert len(u1) == len(u2) == len(uc) == 0
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("n", NODES)
-def test_segment_pass_equals_the_jax_programs(seed, n):
-    """The sort + fleet_segment_plain's [:n_groups] against the JAX
-    programs' own outputs (reps, sums, n_groups), 32- and 64-bit."""
-    h1, h2, c = _streams(seed + 10, n)
+def _group_equals_jax(h1, h2, c, n) -> int:
+    """fleet_group's [:n_groups] (reps, sums, n_groups) on the CPU (its
+    plain version) against the JAX programs' own outputs, 64- and
+    32-bit; returns the 64-bit merge's n_groups."""
     mesh = jax_mesh(n)
     r1, r2, sums, ng = jax_fleet._exact_program64(mesh)(
         jnp.asarray(h1), jnp.asarray(h2), jnp.asarray(c))
-    k = int(np.asarray(ng)[0])
+    k64 = int(np.asarray(ng)[0])
     keys = fleet.keys64(torch.from_numpy(h1.view(np.int32)),
                         torch.from_numpy(h2.view(np.int32)))
-    hi, lo, s, n_groups = fleet.fleet_segment(
-        *fleet.sort_rows(keys, torch.from_numpy(c)), two_lanes=True)
-    assert int(n_groups[0]) == k
-    assert np.array_equal(hi[:k].numpy().view(np.uint32),
-                          np.asarray(r1[0][:k]))
-    assert np.array_equal(lo[:k].numpy().view(np.uint32),
-                          np.asarray(r2[0][:k]))
-    assert np.array_equal(s[:k].numpy(), np.asarray(sums[0][:k]))
+    ct = torch.from_numpy(np.ascontiguousarray(c)).reshape(-1)
+    hi, lo, s, n_groups = fleet.fleet_group(keys, ct, two_lanes=True)
+    assert int(n_groups[0]) == k64
+    assert np.array_equal(hi[:k64].numpy().view(np.uint32),
+                          np.asarray(r1[0][:k64]))
+    assert np.array_equal(lo[:k64].numpy().view(np.uint32),
+                          np.asarray(r2[0][:k64]))
+    assert np.array_equal(s[:k64].numpy(), np.asarray(sums[0][:k64]))
     reps, sums, ng = jax_fleet._exact_program(mesh)(jnp.asarray(h1),
                                                      jnp.asarray(c))
     k = int(np.asarray(ng)[0])
-    hi, lo, s, n_groups = fleet.fleet_segment(
-        *fleet.sort_rows(fleet.keys32(torch.from_numpy(h1.view(np.int32))),
-                         torch.from_numpy(c)), two_lanes=False)
+    hi, lo, s, n_groups = fleet.fleet_group(
+        fleet.keys32(torch.from_numpy(h1.view(np.int32))), ct,
+        two_lanes=False)
     assert hi is None and int(n_groups[0]) == k
     assert np.array_equal(lo[:k].numpy().view(np.uint32),
                           np.asarray(reps[0][:k]))
     assert np.array_equal(s[:k].numpy(), np.asarray(sums[0][:k]))
+    # No kernel on the CPU.
+    assert fleet.LAUNCHES == {"fleet_group": 0, "fleet_group_split": 0}
+    return k64
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", NODES)
+def test_segment_pass_equals_the_jax_programs(seed, n):
+    """fleet_group (its plain version on the CPU: torch.sort, then each
+    group's key and sum) against the JAX programs' own outputs (reps,
+    sums, n_groups), 32- and 64-bit, on unsorted rows."""
+    h1, h2, c = _streams(seed + 10, n)
+    _group_equals_jax(h1, h2, c, n)
+
+
+def _group_case(kind: str, n: int):
+    """[n, 97] streams of the exact merge's hard cases."""
+    rng = np.random.default_rng(len(kind))
+    r = 97
+    c = rng.integers(0, 20, (n, r)).astype(np.int32)
+    if kind == "one key":
+        h1 = np.full((n, r), 0x9000_0001, np.uint32)
+        h2 = np.full((n, r), 0xFFFF_FFFF, np.uint32)
+    elif kind == "unique":
+        k = rng.permutation(n * r).astype(np.uint64) * np.uint64(0x9E37_79B9)
+        h1 = (k >> np.uint64(3)).astype(np.uint32).reshape(n, r)
+        h2 = k.astype(np.uint32).reshape(n, r)
+        h1[:, ::2] |= np.uint32(1 << 31)
+    elif kind == "small ints":  # every key in the top bits' first bucket
+        h1 = rng.integers(0, 40, (n, r)).astype(np.uint32)
+        h2 = rng.integers(0, 3, (n, r)).astype(np.uint32)
+    elif kind == "padding only":
+        h1 = np.full((n, r), fleet.PAD_HASH, np.uint32)
+        h2 = np.full((n, r), fleet.PAD_HASH, np.uint32)
+        c[:] = 0
+    else:  # "dead node"
+        h1, h2, c = _streams(7, n, r)
+        h1[n // 2], h2[n // 2], c[n // 2] = fleet.PAD_HASH, fleet.PAD_HASH, 0
+    return h1, h2, c
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("kind", ["one key", "unique", "small ints",
+                                  "padding only", "dead node"])
+def test_group_hard_cases_equal_the_jax_programs(kind, n):
+    h1, h2, c = _group_case(kind, n)
+    k = _group_equals_jax(h1, h2, c, n)
+    if kind in ("one key", "padding only"):
+        assert k == 1
+    if kind == "unique":
+        assert k == h1.size
+
+
+def test_group_rejects_what_it_cannot_take():
+    k = torch.zeros(4, dtype=torch.int64)
+    c = torch.zeros(4, dtype=torch.int32)
+    for keys, counts in ((k.to(torch.int32), c), (k, c.to(torch.int64)),
+                         (k, c[:3]), (k[:0], c[:0]), (k.reshape(2, 2), c)):
+        with pytest.raises(ValueError):
+            fleet.fleet_group(keys, counts, True)
+    with pytest.raises(ValueError):
+        fleet.fleet_group_launch(k, c, True)  # CUDA tensors only
+
+
+@pytest.mark.parametrize("n,bits", [(1, 1), (8192, 1), (3 * 8192, 2),
+                                    (8_912_896, 10), (1 << 40, 13)])
+def test_group_bits(n, bits):
+    # 2^10 buckets of ~8,704 rows at the fleet's stream.
+    assert fleet.group_bits(n) == bits
+
+
+def test_top_bit_and_chunks():
+    x = np.array([1, 2, 3, 1 << 40, (1 << 63) + 5, (1 << 64) - 1],
+                 np.uint64)
+    assert fleet._top_bit(x).tolist() == [int(v).bit_length() - 1
+                                          for v in x]
+    ch = fleet._chunks(np.array([0, 100, 7000]), np.array([100, 6900, 1]),
+                       4096)
+    assert ch.tolist() == [[0, 100, 0], [100, 4196, 1], [4196, 7000, 1],
+                           [7000, 7001, 2]]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pack_leaves_tiles_the_buckets(seed):
+    """A split level's packing: the leaves and the next level's segments
+    cover every nonempty bucket once, in order; a leaf has at most
+    leaf_rows rows and a key outside every one of its buckets' ranges;
+    a segment is one bucket past leaf_rows."""
+    rng = np.random.default_rng(seed)
+    leaf_rows = 64
+    n_segs, per = 3, 32
+    c = rng.choice([0, 1, 5, 20, 31, 33, 60, 64, 65, 300],
+                   n_segs * per).astype(np.int64)
+    seg = np.repeat(np.arange(n_segs), per)
+    first = np.cumsum(c) - c
+    d = np.tile(np.arange(per), n_segs).astype(np.uint64)
+    lo = (seg.astype(np.uint64) << np.uint64(62)) | (d << np.uint64(20))
+    hi = lo | np.uint64((1 << 20) - 1)
+    leaves, s_start, s_count = fleet.pack_leaves(
+        seg, c, first, lo, hi, np.full(len(c), 25), leaf_rows)
+    assert (leaves["hbit"] == 25).all()
+    assert (leaves["count"] <= leaf_rows).all() and (s_count > leaf_rows).all()
+    runs = sorted([(int(a), int(b)) for a, b in zip(leaves["start"],
+                                                    leaves["count"])]
+                  + [(int(a), int(b)) for a, b in zip(s_start, s_count)])
+    at = 0
+    for a, b in runs:
+        assert a == at
+        at += b
+    assert at == int(c.sum())
+    for rec in leaves:  # its key is in no bucket of its rows
+        inside = (first >= rec["start"]) & \
+            (first < rec["start"] + rec["count"]) & (c > 0)
+        assert not ((lo[inside] <= rec["key"])
+                    & (rec["key"] <= hi[inside])).any()
+        assert len(np.unique(seg[inside])) == 1
 
 
 @pytest.mark.parametrize("depth,width,p", [(1, 1 << 4, 4), (4, 1 << 18, 12),
@@ -180,7 +298,28 @@ def test_sketch_build_plain_equals_jax(depth, width, p, live):
     assert torch.equal(sketch.hll_build(
         ht, hll_spec, live=None if want_live is None
         else torch.from_numpy(want_live.reshape(c.shape))), regs)
-    assert sketch.LAUNCHES["sketch_build"] == 0  # no kernel on the CPU
+    # No kernel on the CPU.
+    assert sketch.LAUNCHES == {"sketch_build": 0, "sketch_build_cluster": 0}
+
+
+@pytest.mark.parametrize("rows,spec,p,want", [
+    ("stream", (4, 1 << 18), 12, "cluster"),
+    ("min", (1, 1 << 4), 4, "cluster"),
+    ("min", (4, 1 << 17), 13, "cluster"),
+    ("stream", (4, 1 << 18), 13, "global"),   # registers + boxes > a CTA
+    ("below", (4, 1 << 18), 12, "global"),    # a small stream
+    ("stream", (8, 1 << 22), 12, "global"),   # an eighth row > a CTA
+    ("stream", (4, 1 << 19), None, "global"),
+    ("stream", (4, 1 << 18), 18, "global"),   # registers past shared
+    ("stream", None, 12, "global"),           # HLL only
+    ("stream", (4, 4), None, "global"),       # narrower than a cluster
+])
+def test_sketch_kernel_shape_rule(rows, spec, p, want):
+    n = {"stream": 8 * 1_114_112, "min": sketch.CLUSTER_MIN_ROWS,
+         "below": sketch.CLUSTER_MIN_ROWS - 1}[rows]
+    cm_spec = sketch.CountMinSpec(*spec) if spec else None
+    hll_spec = sketch.HLLSpec(p) if p else None
+    assert sketch.sketch_kernel_for(n, cm_spec, hll_spec) == want
 
 
 def test_sketch_build_rejects_what_it_cannot_take():
