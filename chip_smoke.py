@@ -156,6 +156,26 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                B8 also on two fleets of the stream's shape that share few
                stacks (every key distinct; 1/8 of a node's stacks on
                every node), and at 2^10..2^13 first-level buckets.
+ 10. live      the host native layer (native/*.cc, built by g++) and the
+               CLI on this machine: row_hash_np's C++ pass against its
+               numpy version on the bench window (equal bits, both
+               timed); phase 4's cold encode's varint and ragged-copy
+               calls (recorded there) replayed through the C++ passes and
+               the numpy ones (equal bytes, both timed); the bench
+               window's rows written as the sampler's v1 and v1d records
+               with numpy and decoded back to them (the C++ decoders and
+               the plain Python loop, timed), and pa_stack_hash equal to
+               row_hash_np on every row; then the CLI in this process,
+               --capture procfs --aggregator dict --fast-encode, 3
+               windows of 2 s beside a CPU-burning child: profiles with
+               mass, the child's pid among them, K1 and the close
+               launched, each held against its plain version on the
+               run's last drain and last close. Where the kernel permits
+               perf_event_open, the same with --capture perf
+               --streaming-window (3 windows of 3 s: windows streamed,
+               drains fed, the hash carry on); where it refuses it for
+               lack of permission or has no perf events, a line
+               "perf: {...}" says so, with the errno.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -1343,13 +1363,14 @@ def check_encoded(label: str, agg, snap, counts, blobs, every: int = 64,
 
 
 def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
-                    ref=None):
+                    ref=None, vec_rec=None):
     """The dict main path on `dev` over `snap`, every window encoded by
     one WindowEncoder (--fast-encode), the last one also through the
     encode pipeline; returns its kernels' launch counts, the
     dictionary's exported state after its last window and the window's
     hashes. Raises on any disagreement with the numpy oracle or with
-    build_pprof."""
+    build_pprof. `vec_rec` (a VecRecorder) records the cold encode's
+    varint and ragged-copy calls."""
     import numpy as np
     import torch
 
@@ -1363,6 +1384,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
             torch.cuda.synchronize(dev)
 
     total = snap.total_samples()
+    vec_rec = vec_rec or VecRecorder()
     agg = DictAggregator(capacity=CAP, overflow="raise", device=dev)
     t0 = time.perf_counter()
     hashes = agg.hash_rows(snap)  # the capture-carried identity triple
@@ -1385,11 +1407,14 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches_per_feed.append(probe.LAUNCHES["feed_accumulate"] - before)
     # The cold window's pprof: the encoder builds every pid's statics.
+    # Its varint and ragged-copy calls are recorded for phase 10 (the
+    # copies' time is taken out of encode_ms and printed apart).
     enc = WindowEncoder(agg)
     args = (snap.time_ns, snap.window_ns, snap.period_ns)
     t0 = time.perf_counter()
-    blobs = enc.encode(counts, *args)
-    encode_ms = (time.perf_counter() - t0) * 1e3
+    with vec_rec:
+        blobs = enc.encode(counts, *args)
+    encode_ms = (time.perf_counter() - t0) * 1e3 - vec_rec.record_ms
     checked = check_window("cold window", agg, snap, counts, blobs,
                            want_mass, want_values)
     emit("cold_window", ms=cold_ms, inserts=agg.stats["inserts"],
@@ -1397,6 +1422,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
          encode_timings_ms={k: v * 1e3 for k, v in enc.timings.items()},
          statics_build_ms=enc.stats["statics_build_s_total"] * 1e3,
          pprof_pids=len(blobs), pprof_bytes=sum(len(b) for _, b in blobs),
+         encode_record_ms=vec_rec.record_ms, vec_calls=len(vec_rec.calls),
          **checked, hash_s=hash_s, timings_ms={k: v * 1e3
                                     for k, v in agg.timings.items()})
 
@@ -3767,6 +3793,406 @@ def phase_fleet(dev, snap, hashes, sketch_ref=None, fleet_ref=None) -> tuple:
     return rows, launches
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+# The live path (--capture procfs|perf): windows of each CLI run, their
+# seconds, and the burner's source.
+LIVE_WINDOWS = 3
+LIVE_PROCFS_S = 2
+LIVE_PERF_S = 3
+BURNER = "while True:\n sum(i * i for i in range(4000))"
+
+
+class VecRecorder:
+    """Context manager recording the window encoder's calls of the varint
+    and ragged-copy passes (pprof/vec.py, as window_encoder.py imported
+    them): each call's inputs, copied, and its output buffer's size and
+    dtype; the time the copies took is `record_ms`. replay() runs every
+    call again through the C++ passes and the numpy ones, on fresh
+    buffers, and compares their bytes."""
+
+    NAMES = ("varint_len", "put_varints", "put_varints_padded",
+             "ragged_gather")
+
+    def __init__(self):
+        self.calls = []
+        self.record_ms = 0.0
+        self._saved = {}
+
+    def __enter__(self):
+        from parca_agent_tpu_torch.pprof import window_encoder
+
+        for name in self.NAMES:
+            fn = getattr(window_encoder, name)
+            self._saved[name] = fn
+            setattr(window_encoder, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from parca_agent_tpu_torch.pprof import window_encoder
+
+        for name, fn in self._saved.items():
+            setattr(window_encoder, name, fn)
+        return False
+
+    def _wrap(self, name, fn):
+        import numpy as np
+
+        def copy(a):
+            return None if a is None else np.array(a, copy=True)
+
+        def recorded(*a, **kw):
+            t0 = time.perf_counter()
+            if name == "varint_len":
+                self.calls.append((name, copy(a[0]), None))
+            elif name == "ragged_gather":
+                flat, starts, lens = a[:3]
+                out, out_starts = kw.get("out"), kw.get("out_starts")
+                self.calls.append((name, (copy(flat), copy(starts),
+                                          copy(lens), copy(out_starts)),
+                                   None if out is None
+                                   else (len(out), out.dtype)))
+            else:
+                out, pos, vals = a[:3]
+                rest = a[3:] if name == "put_varints_padded" else ()
+                self.calls.append((name, (copy(pos), copy(vals), *rest),
+                                   (len(out), out.dtype)))
+            self.record_ms += (time.perf_counter() - t0) * 1e3
+            return fn(*a, **kw)
+
+        return recorded
+
+    def replay(self) -> dict:
+        """{pass: {"calls", "values", "native_ms", "numpy_ms"}}; raises
+        unless both versions give equal bytes for every call."""
+        import numpy as np
+
+        from parca_agent_tpu_torch.pprof import vec
+
+        out = {k: {"calls": 0, "values": 0, "native_ms": 0.0,
+                   "numpy_ms": 0.0} for k in self.NAMES}
+
+        def run(name, args, spec, impl):
+            t0 = time.perf_counter()
+            if name == "varint_len":
+                got = vec.varint_len(args, impl=impl)
+            elif name == "ragged_gather":
+                flat, starts, lens, out_starts = args
+                buf = None if spec is None else np.zeros(spec[0], spec[1])
+                got = vec.ragged_gather(flat, starts, lens, out=buf,
+                                        out_starts=out_starts, impl=impl)[0]
+            else:
+                got = np.zeros(spec[0], spec[1])
+                getattr(vec, name)(got, *args, impl=impl)
+            return got, (time.perf_counter() - t0) * 1e3
+
+        for name, args, spec in self.calls:
+            a, native_ms = run(name, args, spec, "native")
+            b, numpy_ms = run(name, args, spec, "numpy")
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: the C++ pass's bytes != "
+                                     "numpy's on the cold encode's call")
+            row = out[name]
+            row["calls"] += 1
+            row["values"] += len(args if name == "varint_len"
+                                 else args[2] if name == "ragged_gather"
+                                 else args[1])
+            row["native_ms"] += native_ms
+            row["numpy_ms"] += numpy_ms
+        return out
+
+
+def pack_records(snap, kind: str) -> bytes:
+    """The window's rows as the sampler's drain records, with numpy: v1
+    (u32 pid, tid, n_kernel, n_user, then the frames, kernel first) or
+    v1d (the same with u32 count and a pad word before the frames). Every
+    field is a multiple of 8 bytes, so the records are built as u64
+    words."""
+    import numpy as np
+
+    n = len(snap)
+    hw = 2 if kind == "v1" else 3
+    ulen = snap.user_len.astype(np.int64)
+    klen = snap.kernel_len.astype(np.int64)
+    depth = ulen + klen
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(hw + depth, out=off[1:])
+    words = np.zeros(int(off[-1]), np.uint64)
+    start = off[:-1]
+    words[start] = (snap.pids.astype(np.uint32).astype(np.uint64)
+                    | (snap.tids.astype(np.uint32).astype(np.uint64) << 32))
+    words[start + 1] = (klen.astype(np.uint64)
+                        | (ulen.astype(np.uint64) << np.uint64(32)))
+    if kind == "v1d":
+        words[start + 2] = snap.counts.astype(np.uint64)
+    col = np.arange(snap.stacks.shape[1])[None, :]
+    live = col < depth[:, None]
+    # Row j < ulen is user frame j (after the kernel frames); j >= ulen
+    # is kernel frame j - ulen (first).
+    dest = np.where(col < ulen[:, None], klen[:, None] + col,
+                    col - ulen[:, None]) + (start + hw)[:, None]
+    words[dest[live]] = snap.stacks[live]
+    return words.tobytes()
+
+
+def decode_plain(buf: bytes, kind: str) -> int:
+    """The plain decoder: a Python loop over the records (the v1 one is
+    capture/live.py decode_records; v1d reads its count word too).
+    Returns the records read."""
+    import struct
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.capture.live import decode_records
+
+    if kind == "v1":
+        return len(decode_records(buf))
+    n = pos = 0
+    while pos + 24 <= len(buf):
+        _pid, _tid, nk, nu, _count, _pad = struct.unpack_from("<6I", buf,
+                                                              pos)
+        np.frombuffer(buf, np.uint64, nk + nu, pos + 24)
+        pos += 24 + 8 * (nk + nu)
+        n += 1
+    return n
+
+
+def live_decoders(snap) -> dict:
+    """The sampler's decoders at the bench window's full width: its rows
+    written as v1 and v1d records decode back to them (natively, and the
+    plain Python loop reads as many records), and pa_stack_hash (the
+    v1h drain's hash) equals row_hash_np on every row."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.capture import live
+    from parca_agent_tpu_torch.ops.hashing import hash_params, row_hash_np
+
+    lib = live.load_native()
+    out = {}
+    for kind, fn in (("v1", live.decode_records_columnar),
+                     ("v1d", live.decode_records_columnar_v1d)):
+        t0 = time.perf_counter()
+        buf = pack_records(snap, kind)
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cols = fn(lib, buf, len(buf))
+        native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        n_plain = decode_plain(buf, kind)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        pids, tids, ulen, klen, stacks = cols[:5]
+        if not (np.array_equal(pids, snap.pids)
+                and np.array_equal(tids, snap.tids)
+                and np.array_equal(ulen, snap.user_len)
+                and np.array_equal(klen, snap.kernel_len)
+                and np.array_equal(stacks, snap.stacks)
+                and (kind == "v1" or np.array_equal(cols[5], snap.counts))
+                and n_plain == len(snap)):
+            raise AssertionError(f"the {kind} records did not decode back "
+                                 "to the window's rows")
+        out[kind] = {"records": len(snap), "bytes": len(buf),
+                     "pack_ms": pack_ms, "native_ms": native_ms,
+                     "plain_ms": plain_ms}
+        del buf, cols
+    # pa_stack_hash over each row's kernel and user frames, in place.
+    coefs, biases = hash_params(3, snap.stacks.shape[1])
+    want = row_hash_np(snap.stacks, snap.pids, snap.user_len,
+                       snap.kernel_len, 3)
+    stacks = np.ascontiguousarray(snap.stacks)
+    base, row_b = stacks.ctypes.data, stacks.shape[1] * 8
+    got = np.zeros((len(snap), 3), np.uint32)
+    fn = lib.pa_stack_hash
+    ulen = snap.user_len.tolist()
+    klen = snap.kernel_len.tolist()
+    pids = snap.pids.tolist()
+    c_ptr, stride, b_ptr = coefs.ctypes.data, coefs.shape[1], \
+        biases.ctypes.data
+    slots, out_ptr = stacks.shape[1], got.ctypes.data
+    t0 = time.perf_counter()
+    for i in range(len(snap)):
+        u = base + i * row_b
+        if fn(u + 8 * ulen[i], klen[i], u, ulen[i], pids[i], c_ptr, stride,
+              b_ptr, 3, slots, out_ptr + 12 * i) != 0:
+            raise AssertionError(f"pa_stack_hash refused row {i}")
+    stack_hash_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(got[:, k], want[k]) for k in range(3)):
+        raise AssertionError("pa_stack_hash != row_hash_np")
+    out["pa_stack_hash"] = {"rows": len(snap), "ms": stack_hash_ms,
+                            "equal_row_hash_np": True}
+    return out
+
+
+def live_cli(dev, label: str, flags: list, seconds: int) -> dict:
+    """The port's CLI in this process on the card, --windows LIVE_WINDOWS
+    of `seconds` each with `flags`, beside a CPU-burning child process.
+    The dictionary the CLI builds keeps its last drain's rows and its last
+    close (chip_smoke's KeptAggregator), so K1 and the close are held
+    against their plain versions at this path's shapes after the run.
+    Returns the run's lines, the stored profiles' mass and pids, the
+    kernel checks and the launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from parca_agent_tpu_torch import cli
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.aggregator import dict as dict_mod
+    from parca_agent_tpu_torch.pprof.builder import parse_pprof
+
+    made = []
+
+    class KeptAggregator(dict_mod.DictAggregator):
+        kept_packed = kept_handle = None
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def _feed_dispatch_async(self, packed, reset):
+            self.kept_packed = packed.copy()
+            return super()._feed_dispatch_async(packed, reset)
+
+        def close_dispatch(self):
+            self.kept_handle = super().close_dispatch()
+            return self.kept_handle
+
+    out = io.StringIO()
+    burner = subprocess.Popen([sys.executable, "-c", BURNER])
+    saved = dict_mod.DictAggregator
+    dict_mod.DictAggregator = KeptAggregator
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # Every count to 0 just before the path; read just after.
+            probe.reset_launches()
+            close.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.run([*flags, "--windows", str(LIVE_WINDOWS),
+                              "--profiling-duration", str(seconds),
+                              "--local-store-directory", tmp])
+            cli_s = time.perf_counter() - t0
+            launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                        "close_pack": close.LAUNCHES["close_pack"]}
+            if close.LAUNCHES["close_pack_delta"]:
+                launches["close_pack_delta"] = \
+                    close.LAUNCHES["close_pack_delta"]
+            files = sorted(Path(tmp).glob("*.pb.gz"))
+            mass = sum(v[0] for f in files
+                       for _, v, _ in parse_pprof(f.read_bytes()).samples)
+            pids = {int(f.name.split(".")[0][4:]) for f in files}
+    finally:
+        dict_mod.DictAggregator = saved
+        burner.kill()
+        burner.wait()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    windows = [ln for ln in lines if "window" in ln]
+    if rc != 0 or len(windows) != LIVE_WINDOWS or mass <= 0 \
+            or burner.pid not in pids \
+            or mass != sum(ln["mass"] for ln in windows):
+        raise AssertionError(f"CLI {' '.join(flags)}: rc {rc}, {lines}, "
+                             f"mass {mass}, burner {burner.pid} in the "
+                             f"store: {burner.pid in pids}")
+    (agg,) = made
+    h = agg.kept_handle
+    if agg.kept_packed is None or h is None or h.acc is None:
+        raise AssertionError(f"{label}: no drain or close to check")
+    checks = {"feed_accumulate": drain_k1(
+        dev, agg, host_table(agg), agg.kept_packed, f"{label}_drain_k1")}
+    form = "close_pack_delta" if h.delta_blks else "close_pack"
+    checks[form] = handle_close(h, {"kernel": (close.close_pack,
+                                               close.close_pack_delta)})
+    emit(f"{label}_close_kernel", kernel=form, **checks[form])
+    return {"lines": lines, "s": cli_s, "profiles": len(files),
+            "mass": mass, "pids": len(pids), "burner_pid": burner.pid,
+            "launches": launches,
+            "kernels": {k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")}
+                        for k, r in checks.items()}}
+
+
+def phase_live(dev, snap, hashes, vec_rec) -> dict:
+    """Phase 10: the host native layer at the main path's shapes, the
+    sampler's decoders at full width, and the CLI sampling this machine
+    on the card (procfs; perf with the streaming window where the kernel
+    permits perf_event_open). Returns the live path's launches."""
+    import errno
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.capture import live
+    from parca_agent_tpu_torch.ops.hashing import row_hash_np
+
+    # The row hash on the bench window (2^20 rows, 50,000 pids).
+    cols = (snap.stacks, snap.pids, snap.user_len, snap.kernel_len)
+    t0 = time.perf_counter()
+    native_h = row_hash_np(*cols, n_hashes=3)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain_h = row_hash_np(*cols, n_hashes=3, impl="numpy")
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(native_h, plain_h, hashes)):
+        raise AssertionError("the native row hash != its numpy version")
+    del plain_h, native_h
+    emit("live_row_hash", rows=len(snap), n_hashes=3, native_ms=native_ms,
+         numpy_ms=numpy_ms, equal=True)
+    # The varint passes and the ragged copy on phase 4's cold encode.
+    emit("live_vec", calls=len(vec_rec.calls), **vec_rec.replay())
+    vec_rec.calls.clear()
+    emit("live_decoders", **live_decoders(snap))
+
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    procfs = live_cli(dev, "live_procfs", ["--capture", "procfs",
+                                           "--aggregator", "dict",
+                                           "--fast-encode"], LIVE_PROCFS_S)
+    add(procfs["launches"])
+    emit("live_procfs_cli", **procfs)
+    if procfs["launches"]["feed_accumulate"] < 1 \
+            or procfs["launches"]["close_pack"] < 1:
+        raise AssertionError(f"the procfs CLI launched {procfs['launches']}")
+
+    # Perf capture where the kernel permits it. Refused for lack of
+    # permission (EACCES, EPERM), or on a kernel with no perf events at
+    # all (ENODEV, ENOENT, ENOSYS, EOPNOTSUPP: a virtualized kernel), the
+    # refusal is printed and the phase goes on; any other failure fails.
+    refused = {errno.EACCES: "permission", errno.EPERM: "permission",
+               errno.ENODEV: "no perf events", errno.ENOENT: "no perf events",
+               errno.ENOSYS: "no perf events",
+               errno.EOPNOTSUPP: "no perf events"}
+    paranoid = Path("/proc/sys/kernel/perf_event_paranoid")
+    paranoid = int(paranoid.read_text()) if paranoid.exists() else None
+    try:
+        live.PerfEventSampler(frequency_hz=99, window_s=0.1).close()
+    except live.SamplerUnavailable as e:
+        if e.errno not in refused:
+            raise
+        why = {"permitted": False, "errno": e.errno,
+               "errno_name": errno.errorcode.get(e.errno),
+               "reason": refused[e.errno], "perf_event_paranoid": paranoid}
+        print("perf: " + json.dumps(why), flush=True)
+        emit("live_perf_cli", **why)
+        return launches
+    perf = live_cli(dev, "live_perf", ["--capture", "perf", "--aggregator",
+                                       "dict", "--fast-encode",
+                                       "--streaming-window"], LIVE_PERF_S)
+    add(perf["launches"])
+    cap = perf["lines"][-1]["capture"]
+    emit("live_perf_cli", permitted=True, perf_event_paranoid=paranoid,
+         **perf)
+    if cap["source"] != "perf" or not cap["hash_carry"] \
+            or cap["streaming"]["windows_streamed"] < 1 \
+            or cap["streaming"]["drains_fed"] < 1 \
+            or perf["launches"]["feed_accumulate"] < 1:
+        raise AssertionError(f"the perf CLI: {cap}, {perf['launches']}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
@@ -3881,8 +4307,9 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, dev, ref)
     timed("close_kernels", phase_close_kernels, dev, close_refs)
     snap, want = timed("main_path_setup", window_setup)
+    vec_rec = VecRecorder()
     launches, state, hashes = timed("main_path", phase_main_path, dev, snap,
-                                    want, STEADY_WINDOWS, ref)
+                                    want, STEADY_WINDOWS, ref, vec_rec)
     rows.update(timed("one_shot", phase_one_shot, dev, snap, want, rh_refs))
     bounded, launches_cm = timed("bounded", phase_bounded, dev, snap, hashes,
                                  state, close_refs)
@@ -3895,18 +4322,20 @@ def main() -> int:
     fleet_rows, launches_fleet = timed("fleet", phase_fleet, dev, snap,
                                        hashes, sketch_ref, fleet_ref)
     rows.update(fleet_rows)
+    launches_live = timed("live", phase_live, dev, snap, hashes, vec_rec)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
     # bounded-memory dictionary (phase 6), the streaming window (phase 7),
-    # the sharded dictionary (phase 8) and the fleet merge (phase 9).
-    # `launches` is their sum.
+    # the sharded dictionary (phase 8), the fleet merge (phase 9) and
+    # the CLI on the live machine (phase 10). `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
                "dict_cm": launches_cm,
                "streaming": launches_stream,
                "sharded": launches_sharded,
-               "fleet": launches_fleet}
+               "fleet": launches_fleet,
+               "live": launches_live}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

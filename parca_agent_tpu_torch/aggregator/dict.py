@@ -783,41 +783,20 @@ class DictAggregator:
                 h1c, h2c, h3c, w64, rows_map = self._coalesce_triples(
                     h1c, h2c, h3c, w64, rows_map)
         else:
-            # Self-hash. The numpy row hash pays O(rows x lanes) per
-            # hashed row, so the fold runs FIRST — on raw row content,
-            # the same equality the triple keys (modulo hash collisions
-            # the aggregator already tolerates) — and only
-            # representatives get hashed.
-            if n > 1:
-                t0 = time.perf_counter()
-                sl = slice(lo, hi)
-                depth = (np.asarray(snapshot.user_len[sl], np.int64)
-                         + np.asarray(snapshot.kernel_len[sl], np.int64))
-                md = int(depth.max(initial=0))
-                rec = np.empty((n, 3 + md), np.uint64)
-                rec[:, 0] = np.asarray(snapshot.pids[sl],
-                                       np.int64).view(np.uint64)
-                rec[:, 1] = np.asarray(snapshot.user_len[sl], np.uint64)
-                rec[:, 2] = np.asarray(snapshot.kernel_len[sl], np.uint64)
-                if md:
-                    rec[:, 3:] = snapshot.stacks[sl, :md]
-                folded = fold_rows_first_seen(
-                    rec.view(np.dtype((np.void, (3 + md) * 8))).ravel(), w64)
-                if folded is not None:
-                    rep, _inv, w64 = folded
-                    rows_map = rows_map[rep]
-                self.stats["coalesce_rows_in"] = \
-                    self.stats.get("coalesce_rows_in", 0) + n
-                self.stats["coalesce_rows_out"] = \
-                    self.stats.get("coalesce_rows_out", 0) + len(rows_map)
-                self.timings["feed_coalesce"] = time.perf_counter() - t0
+            # Self-hash. The native row hash walks only each row's live
+            # depth, so every row is hashed, then the batch folds by
+            # triple (the order parca_agent_tpu takes with its native
+            # hash), then the carry matches the representatives.
             t0 = time.perf_counter()
+            sl = slice(lo, hi)
             h1c, h2c, h3c = row_hash_np(
-                np.ascontiguousarray(snapshot.stacks[rows_map]),
-                snapshot.pids[rows_map], snapshot.user_len[rows_map],
-                snapshot.kernel_len[rows_map], n_hashes=3)
-            h2c = self._route_hashes(h1c, h2c, h3c, snapshot.pids[rows_map])
+                snapshot.stacks[sl], snapshot.pids[sl],
+                snapshot.user_len[sl], snapshot.kernel_len[sl], n_hashes=3)
+            h2c = self._route_hashes(h1c, h2c, h3c, snapshot.pids[sl])
             self.timings["feed_hash"] = time.perf_counter() - t0
+            if n > 1:
+                h1c, h2c, h3c, w64, rows_map = self._coalesce_triples(
+                    h1c, h2c, h3c, w64, rows_map)
             keep = self._carry_match(h1c, h2c, h3c, w64)
             if keep is not None:
                 h1c, h2c, h3c = h1c[keep], h2c[keep], h3c[keep]
@@ -898,7 +877,7 @@ class DictAggregator:
 
     def _route_hashes(self, h1, h2, h3, pids):
         """Rewrite hook for identity triples computed outside hash_rows
-        (capture-carried hashes, post-fold representative hashing): an
+        (capture-carried hashes, the feed's own row hash): an
         aggregator that re-routes identity lanes applies the same rewrite
         here so carried and self-hashed triples agree bit for bit.
         Returns the (possibly rewritten) h2 lane: the sharded dictionary

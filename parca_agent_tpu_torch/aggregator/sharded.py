@@ -248,7 +248,7 @@ class ShardedDictAggregator(DictAggregator):
     def _route_hashes(self, h1, h2, h3, pids):
         # The one place of the h2 rewrite: hash_rows and every triple
         # computed elsewhere (capture-carried hashes, the feed's
-        # representative hashing) come through here.
+        # own row hash) come through here.
         if self._shard_of_pid is not None:
             return route_h2(h2, pids, self._shard_of_pid, self._n_shards)
         return h2

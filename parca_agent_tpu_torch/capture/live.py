@@ -1,27 +1,161 @@
-"""Drain columns to window snapshots.
+"""Live capture over the native perf_event sampler, and the drain-column
+helpers.
 
-The port's copy of the two helpers of parca_agent_tpu's capture/live.py
-that the streaming feeder (profiler/streaming.py) runs on every drain:
-mapping_table_for_pids, the per-drain mapping table from shared maps and
-object caches, and columns_to_snapshot, which folds a drain's columns
-into a counted WindowSnapshot. The perf sampler and the native record
-decoders are not ported (the port has no live capture source); without
-a quarantine registry, an error from a maps read other than OSError
-propagates, as in the original without one.
+The port's copy of parca_agent_tpu's capture/live.py in FP mode. The
+sampler (native/sampler.cc, built with g++ at first use and loaded with
+ctypes) opens one perf event a CPU with kernel and frame-pointer user
+call chains (PERF_SAMPLE_CALLCHAIN). Once a second it drains the rings
+with the dedup drain, which folds repeats of a record into a count, and
+with the hash-carrying drain (v1h) stamps each unique record with the
+dictionary's identity triple h1/h2/h3, computed from the tables
+ops/hashing.py hash_params installs (pa_sampler_set_hash), so the
+carried triple equals row_hash_np's bits. Each drain's columns go to the
+``on_drain`` tee (the streaming feeder) as they land; at the window's
+end they become one counted WindowSnapshot (columns_to_snapshot), joined
+with the live /proc mapping table (mapping_table_for_pids).
+
+Drain overflow is lossless: the native side returns the records that fit
+and keeps the rest in the rings (truncation counter incremented); the
+drain loops until nothing was left behind.
+
+Differences from the original, by design: DWARF mode (capture_stack=True,
+the unwind table cache) is not ported and raises NotImplementedError;
+the hash carry is required in FP mode unless PARCA_NO_CAPTURE_HASH is set
+(the port always builds the sampler from its own source, which has it);
+an ``on_drain`` tee that raises propagates out of poll(), as the port's
+feeder does; and a failed native build or load raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+import re
+import struct
 import time
 
 import numpy as np
 
+from parca_agent_tpu_torch import native
 from parca_agent_tpu_torch.capture.formats import (
+    MAX_STACK_DEPTH,
     STACK_SLOTS,
     MappingTable,
     WindowSnapshot,
+    filter_snapshot_rows,
 )
-from parca_agent_tpu_torch.process.maps import build_mapping_table
+from parca_agent_tpu_torch.ops.hashing import hash_params
+from parca_agent_tpu_torch.process.maps import (
+    ProcessMapCache,
+    build_mapping_table,
+)
+from parca_agent_tpu_torch.process.objectfile import ObjectFileCache
+
+
+class SamplerUnavailable(RuntimeError):
+    """The kernel refused the perf events (opening, enabling or draining
+    them); ``errno`` says why (EACCES or EPERM: no permission)."""
+
+    def __init__(self, msg: str, errno: int = 0):
+        super().__init__(msg)
+        self.errno = errno
+
+
+def build_native() -> str:
+    """The sampler library's path, compiled first if it has no current
+    build. A failed build raises RuntimeError with the compiler's
+    output."""
+    return str(native.ensure_built("sampler"))
+
+
+def load_native() -> ctypes.CDLL:
+    """The loaded sampler library, every entry point typed."""
+    return native.load("sampler")
+
+
+def decode_records(buf: bytes) -> list[tuple[int, int, np.ndarray, np.ndarray]]:
+    """Packed v1 drain buffer -> [(pid, tid, kernel_frames, user_frames)]."""
+    out = []
+    pos = 0
+    n = len(buf)
+    while pos + 16 <= n:
+        pid, tid, nk, nu = struct.unpack_from("<IIII", buf, pos)
+        pos += 16
+        if nk + nu > MAX_STACK_DEPTH or pos + 8 * (nk + nu) > n:
+            break  # corrupt/truncated tail
+        frames = np.frombuffer(buf, np.uint64, nk + nu, pos)
+        pos += 8 * (nk + nu)
+        out.append((pid, tid, frames[:nk], frames[nk:]))
+    return out
+
+
+def decode_records_v2(buf: bytes) -> list[
+        tuple[int, int, np.ndarray, np.ndarray, int, int, int, np.ndarray]]:
+    """Packed v2 drain buffer (the DWARF mode's records) ->
+    [(pid, tid, kframes, uframes, rip, rsp, rbp, stack_bytes)]."""
+    out = []
+    pos = 0
+    n = len(buf)
+    while pos + 48 <= n:
+        pid, tid, nk, nu = struct.unpack_from("<IIII", buf, pos)
+        rip, rsp, rbp, dyn, _pad = struct.unpack_from(
+            "<QQQII", buf, pos + 16)
+        pos += 48
+        dyn_pad = (dyn + 7) & ~7
+        if nk + nu > MAX_STACK_DEPTH or pos + 8 * (nk + nu) + dyn_pad > n:
+            break  # corrupt/truncated tail
+        frames = np.frombuffer(buf, np.uint64, nk + nu, pos)
+        pos += 8 * (nk + nu)
+        stack = np.frombuffer(buf, np.uint8, dyn, pos)
+        pos += dyn_pad
+        out.append((pid, tid, frames[:nk], frames[nk:], rip, rsp, rbp,
+                    stack))
+    return out
+
+
+def _decode_columnar(lib, kind: str, buf, nbytes: int, extra: tuple):
+    """One native pass of the ``kind`` decoder (v1, v1d, v1h) over the
+    first ``nbytes`` of ``buf`` (bytes or a ctypes buffer) into columnar
+    arrays: pids, tids, ulen, klen, then the ``extra`` columns (dtypes),
+    then stacks [n, STACK_SLOTS] with user frames first per row (the
+    WindowSnapshot contract; the drain packs kernel frames first)."""
+    src = np.frombuffer(buf, np.uint8, nbytes)
+    n = int(getattr(lib, f"pa_decode_{kind}_count")(
+        src.ctypes.data, nbytes, STACK_SLOTS))
+    cols = [np.zeros(n, np.int32) for _ in range(4)]
+    cols += [np.zeros(n, dt) for dt in extra]
+    stacks = np.zeros((n, STACK_SLOTS), np.uint64)
+    if n:
+        got = int(getattr(lib, f"pa_decode_{kind}")(
+            src.ctypes.data, nbytes, *(c.ctypes.data for c in cols),
+            stacks.ctypes.data, STACK_SLOTS, n))
+        if got != n:
+            raise RuntimeError(f"pa_decode_{kind} decoded {got} of {n} "
+                               "records")
+    return (*cols[:4], stacks, *cols[4:])
+
+
+def decode_records_columnar(lib, buf, nbytes: int) -> tuple:
+    """Native one-pass v1 decode. Returns (pids, tids, ulen, klen,
+    stacks)."""
+    return _decode_columnar(lib, "v1", buf, nbytes, ())
+
+
+def decode_records_columnar_v1d(lib, buf, nbytes: int) -> tuple:
+    """Native one-pass v1d decode (dedup-drain records, 24-byte header
+    with a count field). Returns (pids, tids, ulen, klen, stacks,
+    counts)."""
+    return _decode_columnar(lib, "v1d", buf, nbytes, (np.int64,))
+
+
+def decode_records_columnar_v1h(lib, buf, nbytes: int) -> tuple:
+    """Native one-pass v1h decode (hash-carrying dedup-drain records,
+    32-byte header with count + h1/h2/h3). Returns (pids, tids, ulen,
+    klen, stacks, counts, h1, h2, h3); the triple equals row_hash_np's
+    over the decoded row (the drain computed it with the same installed
+    tables)."""
+    return _decode_columnar(lib, "v1h", buf, nbytes,
+                            (np.int64, np.uint32, np.uint32, np.uint32))
 
 
 def mapping_table_for_pids(maps_cache, objs_cache, pids) -> MappingTable:
@@ -119,3 +253,244 @@ def columns_to_snapshot(
     if hashes is not None:
         return snap, tuple(h[first] for h in hashes)
     return snap
+
+
+def records_to_snapshot(
+    records, mappings: MappingTable, period_ns: int, window_ns: int,
+) -> WindowSnapshot:
+    """Tuple-record variant of columns_to_snapshot: [(pid, tid,
+    kernel_frames, user_frames)] -> a counted snapshot."""
+    n = len(records)
+    pids = np.zeros(n, np.int32)
+    tids = np.zeros(n, np.int32)
+    ulen = np.zeros(n, np.int32)
+    klen = np.zeros(n, np.int32)
+    stacks = np.zeros((n, STACK_SLOTS), np.uint64)
+    for i, (pid, tid, kframes, uframes) in enumerate(records):
+        # perf carries pid/tid as u32 (-1 = unattributable); store with
+        # int32 wraparound semantics like the native columnar decoder,
+        # so columns_to_snapshot's negative-pid drop sees them as -1.
+        pids[i] = pid if pid < 2**31 else pid - 2**32
+        tids[i] = tid if tid < 2**31 else tid - 2**32
+        nu, nk = len(uframes), len(kframes)
+        ulen[i] = nu
+        klen[i] = nk
+        # formats.py contract: user frames first, then kernel tail.
+        stacks[i, :nu] = uframes
+        stacks[i, nu:nu + nk] = kframes
+    return columns_to_snapshot(pids, tids, ulen, klen, stacks,
+                               mappings, period_ns, window_ns)
+
+
+class PerfEventSampler:
+    """Capture source: poll() blocks one window, draining the rings once
+    a second, then returns the window's snapshot.
+
+    Raises SamplerUnavailable (with the errno) when the kernel refuses
+    the perf events, RuntimeError when the native build or the hash
+    tables' install fails, and NotImplementedError for DWARF mode."""
+
+    def __init__(self, frequency_hz: int = 100, window_s: float = 10.0,
+                 drain_cap_mb: int = 64, capture_stack: bool = False):
+        if capture_stack:
+            raise NotImplementedError(
+                "DWARF mode (capture_stack=True) is not ported: the port's "
+                "sampler runs FP mode only")
+        self._lib = load_native()
+        self._freq = frequency_hz
+        self._window = window_s
+        self._cap = drain_cap_mb << 20
+        self._maps = ProcessMapCache()
+        self._objs = ObjectFileCache()
+        # One reusable drain buffer: only the n written bytes of a drain
+        # are read back.
+        self._drainbuf = (ctypes.c_uint8 * self._cap)()
+        # (lost, truncated, dedup, dd_overflow) snapshotted at close
+        self._final_counters = (0, 0, 0, 0)
+        # The per-drain tee: called on the polling thread with each
+        # drain's columns, so a streaming consumer (the window feeder)
+        # ships them to the card during the window.
+        self.on_drain = None
+        self.capture_stack = False
+        ctypes.set_errno(0)
+        self._handle = self._lib.pa_sampler_create2(frequency_hz, 0, 0)
+        if not self._handle:
+            err = ctypes.get_errno()
+            raise SamplerUnavailable(
+                f"perf_event_open failed (errno {err}, "
+                f"{os.strerror(err)}): needs CAP_PERFMON or "
+                "kernel.perf_event_paranoid <= 0", errno=err)
+        if self._lib.pa_sampler_start(self._handle) != 0:
+            err = ctypes.get_errno()
+            # Free the per-CPU perf fds before raising: the caller may
+            # degrade to another source and discard this object unclosed.
+            self._lib.pa_sampler_destroy(self._handle)
+            self._handle = None
+            raise SamplerUnavailable(
+                f"failed to enable perf events (errno {err})", errno=err)
+        self.n_cpus = self._lib.pa_sampler_n_cpus(self._handle)
+        # The drain-time hash carry: install the seeded multilinear
+        # tables so the v1h drain stamps each unique record with its
+        # h1/h2/h3 while its frames are hot. PARCA_NO_CAPTURE_HASH=1 pins
+        # the hashless v1d drain (the feeder then hashes on the host).
+        self.hash_carry = False
+        if not os.environ.get("PARCA_NO_CAPTURE_HASH"):
+            coefs, biases = hash_params(3, STACK_SLOTS)
+            if self._lib.pa_sampler_set_hash(
+                    self._handle, coefs.ctypes.data, coefs.shape[1],
+                    biases.ctypes.data, 3, STACK_SLOTS) != 0:
+                self.close()
+                raise RuntimeError("pa_sampler_set_hash refused the row "
+                                   "hash tables")
+            self.hash_carry = True
+
+    # Counter properties stay truthful after close(): the native handle
+    # is gone then, so close snapshots the final values.
+    @property
+    def lost_samples(self) -> int:
+        if self._handle:
+            return int(self._lib.pa_sampler_lost(self._handle))
+        return self._final_counters[0]
+
+    @property
+    def truncated_drains(self) -> int:
+        if self._handle:
+            return int(self._lib.pa_sampler_truncated(self._handle))
+        return self._final_counters[1]
+
+    @property
+    def dedup_hits(self) -> int:
+        """Samples merged into an existing row at the drain boundary."""
+        if self._handle:
+            return int(self._lib.pa_sampler_dedup_hits(self._handle))
+        return self._final_counters[2]
+
+    @property
+    def dedup_overflow(self) -> int:
+        """Records emitted without table registration because the dedup
+        probe chain saturated."""
+        if self._handle:
+            return int(self._lib.pa_sampler_dedup_overflow(self._handle))
+        return self._final_counters[3]
+
+    def _drain_columnar(self) -> list[tuple]:
+        """Lossless dedup drain with the native columnar decoder applied
+        per pass, straight off the reusable drain buffer: loops while the
+        native side reports records left behind for lack of buffer
+        space. Each chunk is (pids, tids, ulen, klen, stacks, counts),
+        followed by (h1, h2, h3) with the hash carry."""
+        if self.hash_carry:
+            drain = self._lib.pa_sampler_drain_dedup2
+            decode = decode_records_columnar_v1h
+        else:
+            drain = self._lib.pa_sampler_drain_dedup
+            decode = decode_records_columnar_v1d
+        cols = []
+        for _ in range(64):  # safety bound; one pass is the norm
+            before = self.truncated_drains
+            n = drain(self._handle, ctypes.addressof(self._drainbuf),
+                      self._cap)
+            if n < 0:
+                raise SamplerUnavailable(f"sampler drain failed ({n})")
+            if n:
+                cols.append(decode(self._lib, self._drainbuf, int(n)))
+            if self.truncated_drains == before:
+                break
+        return cols
+
+    def poll(self) -> WindowSnapshot:
+        deadline = time.monotonic() + self._window
+        # Drain mid-window too so a ring never wraps.
+        col_chunks: list[tuple] = []
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            time.sleep(min(1.0, remaining))
+            for chunk in self._drain_columnar():
+                col_chunks.append(chunk)
+                if self.on_drain is not None:
+                    self.on_drain(chunk)
+        cols = [np.concatenate([c[i] for c in col_chunks])
+                if col_chunks else z
+                for i, z in enumerate((
+                    np.zeros(0, np.int32), np.zeros(0, np.int32),
+                    np.zeros(0, np.int32), np.zeros(0, np.int32),
+                    np.zeros((0, STACK_SLOTS), np.uint64),
+                    np.zeros(0, np.int64)))]
+        table = mapping_table_for_pids(self._maps, self._objs,
+                                       np.unique(cols[0]).tolist())
+        return columns_to_snapshot(*cols[:5], table, int(1e9 / self._freq),
+                                   int(self._window * 1e9), weights=cols[5])
+
+    def close(self) -> None:
+        if self._handle:
+            self._final_counters = (self.lost_samples,
+                                    self.truncated_drains, self.dedup_hits,
+                                    self.dedup_overflow)
+            self._lib.pa_sampler_destroy(self._handle)
+            self._handle = None
+
+
+class CommFilterSource:
+    """Snapshot-source wrapper keeping only rows whose pid's comm matches
+    one of the given regexes (--debug-process-names). Whole-machine
+    capture stays on; rows are dropped at the window boundary, so the
+    filter composes with any source. Comm verdicts are cached per pid
+    with a TTL: pids get reused by the kernel and processes exec() into
+    new comms, so a verdict is a lease, not a fact (and the TTL also
+    bounds the cache under pid churn).
+
+    Drains tee'd mid-window (streaming) bypass this filter; the CLI
+    therefore runs debug-filtered sessions one-shot.
+    """
+
+    def __init__(self, source, patterns, read_comm=None,
+                 cache_ttl_s: float = 60.0, clock=time.monotonic):
+        self._source = source
+        self._regexes = [re.compile(p) for p in patterns if p]
+        self._cache: dict[int, tuple[bool, float]] = {}
+        self._ttl = cache_ttl_s
+        self._clock = clock
+
+        def _default_read(pid: int) -> str:
+            try:
+                with open(f"/proc/{pid}/comm", "rb") as f:
+                    return f.read().decode().strip()
+            except OSError:
+                return ""
+
+        self._read_comm = read_comm or _default_read
+
+    def __getattr__(self, name):
+        return getattr(self._source, name)
+
+    def _keep(self, pid: int, now: float) -> bool:
+        got = self._cache.get(pid)
+        if got is not None and now - got[1] < self._ttl:
+            return got[0]
+        comm = self._read_comm(pid)
+        verdict = any(r.search(comm) for r in self._regexes)
+        self._cache[pid] = (verdict, now)
+        return verdict
+
+    def poll(self):
+        snap = self._source.poll()
+        if snap is None or not len(snap) or not self._regexes:
+            return snap
+        now = self._clock()
+        uniq = np.unique(snap.pids)
+        if len(self._cache) > 4 * len(uniq) + 1024:
+            # Bound the cache under pid churn: drop expired leases.
+            self._cache = {p: v for p, v in self._cache.items()
+                           if now - v[1] < self._ttl}
+        kept = np.array([p for p in uniq.tolist()
+                         if self._keep(int(p), now)], np.int32)
+        if len(kept) == len(uniq):
+            return snap
+        return filter_snapshot_rows(snap, np.isin(snap.pids, kept))
+
+    def close(self) -> None:
+        close = getattr(self._source, "close", None)
+        if close is not None:
+            close()

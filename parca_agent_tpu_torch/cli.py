@@ -1,7 +1,8 @@
 """Command line: ``python -m parca_agent_tpu_torch``.
 
 Runs the profile-build loop of parca_agent_tpu's CLI for the subset this
-package carries: a capture source (synthetic or replay) -> window
+package carries: a capture source (synthetic, replay, or the real
+machine: perf_event call chains or procfs CPU ticks) -> window
 aggregation (the device-resident stack dictionary, fail-fast or in
 bounded memory, whole or split into home sub-tables; the one-shot window
 program; or the numpy CPUAggregator) -> per-pid pprof -> the local
@@ -10,6 +11,13 @@ comes from the vectorized window encoder, on an encode worker thread
 unless --no-encode-pipeline is given (profiler/cpu.py); with
 --statics-snapshot-path the worker also keeps a warm statics snapshot,
 which the next run adopts before its first window. With
+--streaming-window (perf capture, --fast-encode, a dictionary) each
+capture drain is fed to the card during the window and the close is one
+packed fetch (profiler/streaming.py). Live capture ships profiles
+unsymbolized, so it goes with --fast-encode: the port has no symbolizer
+yet. --capture perf degrades to procfs only when the kernel refuses
+perf_event_open (EACCES or EPERM); each window's JSON line names the
+source that ran. With
 --fleet-coordinator the agent joins a fleet of agent processes
 (torch.distributed: NCCL on the card, gloo with --device cpu) before any
 device work and runs the fleet merge actor beside the window loop: every
@@ -34,9 +42,25 @@ def build_parser() -> argparse.ArgumentParser:
         description="sampling CPU profiler agent: window aggregation on a "
                     "CUDA device with PyTorch")
     p.add_argument("--capture", default="synthetic",
-                   choices=["synthetic", "replay"],
-                   help="capture source: synthetic load, or replay of saved "
-                        "snapshots (--replay)")
+                   choices=["synthetic", "replay", "perf", "procfs"],
+                   help="capture source: synthetic load, replay of saved "
+                        "snapshots (--replay), or the real machine: perf "
+                        "= perf_event kernel + frame-pointer call chains "
+                        "of every CPU (needs CAP_PERFMON or "
+                        "kernel.perf_event_paranoid <= 0; refused, it "
+                        "degrades to procfs), procfs = per-process CPU "
+                        "ticks from /proc (depth-1 stacks at each "
+                        "process's entry point). Live capture ships "
+                        "unsymbolized profiles: use it with --fast-encode")
+    p.add_argument("--profiling-cpu-sampling-frequency", type=int,
+                   default=100,
+                   help="samples a second a CPU (perf), or the rate that "
+                        "procfs ticks are scaled to")
+    p.add_argument("--debug-process-names", default="",
+                   help="DEBUG: comma-separated comm regexes; only "
+                        "matching processes' samples are profiled. "
+                        "Filtered at the window boundary, so streaming "
+                        "feeds run one-shot")
     p.add_argument("--replay", nargs="*", default=[],
                    help="snapshot files for --capture=replay")
     p.add_argument("--windows", type=int, default=0,
@@ -64,6 +88,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "vectorized template encoder and ship profiles "
                         "unsymbolized (the server symbolizes, as with the "
                         "reference agent); disables local symbolization")
+    p.add_argument("--streaming-window", action="store_true",
+                   help="feed each capture drain to the card DURING the "
+                        "window (--capture perf, a dict aggregator, "
+                        "--fast-encode); the window's close is then one "
+                        "packed fetch, and a window whose fed mass "
+                        "differs from its snapshot's is re-aggregated")
+    p.add_argument("--no-feed-carry", action="store_true",
+                   help="disable the cross-drain carry cache of streamed "
+                        "windows (repeat stacks fold on the host and "
+                        "flush their mass once at close; exact either "
+                        "way). PARCA_NO_CAPTURE_HASH=1 separately pins the "
+                        "sampler's drain-time hash carry off")
     p.add_argument("--no-encode-pipeline", action="store_true",
                    help="disable the background encode pipeline (with "
                         "--fast-encode the default hands each closed "
@@ -149,6 +185,51 @@ class SyntheticSource:
         return generate(SyntheticSpec(seed=self._n))
 
 
+def live_source(args):
+    """The real machine's capture source and its name: perf, or procfs
+    when asked for or when the kernel refuses perf_event_open (EACCES or
+    EPERM, logged with the errno). Any other failure raises."""
+    import errno
+
+    from parca_agent_tpu_torch.capture.procfs import ProcfsSampler
+    from parca_agent_tpu_torch.utils.log import get_logger
+
+    if args.capture == "perf":
+        from parca_agent_tpu_torch.capture.live import (
+            PerfEventSampler,
+            SamplerUnavailable,
+        )
+
+        try:
+            return PerfEventSampler(
+                frequency_hz=args.profiling_cpu_sampling_frequency,
+                window_s=args.profiling_duration), "perf"
+        except SamplerUnavailable as e:
+            if e.errno not in (errno.EACCES, errno.EPERM):
+                raise
+            get_logger("cli").warn(
+                "perf_event_open refused; falling back to procfs capture",
+                errno=e.errno, error=str(e))
+    return ProcfsSampler(frequency_hz=args.profiling_cpu_sampling_frequency,
+                         window_s=args.profiling_duration), "procfs"
+
+
+def capture_stats(source, requested: str, capture: str, feeder) -> dict:
+    """The last line of a live run: the source asked for and the one that
+    ran, the perf sampler's counters and the streaming feeder's."""
+    out = {"requested": requested, "source": capture}
+    if capture == "perf":
+        out.update(hash_carry=source.hash_carry, n_cpus=source.n_cpus,
+                   lost_samples=source.lost_samples,
+                   truncated_drains=source.truncated_drains,
+                   dedup_hits=source.dedup_hits,
+                   dedup_overflow=source.dedup_overflow)
+    if feeder is not None:
+        out["streaming"] = {k: feeder.stats[k] for k in (
+            "drains_fed", "windows_streamed", "windows_fallback")}
+    return out
+
+
 def run(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.profiling_duration <= 0:
@@ -157,6 +238,9 @@ def run(argv=None) -> int:
                                                     "sharded"):
         raise SystemExit(
             "--fast-encode requires --aggregator dict/dict+cm/sharded")
+    if args.streaming_window and not args.fast_encode:
+        raise SystemExit("--streaming-window requires --fast-encode and a "
+                         "dict aggregator")
 
     from parca_agent_tpu_torch.agent.writer import FileProfileWriter
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
@@ -205,7 +289,8 @@ def run(argv=None) -> int:
                 coordinator=args.fleet_coordinator, error=repr(e))
             args.fleet_coordinator = ""
 
-    if args.capture == "replay":
+    capture = args.capture
+    if capture == "replay":
         from parca_agent_tpu_torch.capture.replay import ReplaySource
 
         if not args.replay:
@@ -214,19 +299,42 @@ def run(argv=None) -> int:
         first = load_snapshot(args.replay[0])
         period_ns = first.period_ns
         source = ReplaySource([first, *args.replay[1:]])
-    else:
+    elif capture == "synthetic":
         source = SyntheticSource(args.windows)
         period_ns = WindowSnapshot.period_ns  # generate() keeps the default
+    else:
+        source, capture = live_source(args)
+        period_ns = int(1e9 / args.profiling_cpu_sampling_frequency)
+
+    if args.debug_process_names:
+        from parca_agent_tpu_torch.capture.live import CommFilterSource
+
+        source = CommFilterSource(
+            source, [p.strip() for p in args.debug_process_names.split(",")])
+        if args.streaming_window:
+            # Drains teed mid-window bypass the boundary filter: the fed
+            # mass would never match the filtered snapshot.
+            get_logger("cli").warn(
+                "--debug-process-names filters at the window boundary; "
+                "running one-shot (streaming disabled)")
+            args.streaming_window = False
+    streaming = args.streaming_window and hasattr(source, "on_drain")
+    if args.streaming_window and not streaming:
+        get_logger("cli").warn("--streaming-window needs --capture perf; "
+                               "running one-shot", capture=capture)
+    carry = streaming and not args.no_feed_carry
 
     if args.aggregator in ("dict", "dict+cm"):
         # "dict" fails fast at capacity; "dict+cm" degrades to the
         # count-min sideband and rotates cold stacks. The rotation age is
         # 6 reference (10 s) windows of wall time at any cadence.
+        # The cross-drain carry cache pays only when a window spans
+        # several feeds, i.e. under --streaming-window.
         aggregator = DictAggregator(
             capacity=args.aggregator_capacity,
             overflow="sketch" if args.aggregator == "dict+cm" else "raise",
             rotate_min_age=windows_for(6, args.profiling_duration),
-            device=device)
+            device=device, carry=carry)
     elif args.aggregator == "sharded":
         import torch
 
@@ -244,7 +352,7 @@ def run(argv=None) -> int:
                 devices=n_dev, shards=n_shards)
         aggregator = ShardedDictAggregator(
             capacity=args.aggregator_capacity, n_shards=n_shards,
-            overflow="sketch", device=device)
+            overflow="sketch", device=device, carry=carry)
     elif args.aggregator == "tpu":
         aggregator = TPUAggregator(device=device)
     else:
@@ -257,7 +365,8 @@ def run(argv=None) -> int:
         """One JSON line a window, once its profiles are written (by the
         encode worker for a pipelined window)."""
         line = {"window": rec["window"], "device": str(device),
-                "aggregator": args.aggregator, "rows": rec["rows"],
+                "capture": capture, "aggregator": args.aggregator,
+                "rows": rec["rows"],
                 "samples": rec["samples"], "profiles": rec["profiles"],
                 "mass": rec["mass"],
                 "aggregate_ms": round(rec["aggregate_ms"], 3)}
@@ -267,6 +376,8 @@ def run(argv=None) -> int:
         line["window_ms"] = round(rec["window_ms"], 3)
         if "handoff_ms" in rec:
             line["handoff_ms"] = round(rec["handoff_ms"], 3)
+        if "streamed" in rec:
+            line["streamed"] = rec["streamed"]
         with print_mu:
             print(json.dumps(line), flush=True)
 
@@ -311,17 +422,30 @@ def run(argv=None) -> int:
                 args.statics_snapshot_path,
                 max_age_s=args.statics_snapshot_max_age or None)
 
-    profiler = None
+    profiler = feeder = None
     if args.fast_encode:
         from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
 
+        if streaming:
+            from parca_agent_tpu_torch.profiler.streaming import (
+                StreamingWindowFeeder,
+            )
+
+            # The feeder maps each drain's pids through the sampler's own
+            # caches; the statics prebuild's period is seeded so the
+            # first window is amortized too.
+            feeder = StreamingWindowFeeder(
+                aggregator, source._maps, source._objs,
+                prebuild_period_ns=period_ns)
+            source.on_drain = feeder.on_drain
         profiler = CPUProfiler(source, aggregator, profile_writer=writer,
                                encode_pipeline=not args.no_encode_pipeline,
                                statics_cache_bytes=args.statics_cache_bytes,
                                on_window=emit, statics_store=statics_store,
                                statics_snapshot_every=max(
                                    1, args.statics_snapshot_interval),
-                               window_sink=window_sink)
+                               window_sink=window_sink,
+                               streaming_feeder=feeder)
         if statics_store is not None:
             # Adopt the previous run's snapshot before anything touches
             # the aggregator or the encoder (registries install only into
@@ -385,6 +509,12 @@ def run(argv=None) -> int:
                     print(json.dumps({"statics_snapshot": {
                         k: st[k] for k in keys}}), flush=True)
         finally:
+            close_source = getattr(source, "close", None)
+            if close_source is not None:
+                close_source()
+            if capture in ("perf", "procfs"):
+                print(json.dumps({"capture": capture_stats(
+                    source, args.capture, capture, feeder)}), flush=True)
             if fleet_merger is not None:
                 # A round in flight finishes (or hits its collective bound)
                 # before the actor sees the stop.

@@ -9,6 +9,12 @@ coefficient tables come from fixed numpy seeds, so hashes are stable
 across processes, hosts and packages: parca_agent_tpu's row hash (its
 numpy path and its native kernel) gives the same bits for the same rows.
 
+The host row hash, row_hash_np, runs the port's own C++ pass
+(native/vecenc.cc pa_row_hash), which walks only each row's live prefix;
+its numpy lane-matrix version stays as the plain version and runs only
+when a caller asks for it (impl="numpy"). A failed build or load of the
+C++ pass raises.
+
 mix32, multilinear_hash_u32 and fold_u64_rows take numpy arrays or torch
 tensors and answer in kind, as parca_agent_tpu's take numpy or jax arrays.
 Torch has no uint32 arithmetic to rely on (int32 ``>>`` is arithmetic,
@@ -133,9 +139,9 @@ def fold_u64_rows(hi, lo, extra=None):
 
 def hash_params(n_hashes: int, slots: int):
     """Contiguous (coefs [n_hashes, 2*slots+3], biases [n_hashes]) slices
-    of the seeded multilinear family — the tables a capture source that
-    stamps h1/h2/h3 at drain time installs so its carry matches
-    row_hash_np bit for bit."""
+    of the seeded multilinear family: the tables the native row hash
+    reads and the perf sampler installs (pa_sampler_set_hash), so its
+    drain-time h1/h2/h3 match row_hash_np bit for bit."""
     if not 1 <= n_hashes <= N_FAMILIES:
         raise ValueError(f"n_hashes out of range: {n_hashes}")
     k = 2 * slots + 3
@@ -145,11 +151,64 @@ def hash_params(n_hashes: int, slots: int):
             np.ascontiguousarray(_BIASES[:n_hashes]))
 
 
+def native_hash_available() -> bool:
+    """True once the native row hash (native/vecenc.cc pa_row_hash) is
+    built and loaded: the only row hash the port's host paths run. A
+    failed build or load raises; there is no numpy fallback."""
+    from parca_agent_tpu_torch import native
+
+    native.load("vecenc")
+    return True
+
+
+def _row_hash_native(stacks_u64: np.ndarray, pids, user_len, kernel_len,
+                     n_hashes: int):
+    from parca_agent_tpu_torch import native
+
+    lib = native.load("vecenc")
+    stacks = np.ascontiguousarray(stacks_u64, np.uint64)
+    n, slots = stacks.shape
+    k = 2 * slots + 3
+    if k > _MAX_LANES:
+        raise ValueError(f"too many lanes to hash: {k} > {_MAX_LANES}")
+    pids_u = np.ascontiguousarray(pids, np.uint32)
+    ulen_u = np.ascontiguousarray(user_len, np.uint32)
+    klen_u = np.ascontiguousarray(kernel_len, np.uint32)
+    if not len(pids_u) == len(ulen_u) == len(klen_u) == n:
+        raise ValueError("row hash columns disagree in length")
+    depth = np.ascontiguousarray(
+        np.asarray(user_len, np.int64) + np.asarray(kernel_len, np.int64),
+        np.int32)
+    coefs, biases = hash_params(n_hashes, slots)
+    out = np.empty((n_hashes, n), np.uint32)
+    bad = lib.pa_row_hash(
+        stacks.ctypes.data, n, slots, pids_u.ctypes.data,
+        ulen_u.ctypes.data, klen_u.ctypes.data, depth.ctypes.data,
+        coefs.ctypes.data, coefs.shape[1], biases.ctypes.data, n_hashes,
+        out.ctypes.data)
+    if bad != -1:
+        raise RuntimeError("pa_row_hash refused its layout")
+    return tuple(out)
+
+
 def row_hash_np(stacks_u64: np.ndarray, pids, user_len, kernel_len,
-                n_hashes: int = 2):
+                n_hashes: int = 2, impl: str = "native"):
     """Hash every padded snapshot row [pid | user_len | kernel_len |
-    frames] with families 0..n_hashes-1; returns a tuple of uint32 [N]."""
+    frames] with families 0..n_hashes-1; returns a tuple of uint32 [N].
+
+    impl="native" (the default) runs the C++ pass, which reads each row's
+    live prefix only (user_len + kernel_len slots): rows must be zero
+    past their depth, as the WindowSnapshot contract has them, for its
+    bits to equal the lane matrix's. impl="numpy" runs the plain
+    lane-matrix version over every slot."""
+    if not 1 <= n_hashes <= N_FAMILIES:
+        raise ValueError(f"n_hashes out of range: {n_hashes}")
     stacks_u64 = np.asarray(stacks_u64, np.uint64)
+    if impl == "native":
+        return _row_hash_native(stacks_u64, pids, user_len, kernel_len,
+                                n_hashes)
+    if impl != "numpy":
+        raise ValueError(f"impl must be 'native' or 'numpy', got {impl!r}")
     hi = (stacks_u64 >> np.uint64(32)).astype(np.uint32)
     lo = stacks_u64.astype(np.uint32)
     lanes = fold_u64_rows(

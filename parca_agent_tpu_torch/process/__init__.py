@@ -1,2 +1,4 @@
-"""Process mappings: the per-window mapping table built from each pid's
-executable mappings (process/maps.py)."""
+"""Process address spaces: /proc/PID/maps parsing and caching, the
+per-window mapping table (process/maps.py), and the object-file cache
+that gives each mapping its build id and normalization base
+(process/objectfile.py)."""

@@ -1,11 +1,13 @@
-"""The per-window mapping table build from per-pid mappings.
+"""/proc/PID/maps parsing and the per-window mapping table build.
 
-The port's copy of the two pieces of parca_agent_tpu's process/maps.py
-that the streaming feeder runs: ProcMapping (one row of /proc/PID/maps)
-and build_mapping_table, which folds the executable file-backed
-mappings of many pids into one (pid, start)-sorted MappingTable. The
-/proc parser and its per-pid cache are not ported (the port has no live
-capture); callers hand in mapping lists from their own source.
+The port's copy of parca_agent_tpu's process/maps.py: parse the text
+maps file (ProcMapping rows), cache each pid's mappings with content-hash
+invalidation (ProcessMapCache), and fold the executable file-backed
+mappings of many pids into one (pid, start)-sorted MappingTable
+(build_mapping_table), each row's normalization base from the mapped
+ELF when an object cache is given. The quarantine registry of the
+original is not ported: a poisoned maps file raises MapsError (a
+PoisonInput) to the caller.
 """
 
 from __future__ import annotations
@@ -15,12 +17,30 @@ import dataclasses
 import numpy as np
 
 from parca_agent_tpu_torch.capture.formats import MappingTable
+from parca_agent_tpu_torch.utils import faults
+from parca_agent_tpu_torch.utils.filehash import hash_bytes
 from parca_agent_tpu_torch.utils.log import get_logger
+from parca_agent_tpu_torch.utils.poison import PoisonInput, read_bounded
+from parca_agent_tpu_torch.utils.vfs import VFS, RealFS
 
 _log = get_logger("maps")
 
 # Pseudo-paths that are never ELF objects.
 _SPECIAL = ("[vdso]", "[vsyscall]", "[stack]", "[heap]", "[anon", "[uprobes]")
+
+
+class MapsError(PoisonInput):
+    site = "maps.parse"
+
+
+# Poison caps: the busiest real processes sit around tens of thousands of
+# mappings (the kernel's own default cap is vm.max_map_count = 65530); a
+# maps file past these is a resource bomb from a hostile or broken
+# process (a fake /proc in its mount namespace), not a map. The byte cap
+# bounds the read itself.
+_MAX_ROWS = 262_144
+_MAX_BYTES = 32 << 20
+_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +61,73 @@ class ProcMapping:
     def file_backed(self) -> bool:
         return bool(self.path) and not self.path.startswith(_SPECIAL) \
             and self.inode != 0
+
+
+def parse_proc_maps(data: bytes) -> list[ProcMapping]:
+    """Parse maps lines: start-end perms offset dev inode [path].
+
+    Malformed lines are skipped; values are masked to 64 bits (a hostile
+    process can remount a fake /proc in its namespace — an out-of-range
+    address must not blow up the whole window's uint64 table build
+    downstream); a file past the row cap raises MapsError (PoisonInput)
+    so the caller can quarantine the pid."""
+    out = []
+    for line in data.splitlines():
+        parts = line.split(None, 5)
+        if len(parts) < 5:
+            continue
+        try:
+            start_s, end_s = parts[0].split(b"-")
+            start, end = int(start_s, 16), int(end_s, 16)
+            offset = int(parts[2], 16)
+            inode = int(parts[4])
+        except ValueError:
+            continue
+        if start < 0 or end < 0 or offset < 0:
+            continue
+        if len(out) >= _MAX_ROWS:
+            raise MapsError(f"maps file exceeds row cap ({_MAX_ROWS})")
+        path = parts[5].decode(errors="replace").strip() if len(parts) == 6 else ""
+        out.append(ProcMapping(start & _MASK64, end & _MASK64,
+                               parts[1].decode(errors="replace"),
+                               offset & _MASK64,
+                               parts[3].decode(errors="replace"),
+                               inode, path))
+    return out
+
+
+class ProcessMapCache:
+    """mappings_for_pid(pid) -> [ProcMapping], hash-invalidated per pid."""
+
+    def __init__(self, fs: VFS | None = None):
+        self._fs = fs or RealFS()
+        self._cache: dict[int, tuple[int, list[ProcMapping]]] = {}
+
+    def mappings_for_pid(self, pid: int) -> list[ProcMapping]:
+        """Raises OSError for exited/unreadable pids and PoisonInput
+        (MapsError or OversizedInput) for poisoned maps files."""
+        faults.inject("maps.parse")
+        data = read_bounded(self._fs, f"/proc/{pid}/maps", _MAX_BYTES,
+                            site="maps.parse")
+        h = hash_bytes(data)
+        cached = self._cache.get(pid)
+        if cached and cached[0] == h:
+            return cached[1]
+        maps = parse_proc_maps(data)
+        self._cache[pid] = (h, maps)
+        return maps
+
+    def evict(self, pid: int) -> None:
+        self._cache.pop(pid, None)
+
+    def executable_mappings(self, pid: int) -> list[ProcMapping]:
+        return [m for m in self.mappings_for_pid(pid)
+                if m.executable and m.file_backed]
+
+
+def host_path(pid: int, path: str) -> str:
+    """A target path seen through the target's mount namespace."""
+    return f"/proc/{pid}/root{path}"
 
 
 def build_mapping_table(

@@ -52,7 +52,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "runtime.trace", "utils.log", "tools.cold_window",
                 "process.maps", "capture.live", "pprof.statics_store",
                 "profiler.streaming", "parallel", "parallel.mesh",
-                "parallel.fleet", "parallel.distributed", "utils.bounded"):
+                "parallel.fleet", "parallel.distributed", "utils.bounded",
+                "native", "utils.vfs", "utils.poison", "utils.filehash",
+                "utils.faults", "elf", "elf.base", "elf.buildid",
+                "elf.reader", "process.objectfile", "capture.procfs"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
