@@ -107,8 +107,14 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                first steady window's last drain, the rows the carry left.
                The worker writes the statics snapshot after the
                last window; a fresh dictionary and encoder adopt it and
-               stream the last window again, whose bytes must equal a cold
-               encoder's for every pid.
+               stream the last window's first 2 drains again (whole pids),
+               whose bytes must equal a cold encoder's for every pid. The
+               runtime edges are the CLI's
+               at its defaults (the feeder's 3 s and 60 s first-feed
+               watchdogs, the 60 s device watchdog, the device-health and
+               quarantine registries, the flight recorder, device
+               telemetry): no feed may hang or fail, no window cool the
+               feeder down or fall back, no device wait hang.
   8. sharded   --aggregator sharded: ShardedDictAggregator(capacity 2^21,
                8 shards, overflow "sketch") on the card, 8 home
                sub-tables of 2^18 slots: a cold window of the bench
@@ -176,6 +182,26 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                drains fed, the hash carry on); where it refuses it for
                lack of permission or has no perf events, a line
                "perf: {...}" says so, with the errno.
+ 11. runtime   the runtime edges on the card: DictAggregator at bench.py's
+               option settings at full width — id_cap from bench.py's
+               formula (2^21, not capacity // 2), delta_fetch False and
+               True, coalesce False — each loaded from phase 4's state
+               without its per-pid location registries (the checks are
+               totals and per-pid masses) and fed the bench window, then
+               twice its first eighth of rows, 10 drains a window, each
+               window's total and every pid's mass held to the numpy
+               oracle; K1 and B2 launched in every arm, B3 in every arm but
+               delta_fetch=False (there never). Device telemetry installed
+               for the phase: every kernel's first-launch and launch
+               events, the H2D bytes equal to those the windows' rows
+               make (16 B a lane of each feed's power-of-two buffer) and
+               the D2H bytes to those each close pack's plan makes (its
+               lanes, block ids, sideband and counters), the identity
+               naming this card. The bring-up probe (a child
+               that launches the row hash kernel) timed; then the CLI with
+               an injected device.dispatch hang: it must exit non-zero
+               within --device-timeout plus a margin, the health snapshot
+               on its last line, the incident file written.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -240,6 +266,16 @@ DRAINS = 10
 # each CLI run.
 ARM_REPS = 3
 CLI_WINDOWS = 3
+# Phase 11: bench.py's id_cap at the bench window (`1 << (2*top -
+# 1).bit_length()`, bench.py:2394), the hang CLI's watchdog and the margin
+# its exit may take past it (interpreter start, the probe child, CUDA).
+RUNTIME_ID_CAP = 1 << (2 * ROWS - 1).bit_length()
+HANG_TIMEOUT_S = 5.0
+HANG_MARGIN_S = 90.0
+# The CLI runs of phases 5, 8 and 10 check their aggregators and skip the
+# bring-up probe child (~10 s each on the card host); phase 11 checks the
+# probe, alone and at the start of its CLI run.
+NO_PROBE = ("--device-probe-timeout", "0")
 
 
 def emit(phase: str, **fields) -> None:
@@ -1970,7 +2006,7 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
 
     # (d) The CLI entry on the card.
     with tempfile.TemporaryDirectory() as tmp:
-        rc = cli.run(["--aggregator", "tpu", "--windows", "2",
+        rc = cli.run([*NO_PROBE, "--aggregator", "tpu", "--windows", "2",
                       "--profiling-duration", "0.1",
                       "--local-store-directory", tmp])
         files = sorted(Path(tmp).glob("*.pb.gz"))
@@ -2033,7 +2069,8 @@ def start_cli(store: Path, *flags, period: float = 0.1):
     proc = subprocess.Popen(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
          "synthetic", "--windows", str(CLI_WINDOWS), "--profiling-duration",
-         str(period), "--local-store-directory", str(store), *flags],
+         str(period), "--local-store-directory", str(store), *NO_PROBE,
+         *flags],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     return proc, flags
@@ -2052,12 +2089,24 @@ def finish_cli(started) -> list:
     if proc.returncode != 0:
         raise AssertionError(f"CLI {' '.join(flags)}: rc {proc.returncode}: "
                              f"{err[-2000:]}")
-    lines = sorted((json.loads(ln) for ln in out.splitlines()
-                    if ln.startswith("{")), key=lambda ln: ln["window"])
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    runtime = [ln["runtime"] for ln in lines if "runtime" in ln]
+    lines = sorted((ln for ln in lines if "window" in ln),
+                   key=lambda ln: ln["window"])
     if [ln["window"] for ln in lines] != list(range(1, CLI_WINDOWS + 1)):
         raise AssertionError(f"CLI {' '.join(flags)}: windows "
                              f"{[ln['window'] for ln in lines]}")
+    cli_runtime_clean(f"CLI {' '.join(flags)}", runtime)
     return lines
+
+
+def cli_runtime_clean(label: str, runtime: list) -> None:
+    """A clean CLI run's one {"runtime": ...} exit line: no hang or
+    dispatch error under the default watchdogs, the card healthy."""
+    if len(runtime) != 1 or runtime[0]["watchdog"]["hangs"] \
+            or runtime[0]["watchdog"]["errors"] \
+            or runtime[0]["device"]["state"] != "healthy":
+        raise AssertionError(f"{label}: runtime lines {runtime}")
 
 
 
@@ -2215,7 +2264,11 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         aggs[name] = DictAggregator(capacity=CAP, overflow="sketch",
                                     rotate_min_age=ROTATE_MIN_AGE, device=d)
-        aggs[name].load_state(state)
+        # The twin is held to the card's ids, counts and sketch; the
+        # per-pid location registries serve only the card's encoder, and
+        # loading them takes tens of seconds.
+        aggs[name].load_state(state if name == "cuda"
+                              else {**state, "registries": {}})
     load_s = time.perf_counter() - t0
     agg, twin = aggs["cuda"], aggs["cpu"]
     if agg._next_id != agg._id_cap:
@@ -2418,12 +2471,16 @@ def phase_bounded(dev, snap, hashes, state, close_refs=None) -> dict:
 # window cut on pid boundaries (per-pid location registration is
 # batch-local), closed through the feeder; the encode pipeline's worker
 # writes the warm statics snapshot after the last window, and a restart
-# adopts it and streams the last window again. Capacity 2^22: the window's
-# 2^20 stacks plus the steady window's new ones exceed id_cap 2^20 of the
-# default 2^21 table under overflow "raise".
+# adopts it and streams the last window's first RESTART_DRAINS drains
+# again (whole pids: the adoption and the cold encoder's bytes are checked
+# on them; the re-insert of the whole window was depth, cut for the time
+# limit). Capacity 2^22: the window's 2^20 stacks plus the steady window's
+# new ones exceed id_cap 2^20 of the default 2^21 table under overflow
+# "raise".
 STREAM_CAP = 1 << 22
 STREAM_FRESH = 65_536
 STREAM_WINDOWS = 2
+RESTART_DRAINS = 2
 
 
 class MappedObject:
@@ -2512,10 +2569,15 @@ def phase_streaming(dev, snap, want) -> dict:
     StreamingWindowFeeder through the fast loop (CPUProfiler with the
     encode pipeline and a StaticsStore), STREAM_WINDOWS windows, then a
     restart that adopts the snapshot and streams the last window again.
+    The runtime edges are the CLI's, at its defaults: the feeder's and
+    the device watchdogs, the device-health and quarantine registries,
+    the flight recorder and device telemetry; no window may hang, fail
+    a feed, cool the feeder down or fall back to a re-aggregation.
     Every window's per-pid mass equals the numpy oracle's, every live
     pid has one blob, every 64th pid's blob parses to build_pprof's
     samples; the restart's bytes equal a cold encoder's for every pid.
     Returns the path's kernel launch counts."""
+    import dataclasses
     import tempfile
 
     import numpy as np
@@ -2530,6 +2592,12 @@ def phase_streaming(dev, snap, want) -> dict:
     from parca_agent_tpu_torch.profiler.streaming import (
         StreamingWindowFeeder,
     )
+    from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+    from parca_agent_tpu_torch.runtime import trace as trace_mod
+    from parca_agent_tpu_torch.runtime.device_health import (
+        DeviceHealthRegistry,
+    )
+    from parca_agent_tpu_torch.runtime.quarantine import QuarantineRegistry
 
     t0 = time.perf_counter()
     maps = WindowMaps(snap.mappings)
@@ -2672,26 +2740,52 @@ def phase_streaming(dev, snap, want) -> dict:
             "pprof_bytes": sum(len(b) for _, b in writer.blobs),
         }
 
+    # The CLI's runtime edges at its defaults (cli.py): the watchdogs'
+    # timeouts are the constructors' own.
+    health = DeviceHealthRegistry()
+    quarantine = QuarantineRegistry()
+    recorder = trace_mod.FlightRecorder()
+    telemetry = dtel.DeviceTelemetry(device=dev)
+
     def stack():
         agg = KeptAggregator(capacity=STREAM_CAP, overflow="raise",
                              device=dev, carry=True)
         feeder = KeptFeeder(agg, maps, maps,
-                            prebuild_period_ns=snap.period_ns)
+                            prebuild_period_ns=snap.period_ns,
+                            quarantine=quarantine)
         return agg, feeder
+
+    def profiler(src, agg, feeder, writer, store, records, every):
+        return CPUProfiler(src, agg, profile_writer=writer,
+                           statics_store=store, statics_snapshot_every=every,
+                           streaming_feeder=feeder, on_window=records.append,
+                           device_health=health, quarantine=quarantine,
+                           trace_recorder=recorder)
+
+    def runtime_clean(label, feeder, prof):
+        """The watchdogs' counts of a run at the defaults: all zero."""
+        got = {k: feeder.stats[k] for k in (
+            "feed_errors", "feed_hangs", "cooldowns", "windows_fallback")}
+        got["device_hangs"] = prof.watchdog.stats["hangs"]
+        got["device_errors"] = prof.watchdog.stats["errors"]
+        if any(got.values()) or health.state != "healthy":
+            raise AssertionError(f"{label} at the default watchdogs: {got}, "
+                                 f"device {health.snapshot()}")
+        return {**got, "feed_timeout_s": feeder._timeout,
+                "first_feed_timeout_s": feeder._first_timeout,
+                "device_timeout_s": prof.watchdog.timeout_s}
 
     kernel_rows = {}
     close_impls = {"kernel": (close.close_pack, close.close_pack_delta)}
     # Every count to 0 just before the path; read just after.
+    dtel.install(telemetry)
     probe.reset_launches()
     close.reset_launches()
     agg, feeder = stack()
     src = Source(feeder, agg, windows)
     writer, records = Writer(), []
     store = StaticsStore(path)
-    prof = CPUProfiler(src, agg, profile_writer=writer,
-                       statics_store=store,
-                       statics_snapshot_every=STREAM_WINDOWS,
-                       streaming_feeder=feeder, on_window=records.append)
+    prof = profiler(src, agg, feeder, writer, store, records, STREAM_WINDOWS)
     for w, (win, _bounds, _fresh) in enumerate(windows):
         row = run(agg, feeder, prof, src, writer, w, records)
         row.update(check(f"streaming window {w}", agg, win, feeder.kept,
@@ -2727,6 +2821,7 @@ def phase_streaming(dev, snap, want) -> dict:
             or st.get("carry_fallbacks", 0):
         raise AssertionError(f"streaming stats: {fs}, "
                              f"carry_fallbacks {st.get('carry_fallbacks')}")
+    watchdogs = {"run": runtime_clean("streaming run", feeder, prof)}
     saved = dict(store.stats)
     if saved["snapshots_written"] != 1 or saved["snapshot_write_errors"]:
         raise AssertionError(f"statics snapshot: {saved}")
@@ -2738,15 +2833,21 @@ def phase_streaming(dev, snap, want) -> dict:
     # The first run's dictionary and encoder go before the restart's.
     del prof, writer, records, src, feeder, agg
     # The restart: a fresh dictionary and encoder adopt the snapshot, then
-    # the last window streams again.
+    # the last window's first RESTART_DRAINS drains stream again.
     agg2, feeder2 = stack()
     win, bounds, fresh = windows[-1]
+    cut = bounds[RESTART_DRAINS]
+    win = dataclasses.replace(win, **{k: getattr(win, k)[:cut] for k in (
+        "pids", "tids", "counts", "user_len", "kernel_len", "stacks")})
+    bounds = bounds[:RESTART_DRAINS + 1]
+    restart_pids = set(np.unique(win.pids).tolist())
+    mass, extra = oracles[-1]
+    restart_oracle = ({p: m for p, m in mass.items() if p in restart_pids},
+                      extra)
     src2 = Source(feeder2, agg2, [(win, bounds, fresh)])
     writer2, records2 = Writer(), []
     store2 = StaticsStore(path)
-    prof2 = CPUProfiler(src2, agg2, profile_writer=writer2,
-                        statics_store=store2, statics_snapshot_every=1000,
-                        streaming_feeder=feeder2, on_window=records2.append)
+    prof2 = profiler(src2, agg2, feeder2, writer2, store2, records2, 1000)
     adopt = store2.adopt(agg2, prof2.encoder, snap.period_ns)
     if not adopt["adopted"] or adopt["corrupt"]:
         raise AssertionError(f"adoption: {adopt}")
@@ -2755,9 +2856,11 @@ def phase_streaming(dev, snap, want) -> dict:
              "statics_adopted_pids"], registries=len(agg2._pids))
     row = run(agg2, feeder2, prof2, src2, writer2, STREAM_WINDOWS, records2)
     prof2.close()
+    dtel.install(None)
+    watchdogs["restart"] = runtime_clean("streaming restart", feeder2, prof2)
     # Its bytes are held to a cold encoder's below, for every pid.
     row.update(check("restarted window", agg2, win, feeder2.kept,
-                     writer2.blobs, oracles[-1], pprof=False))
+                     writer2.blobs, restart_oracle, pprof=False))
     t0 = time.perf_counter()
     cold = WindowEncoder(agg2).encode(feeder2.kept, win.time_ns,
                                       win.window_ns, win.period_ns)
@@ -2774,6 +2877,13 @@ def phase_streaming(dev, snap, want) -> dict:
              "miss_settle_ms", "encode_ms", "statics_build_ms",
              "statics_bytes_built", "aggregate_ms")},
          bytes_equal_cold_encoder=True)
+    stages = recorder.percentiles()
+    emit("streaming_runtime", watchdogs=watchdogs,
+         trace_stats=dict(recorder.stats),
+         stage_ms={k: {q: v[q] for q in ("p50_ms", "max_ms", "count")}
+                   for k, v in stages.items()},
+         telemetry_stats=telemetry.snapshot()["stats"],
+         quarantine=quarantine.snapshot()["stats"])
     emit("streaming_path", launches=launches, feeder_stats=fs,
          carry={k: v for k, v in st.items() if k.startswith("carry_")},
          kernels={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
@@ -3143,8 +3253,8 @@ def sharded_cli() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = cli.run(["--aggregator", "sharded", "--fast-encode",
-                          "--windows", str(CLI_WINDOWS),
+            rc = cli.run([*NO_PROBE, "--aggregator", "sharded",
+                          "--fast-encode", "--windows", str(CLI_WINDOWS),
                           "--profiling-duration", "0.5",
                           "--local-store-directory", tmp])
         cli_s = time.perf_counter() - t0
@@ -3153,6 +3263,9 @@ def sharded_cli() -> None:
                    for _, v, _ in parse_pprof(f.read_bytes()).samples)
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()
              if ln.startswith("{")]
+    cli_runtime_clean("CLI --aggregator sharded",
+                      [ln["runtime"] for ln in lines if "runtime" in ln])
+    lines = [ln for ln in lines if "window" in ln]
     if rc != 0 or len(lines) != CLI_WINDOWS \
             or any(ln["mass"] != ln["samples"] for ln in lines) \
             or len(files) != sum(ln["profiles"] for ln in lines) \
@@ -4067,7 +4180,8 @@ def live_cli(dev, label: str, flags: list, seconds: int) -> dict:
             close.reset_launches()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
-                rc = cli.run([*flags, "--windows", str(LIVE_WINDOWS),
+                rc = cli.run([*NO_PROBE, *flags,
+                              "--windows", str(LIVE_WINDOWS),
                               "--profiling-duration", str(seconds),
                               "--local-store-directory", tmp])
             cli_s = time.perf_counter() - t0
@@ -4087,6 +4201,8 @@ def live_cli(dev, label: str, flags: list, seconds: int) -> dict:
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()
              if ln.startswith("{")]
     windows = [ln for ln in lines if "window" in ln]
+    cli_runtime_clean(f"CLI {' '.join(flags)}",
+                      [ln["runtime"] for ln in lines if "runtime" in ln])
     if rc != 0 or len(windows) != LIVE_WINDOWS or mass <= 0 \
             or burner.pid not in pids \
             or mass != sum(ln["mass"] for ln in windows):
@@ -4190,6 +4306,232 @@ def phase_live(dev, snap, hashes, vec_rec) -> dict:
             or cap["streaming"]["drains_fed"] < 1 \
             or perf["launches"]["feed_accumulate"] < 1:
         raise AssertionError(f"the perf CLI: {cap}, {perf['launches']}")
+    return launches
+
+
+def runtime_windows(snap):
+    """Phase 11's windows: the bench window, then twice its first eighth
+    of rows (few touched id blocks, so the second closes by delta)."""
+    import dataclasses
+
+    n = len(snap) // 8
+    hot = dataclasses.replace(
+        snap, pids=snap.pids[:n], tids=snap.tids[:n],
+        counts=snap.counts[:n], user_len=snap.user_len[:n],
+        kernel_len=snap.kernel_len[:n], stacks=snap.stacks[:n])
+    return [("full", snap, len(snap)), ("hot", hot, n), ("hot", hot, n)]
+
+
+def phase_runtime(dev, snap, want, state, hashes) -> dict:
+    """Phase 11 (module docs). Returns the phase's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+    from parca_agent_tpu_torch.runtime.device_health import subprocess_probe
+
+    class Counted(DictAggregator):
+        """While telemetry is installed, sums the bytes its close packs
+        must fetch, from each launch's plan and the buffer's layout
+        (close.py): the lanes of n_fetch ids (n_blk_buf blocks of 128 for
+        a delta close) at `width` bits, the block ids of a delta close,
+        the sideband's ids and values, the counters."""
+
+        d2h_want = 0
+
+        def _close_pack_dispatch(self, acc, n_fetch, width, n_over_buf):
+            if dtel.get() is not None:
+                self.d2h_want += 4 * (n_fetch * width // 32
+                                      + 2 * n_over_buf + 2)
+            return super()._close_pack_dispatch(acc, n_fetch, width,
+                                                n_over_buf)
+
+        def _close_delta_dispatch(self, acc, touch, n_fetch, width,
+                                  n_over_buf, n_blk_buf):
+            if dtel.get() is not None:
+                self.d2h_want += 4 * (n_blk_buf * 128 * width // 32
+                                      + n_blk_buf + 2 * n_over_buf + 4)
+            return super()._close_delta_dispatch(acc, touch, n_fetch, width,
+                                                 n_over_buf, n_blk_buf)
+
+    def drain_bounds(n):
+        return np.linspace(0, n, DRAINS + 1).astype(int)
+
+    def feed_bytes(n, coalesce: bool) -> int:
+        """The packed bytes a window of the bench's first n rows uploads
+        in DRAINS feeds, from its rows: each feed one [4, n_pad] uint32
+        buffer, n_pad the next power of two (16 at least) of the rows it
+        dispatches (its distinct identity triples when it coalesces)."""
+        total = 0
+        for lo, hi in zip(drain_bounds(n)[:-1], drain_bounds(n)[1:]):
+            nd = int(hi - lo)
+            if coalesce:
+                key = np.stack([h[lo:hi] for h in hashes[:3]], axis=1)
+                nd = len(np.unique(key, axis=0))
+            total += 16 << max(4, (nd - 1).bit_length())
+        return total
+
+    def feed_close(agg, win, n):
+        """One window of DRAINS feeds and its close: (counts, ms, the
+        feeds' dispatch ms summed, the close's ms)."""
+        bounds = drain_bounds(n)
+        disp = 0.0
+        t0 = time.perf_counter()
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            agg.feed(win, hashes, lo=int(lo), hi=int(hi))
+            disp += agg.timings.get("feed_dispatch", 0.0)
+        t1 = time.perf_counter()
+        counts = agg.close_window(copy=True)
+        t2 = time.perf_counter()
+        return counts, (t2 - t0) * 1e3, disp * 1e3, (t2 - t1) * 1e3
+
+    # Counts-only checks need no per-pid location registries, and
+    # load_state without them takes seconds, not tens of seconds.
+    lite = {**state, "registries": {}}
+    windows = runtime_windows(snap)
+    masses = {}
+    for kind, win, _n in windows:
+        m = np.bincount(win.pids.astype(np.int64),
+                        weights=win.counts.astype(np.float64))
+        masses[kind] = {int(p): int(m[p]) for p in np.flatnonzero(m)}
+    if masses["full"] != {p.pid: p.total() for p in want}:
+        raise AssertionError("phase 11's oracle differs from phase 4's")
+    arms = {"id_cap": dict(id_cap=RUNTIME_ID_CAP, overflow="raise"),
+            "delta_fetch_false": dict(overflow="raise", delta_fetch=False),
+            "delta_fetch_true": dict(overflow="raise", delta_fetch=True),
+            "coalesce_false": dict(id_cap=RUNTIME_ID_CAP, overflow="sketch",
+                                   coalesce=False)}
+    telemetry = dtel.DeviceTelemetry(device=dev)
+    dtel.install(telemetry)
+    launches = {"feed_accumulate": 0, "close_pack": 0, "close_pack_delta": 0}
+    h2d = d2h = 0
+    h2d_windows = {}   # (rows, coalesce) -> feed bytes, from the rows
+    try:
+        for arm, kw in arms.items():
+            agg = Counted(capacity=CAP, device=dev, **kw)
+            t0 = time.perf_counter()
+            agg.load_state(lite)
+            load_s = time.perf_counter() - t0
+            probe.reset_launches()
+            close.reset_launches()
+            rows = []
+            coalesce = kw.get("coalesce", True)
+            for w, (kind, win, n) in enumerate(windows):
+                key = (n, coalesce)
+                if key not in h2d_windows:
+                    h2d_windows[key] = feed_bytes(n, coalesce)
+                h2d += h2d_windows[key]
+                counts, ms, _disp, _close = feed_close(agg, win, n)
+                if int(counts.sum()) != win.total_samples():
+                    raise AssertionError(f"runtime {arm} window {w}: total "
+                                         f"{int(counts.sum())}")
+                id_pid = agg._id_pid[:len(counts)].astype(np.int64)
+                got = np.bincount(id_pid, weights=counts.astype(np.float64))
+                if {int(p): int(got[p]) for p in np.flatnonzero(got)} \
+                        != masses[kind]:
+                    raise AssertionError(f"runtime {arm} window {w}: per-pid "
+                                         "mass differs from the oracle")
+                rows.append({"window": w, "rows": n, "feeds_and_close_ms": ms,
+                             "delta_closes": agg.stats.get("delta_closes", 0),
+                             "fetch_rows_last":
+                                 agg.stats.get("fetch_rows_last")})
+            turns = []
+            if arm == "delta_fetch_true":
+                # Telemetry's cost on the main path's window (phase 4's
+                # configuration), in turns: on, off, off, on.
+                for on in (True, False, False, True):
+                    dtel.install(telemetry if on else None)
+                    if on:
+                        h2d += feed_bytes(len(snap), True)
+                    counts, ms, disp, close_ms = feed_close(agg, snap,
+                                                            len(snap))
+                    if int(counts.sum()) != snap.total_samples():
+                        raise AssertionError("runtime telemetry turn: total")
+                    turns.append({"telemetry": on, "feeds_and_close_ms": ms,
+                                  "feed_dispatch_ms_sum": disp,
+                                  "close_ms": close_ms})
+                dtel.install(telemetry)
+            got = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                   "close_pack": close.LAUNCHES["close_pack"],
+                   "close_pack_delta": close.LAUNCHES["close_pack_delta"]}
+            want_delta = arm != "delta_fetch_false"
+            if got["feed_accumulate"] < len(windows) * DRAINS \
+                    or got["close_pack"] < 1 \
+                    or (got["close_pack_delta"] > 0) != want_delta:
+                raise AssertionError(f"runtime {arm}: launches {got}")
+            for k in launches:
+                launches[k] += got[k]
+            d2h += agg.d2h_want
+            emit("runtime_dict", arm=arm, options=kw, id_cap=agg._id_cap,
+                 delta_block=agg._blk, load_state_s=load_s, windows=rows,
+                 telemetry_turns=turns, launches=got,
+                 coalesce_rows_in=agg.stats.get("coalesce_rows_in", 0))
+            del agg
+    finally:
+        dtel.install(None)
+    tel = telemetry.snapshot()
+    ident = tel["identity"]
+    if ident.get("device_kind") != torch.cuda.get_device_name(0) \
+            or set(ident.get("routes", {}).values()) != {"cuda"}:
+        raise AssertionError(f"telemetry identity: {ident}")
+    for k in ("feed_probe", "close_pack", "close_delta"):
+        ev = tel["kernels"].get(k, {})
+        if ev.get("compiles", 0) < 1 or ev.get("executes", 0) < 1:
+            raise AssertionError(f"telemetry {k}: {ev}")
+    tr = tel["transfers"]
+    if tr["feed_probe"]["h2d"]["bytes"] != h2d \
+            or tr["close_fetch"]["d2h"]["bytes"] != d2h:
+        raise AssertionError(f"telemetry bytes {tr} against h2d {h2d}, "
+                             f"d2h {d2h} from the windows and the plans")
+    emit("runtime_telemetry", identity=ident, kernels=tel["kernels"],
+         transfers=tr, h2d_rows_bytes=h2d, d2h_plan_bytes=d2h,
+         stats=tel["stats"],
+         note="execute is the host's launch time, not the kernel's")
+
+    # The bring-up probe, as the CLI runs it before it touches the card.
+    t0 = time.perf_counter()
+    ok, detail = subprocess_probe(120, str(dev))
+    probe_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"the device probe failed: {detail}")
+    emit("runtime_probe", s=probe_s, detail=detail)
+
+    # The CLI with an injected device.dispatch hang: a bounded exit.
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
+             "synthetic", "--windows", "3", "--profiling-duration", "0.1",
+             "--fast-encode", "--device-timeout", str(HANG_TIMEOUT_S),
+             "--fault-inject", "device.dispatch:hang:after=0",
+             "--trace-incident-dir", str(Path(tmp) / "incidents"),
+             "--local-store-directory", str(Path(tmp) / "store")],
+            cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=HANG_TIMEOUT_S + HANG_MARGIN_S + 60)
+        wall = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        last = json.loads(lines[-1]) if lines else {}
+        incidents = sorted((Path(tmp) / "incidents").glob("*.json"))
+        kinds = [json.loads(f.read_text())["kind"] for f in incidents]
+    health = last.get("device_health", {})
+    if r.returncode == 0 or wall > HANG_TIMEOUT_S + HANG_MARGIN_S \
+            or health.get("state") != "wedged" \
+            or health["stats"]["hangs_total"] != 1 \
+            or kinds != ["device_hang"]:
+        raise AssertionError(f"hang CLI: rc {r.returncode}, {wall:.1f} s, "
+                             f"{last}, incidents {kinds}: {r.stderr[-1500:]}")
+    emit("runtime_hang_cli", rc=r.returncode, wall_s=wall,
+         device_timeout_s=HANG_TIMEOUT_S, margin_s=HANG_MARGIN_S,
+         device_health=health, incidents=kinds)
     return launches
 
 
@@ -4313,7 +4655,6 @@ def main() -> int:
     rows.update(timed("one_shot", phase_one_shot, dev, snap, want, rh_refs))
     bounded, launches_cm = timed("bounded", phase_bounded, dev, snap, hashes,
                                  state, close_refs)
-    del state
     rows.update(bounded)
     launches_stream = timed("streaming", phase_streaming, dev, snap, want)
     sharded_rows, launches_sharded = timed("sharded", phase_sharded, dev,
@@ -4323,11 +4664,15 @@ def main() -> int:
                                        hashes, sketch_ref, fleet_ref)
     rows.update(fleet_rows)
     launches_live = timed("live", phase_live, dev, snap, hashes, vec_rec)
+    launches_runtime = timed("runtime", phase_runtime, dev, snap, want,
+                             state, hashes)
+    del state
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
     # bounded-memory dictionary (phase 6), the streaming window (phase 7),
-    # the sharded dictionary (phase 8), the fleet merge (phase 9) and
-    # the CLI on the live machine (phase 10). `launches` is their sum.
+    # the sharded dictionary (phase 8), the fleet merge (phase 9), the
+    # CLI on the live machine (phase 10) and the dictionary at bench.py's
+    # option settings (phase 11). `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
@@ -4335,7 +4680,8 @@ def main() -> int:
                "streaming": launches_stream,
                "sharded": launches_sharded,
                "fleet": launches_fleet,
-               "live": launches_live}
+               "live": launches_live,
+               "runtime": launches_runtime}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

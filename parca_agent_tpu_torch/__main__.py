@@ -1,4 +1,4 @@
 from parca_agent_tpu_torch.cli import run
 
 if __name__ == "__main__":
-    raise SystemExit(run())
+    raise SystemExit(run(hard_exit=True))

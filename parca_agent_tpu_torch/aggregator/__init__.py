@@ -1,5 +1,6 @@
 """Window aggregation.
 
+  NaiveAggregator dict-based oracle, line by line (aggregator/cpu.py)
   CPUAggregator   vectorized numpy path (aggregator/cpu.py); the oracle
   DictAggregator  stateful stack dictionary resident on the device; a
                   steady window is one batched probe+accumulate kernel per
@@ -17,5 +18,8 @@ from parca_agent_tpu_torch.aggregator.base import (  # noqa: F401
     ProfileMapping,
     WindowProfiles,
 )
-from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator  # noqa: F401
+from parca_agent_tpu_torch.aggregator.cpu import (  # noqa: F401
+    CPUAggregator,
+    NaiveAggregator,
+)
 from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator  # noqa: F401

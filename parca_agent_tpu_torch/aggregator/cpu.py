@@ -1,10 +1,14 @@
-"""CPU aggregation: the numpy path, and the oracle the device path is held to.
+"""CPU aggregation: the numpy path, and the oracles the device path is
+held to.
 
-CPUAggregator states the aggregation semantics as whole-array numpy
-operations (exact row dedup via byte views + stable sorts), the role the
-reference's `obtainProfiles` loop plays (pkg/profiler/cpu/cpu.go:505-718).
-It runs no device code, so `chip_smoke.py` checks the card's window
-against it with nothing but numpy on the host.
+NaiveAggregator is a line-for-line executable statement of the
+aggregation semantics (the role the reference's `obtainProfiles` loop
+plays, pkg/profiler/cpu/cpu.go:505-718): readable, obviously correct,
+O(python) — the dictionary's oracle in the tests. CPUAggregator states
+the same semantics as whole-array numpy operations (exact row dedup via
+byte views + stable sorts). Neither runs device code, so `chip_smoke.py`
+checks the card's window against CPUAggregator with nothing but numpy on
+the host.
 """
 
 from __future__ import annotations
@@ -41,6 +45,76 @@ def _pid_mappings(table: MappingTable, pid: int) -> list[ProfileMapping]:
             )
         )
     return out
+
+
+class NaiveAggregator:
+    """Dict-based oracle. Use only in tests; quadratic-ish constants."""
+
+    name = "naive"
+
+    def aggregate(self, snapshot: WindowSnapshot) -> list[PidProfile]:
+        per_pid: dict[int, dict[tuple, int]] = {}
+        for i in range(len(snapshot)):
+            pid = int(snapshot.pids[i])
+            ul = int(snapshot.user_len[i])
+            kl = int(snapshot.kernel_len[i])
+            stack = tuple(int(a) for a in snapshot.stacks[i, : ul + kl])
+            key = (ul, stack)
+            bucket = per_pid.setdefault(pid, {})
+            bucket[key] = bucket.get(key, 0) + int(snapshot.counts[i])
+
+        profiles = []
+        for pid in sorted(per_pid):
+            stacks = per_pid[pid]
+            addrs = sorted({a for (_, st) in stacks for a in st})
+            loc_id = {a: j + 1 for j, a in enumerate(addrs)}
+            mappings = _pid_mappings(snapshot.mappings, pid)
+
+            loc_address = np.array(addrs, np.uint64)
+            loc_is_kernel = np.array(
+                [a >= KERNEL_ADDR_START for a in addrs], bool
+            )
+            loc_norm = np.zeros(len(addrs), np.uint64)
+            loc_map = np.zeros(len(addrs), np.int32)
+            for j, a in enumerate(addrs):
+                loc_norm[j] = a
+                if loc_is_kernel[j]:
+                    continue
+                for m in mappings:
+                    if m.start <= a < m.end:
+                        loc_norm[j] = (a - m.base) % 2**64
+                        loc_map[j] = m.id
+                        break
+
+            keys = sorted(stacks)
+            s = len(keys)
+            loc_ids = np.zeros((s, STACK_SLOTS), np.int32)
+            depths = np.zeros(s, np.int32)
+            values = np.zeros(s, np.int64)
+            for si, key in enumerate(keys):
+                _, st = key
+                depths[si] = len(st)
+                values[si] = stacks[key]
+                for fi, a in enumerate(st):
+                    loc_ids[si, fi] = loc_id[a]
+
+            profiles.append(
+                PidProfile(
+                    pid=pid,
+                    stack_loc_ids=loc_ids,
+                    stack_depths=depths,
+                    values=values,
+                    loc_address=loc_address,
+                    loc_normalized=loc_norm,
+                    loc_mapping_id=loc_map,
+                    loc_is_kernel=loc_is_kernel,
+                    mappings=mappings,
+                    period_ns=snapshot.period_ns,
+                    time_ns=snapshot.time_ns,
+                    duration_ns=snapshot.window_ns,
+                )
+            )
+        return profiles
 
 
 def window_counts_rebuild(snapshot: WindowSnapshot) -> np.ndarray:

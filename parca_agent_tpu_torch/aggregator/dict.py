@@ -73,6 +73,9 @@ from parca_agent_tpu_torch.ops.sketch import (
     hll_merge,
 )
 from parca_agent_tpu_torch.pprof.vec import ragged_gather
+from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+from parca_agent_tpu_torch.utils import faults
+from parca_agent_tpu_torch.utils.bounded import device_wait
 from parca_agent_tpu_torch.utils.device import resolve_device
 from parca_agent_tpu_torch.utils.log import get_logger
 
@@ -229,9 +232,8 @@ _DELTA_MAX_FRAC = 0.5
 # (sketch_info reads them).
 _SKETCH_STATS = ("sketch_rows", "sketch_samples", "rotations",
                  "pid_invalidations", "invalidation_compactions")
-# The overflow sketch's shape, parca_agent_tpu's defaults: a state carried
-# from it always has these.
-_CM_SPEC = CountMinSpec()
+# The overflow HLL's shape, parca_agent_tpu's (not a constructor option
+# there either); the count-min table's is each dictionary's cm_spec.
 _HLL_SPEC = HLLSpec()
 
 
@@ -305,15 +307,27 @@ class DictAggregator:
     windows. ``device`` is "cuda" (default; raises without a CUDA device)
     or "cpu" (the plain PyTorch versions of the kernels). ``overflow`` is
     "sketch" (default: degrade to the count-min sideband and rotate cold
-    stacks at capacity) or "raise" (fail fast). ``carry=True`` turns on
-    the cross-drain carry cache (host numpy): a stack dispatches on its
-    first drain and later drains fold its mass on the host, flushed once
-    at the close."""
+    stacks at capacity) or "raise" (fail fast).
+
+    The other options are parca_agent_tpu's, with its defaults:
+    ``id_cap`` bounds the stack ids (default ``capacity // 2``; one that
+    is not a multiple of 128 turns the delta close off); ``cm_spec`` is
+    the overflow count-min sketch's shape (default ``CountMinSpec()``);
+    ``delta_fetch=False`` makes every close the full pack, never the
+    touched-block delta; ``coalesce=False`` dispatches every feed row as
+    it is instead of folding the batch to (stack, weight) pairs first
+    (miss order, ids and pprof bytes are the same either way);
+    ``carry=True`` turns on the cross-drain carry cache (host numpy): a
+    stack dispatches on its first drain and later drains fold its mass
+    on the host, flushed once at the close."""
 
     name = "dict"
 
-    def __init__(self, capacity: int = 1 << 21, overflow: str = "sketch",
-                 rotate_min_age: int = 6,
+    def __init__(self, capacity: int = 1 << 21, id_cap: int | None = None,
+                 overflow: str = "sketch",
+                 cm_spec: CountMinSpec | None = None,
+                 rotate_min_age: int = 6, delta_fetch: bool = True,
+                 coalesce: bool = True,
                  device: str | torch.device = "cuda", carry: bool = False):
         if capacity & (capacity - 1):
             raise ValueError("capacity must be a power of two")
@@ -321,8 +335,14 @@ class DictAggregator:
             raise ValueError("overflow must be 'sketch' or 'raise'")
         self.device = resolve_device(device)
         self._cap = capacity
-        self._id_cap = capacity // 2
+        self._id_cap = id_cap or capacity // 2
         self._overflow = overflow
+        # Feed coalescing: fold each batch to (stack, weight) pairs on the
+        # identity triple before packing, first-occurrence ordered. A
+        # fold failure (chaos site feed.coalesce) is counted and the
+        # batch dispatches unfolded, never lost.
+        self._coalesce = coalesce
+        self._cm_spec = cm_spec or CountMinSpec()
         # Cross-drain carry cache: an h1-sorted host map key -> (stack id,
         # accumulated weight). A stack's FIRST dispatch admits its key;
         # every later drain that sees the key folds its mass here instead
@@ -406,7 +426,8 @@ class DictAggregator:
         # the id space must divide into _DELTA_BLOCK blocks), and the
         # previous window's touched-block population (None = no history:
         # the next close fetches full and reads the flags).
-        self._blk = _DELTA_BLOCK if self._id_cap % _DELTA_BLOCK == 0 else 0
+        self._blk = _DELTA_BLOCK if (
+            delta_fetch and self._id_cap % _DELTA_BLOCK == 0) else 0
         self._n_blocks = (self._id_cap // self._blk) if self._blk else 0
         self._prev_touched: int | None = None
         # Deferred feed-miss settle: _feed_dispatch_async returns device
@@ -699,11 +720,11 @@ class DictAggregator:
         """The bounded-memory half of load_state (absent keys: none of it,
         as a state taken before anything overflowed)."""
         cm, hll = arrays.get("cm"), arrays.get("over_hll")
-        if cm is not None and np.shape(cm) != (_CM_SPEC.depth,
-                                               _CM_SPEC.width):
+        spec = self._cm_spec
+        if cm is not None and np.shape(cm) != (spec.depth, spec.width):
             raise ValueError(f"state count-min table is {np.shape(cm)}, "
-                             f"this dictionary's ({_CM_SPEC.depth}, "
-                             f"{_CM_SPEC.width})")
+                             f"this dictionary's ({spec.depth}, "
+                             f"{spec.width})")
         if hll is not None and len(hll) != _HLL_SPEC.m:
             raise ValueError(f"state HLL has {len(hll)} registers, this "
                              f"dictionary {_HLL_SPEC.m}")
@@ -779,7 +800,7 @@ class DictAggregator:
                 h1c, h2c, h3c = h1c[keep], h2c[keep], h3c[keep]
                 w64 = w64[keep]
                 rows_map = rows_map[keep]
-            if len(h1c) > 1:
+            if self._coalesce and len(h1c) > 1:
                 h1c, h2c, h3c, w64, rows_map = self._coalesce_triples(
                     h1c, h2c, h3c, w64, rows_map)
         else:
@@ -794,7 +815,7 @@ class DictAggregator:
                 snapshot.user_len[sl], snapshot.kernel_len[sl], n_hashes=3)
             h2c = self._route_hashes(h1c, h2c, h3c, snapshot.pids[sl])
             self.timings["feed_hash"] = time.perf_counter() - t0
-            if n > 1:
+            if self._coalesce and n > 1:
                 h1c, h2c, h3c, w64, rows_map = self._coalesce_triples(
                     h1c, h2c, h3c, w64, rows_map)
             keep = self._carry_match(h1c, h2c, h3c, w64)
@@ -886,23 +907,35 @@ class DictAggregator:
 
     def _coalesce_triples(self, h1c, h2c, h3c, w64, rows_map):
         """Coalesce dispatch rows to (stack, weight) pairs on the
-        (h1, h2, h3) identity, first-occurrence ordered."""
+        (h1, h2, h3) identity, first-occurrence ordered. A fold failure
+        (chaos site feed.coalesce) is counted and degrades to the
+        unfolded batch, never a lost feed."""
         n = len(h1c)
         t0 = time.perf_counter()
-        key = np.empty((n, 3), np.uint32)
-        key[:, 0] = h1c
-        key[:, 1] = h2c
-        key[:, 2] = h3c
-        folded = fold_rows_first_seen(
-            key.view(np.dtype((np.void, 12))).ravel(), w64)
-        if folded is not None:
-            rep, _inv, w64 = folded
-            h1c, h2c, h3c = h1c[rep], h2c[rep], h3c[rep]
-            rows_map = rows_map[rep]
-        self.stats["coalesce_rows_in"] = \
-            self.stats.get("coalesce_rows_in", 0) + n
-        self.stats["coalesce_rows_out"] = \
-            self.stats.get("coalesce_rows_out", 0) + len(h1c)
+        try:
+            faults.inject("feed.coalesce")
+            key = np.empty((n, 3), np.uint32)
+            key[:, 0] = h1c
+            key[:, 1] = h2c
+            key[:, 2] = h3c
+            folded = fold_rows_first_seen(
+                key.view(np.dtype((np.void, 12))).ravel(), w64)
+            if folded is not None:
+                rep, _inv, fw = folded
+                h1c, h2c, h3c = h1c[rep], h2c[rep], h3c[rep]
+                w64 = fw
+                rows_map = rows_map[rep]
+            self.stats["coalesce_rows_in"] = \
+                self.stats.get("coalesce_rows_in", 0) + n
+            self.stats["coalesce_rows_out"] = \
+                self.stats.get("coalesce_rows_out", 0) + len(h1c)
+        except Exception as e:  # noqa: BLE001 - counted fallback
+            # Locals are only rebound on success above, so the input
+            # rows are intact: the batch dispatches unfolded.
+            self.stats["coalesce_fallbacks"] = \
+                self.stats.get("coalesce_fallbacks", 0) + 1
+            _log.warn("feed coalesce failed; dispatching the uncoalesced "
+                      "batch", error=repr(e)[:200])
         self.timings["feed_coalesce"] = time.perf_counter() - t0
         return h1c, h2c, h3c, w64, rows_map
 
@@ -944,6 +977,7 @@ class DictAggregator:
             return None
         t0 = time.perf_counter()
         try:
+            faults.inject("feed.carry")
             pos = self._carry_lookup(h1c)
             hit = pos >= 0
             if hit.all():
@@ -1086,43 +1120,70 @@ class DictAggregator:
                            device=self.device)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """Host numpy -> device tensor; uint32 crosses as int32 bits."""
+        """Host numpy -> device tensor; uint32 crosses as int32 bits. A
+        device wait: a pageable upload syncs the stream."""
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with device_wait():
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _feed_dispatch_async(self, packed: np.ndarray, reset: bool):
         """Launch the feed over the device state WITHOUT a host sync;
         returns the (n_miss, miss_rows) device handle for
-        _settle_dispatch."""
-        return feed_step(self._dev, self._acc,
-                         self._touch if self._blk else None, self._blk,
-                         self._to_device(packed), reset)
+        _settle_dispatch. Telemetry records the upload and launch's host
+        time under the feed's shape signature, and the packed bytes."""
+        t0 = time.perf_counter()
+        out = feed_step(self._dev, self._acc,
+                        self._touch if self._blk else None, self._blk,
+                        self._to_device(packed), reset)
+        dtel.record("feed_probe", time.perf_counter() - t0,
+                    shape=(self._cap, self._id_cap, packed.shape[1],
+                           self._n_blocks, self._blk),
+                    h2d_bytes=packed.nbytes)
+        return out
 
     def _settle_dispatch(self, handle) -> np.ndarray:
         """Sync one dispatched feed's miss outputs; returns chunk-relative
         miss row indices (empty in steady state). The n_miss read is the
         feed's one device sync point."""
         n_miss, miss_rows = handle
-        nm = int(n_miss.item())
-        if not nm:
-            return np.empty(0, np.int64)
-        return miss_rows[:nm].cpu().numpy().astype(np.int64)
+        with device_wait():
+            nm = int(n_miss.item())
+            if not nm:
+                return np.empty(0, np.int64)
+            rows = miss_rows[:nm].cpu()
+        return rows.numpy().astype(np.int64)
 
     def _close_pack_dispatch(self, acc, n_fetch: int, width: int,
                              n_over_buf: int):
         """Launch the full close pack (no host sync)."""
-        return close_pack(acc, n_fetch, width, n_over_buf)
+        t0 = time.perf_counter()
+        out = close_pack(acc, n_fetch, width, n_over_buf)
+        dtel.record("close_pack", time.perf_counter() - t0,
+                    shape=(self._id_cap, n_fetch, width, n_over_buf))
+        return out
 
     def _close_pack_collect(self, out_dev) -> np.ndarray:
         """Fetch a dispatched close pack's buffer (uint32)."""
-        return out_dev.cpu().numpy().view(np.uint32)
+        t0 = time.perf_counter()
+        with device_wait():
+            host = out_dev.cpu().numpy().view(np.uint32)
+        # Execute-only (shape=None): the fetch is a collect, not a
+        # launch; the pack's signatures carry the first-launch latch.
+        dtel.record("close_fetch", time.perf_counter() - t0,
+                    d2h_bytes=host.nbytes)
+        return host
 
     def _close_delta_dispatch(self, acc, touch, n_fetch: int, width: int,
                               n_over_buf: int, n_blk_buf: int):
         """Launch the delta close pack (no host sync)."""
-        return close_pack_delta(acc, touch, n_fetch, width, n_over_buf,
-                                n_blk_buf, self._blk)
+        t0 = time.perf_counter()
+        out = close_pack_delta(acc, touch, n_fetch, width, n_over_buf,
+                               n_blk_buf, self._blk)
+        dtel.record("close_delta", time.perf_counter() - t0,
+                    shape=(self._id_cap, n_fetch, width, n_over_buf,
+                           n_blk_buf, self._blk))
+        return out
 
     def _ensure_device(self) -> None:
         if self._dev is None:
@@ -1136,8 +1197,9 @@ class DictAggregator:
 
     def _dev_scatter(self, slots: np.ndarray, vals: np.ndarray) -> None:
         """Write newly inserted rows into the device table."""
-        self._dev[self._to_device(np.asarray(slots, np.int64))] = \
-            self._to_device(vals)
+        slots = np.asarray(slots, np.int64)
+        self._dev[self._to_device(slots)] = self._to_device(vals)
+        dtel.transfer("miss_settle", "h2d", slots.nbytes + vals.nbytes)
 
     # -- close ---------------------------------------------------------------
 
@@ -1367,8 +1429,9 @@ class DictAggregator:
                 if self._blk and h.touch is not None:
                     # Learn the touched population from the flags (one
                     # small fetch) so the NEXT close can go delta.
-                    self._prev_touched = int(
-                        (h.touch[:nb_prefix] > 0).sum().item())
+                    with device_wait():
+                        self._prev_touched = int(
+                            (h.touch[:nb_prefix] > 0).sum().item())
             over_id = host[over_off:over_off + n_over]
             over_val = host[over_off + n_over_buf:
                             over_off + n_over_buf + n_over]
@@ -1406,9 +1469,10 @@ class DictAggregator:
         (host numpy; overestimate-only error per CountMinSpec)."""
         t0 = time.perf_counter()
         if self._cm is None:
-            self._cm = np.zeros((_CM_SPEC.depth, _CM_SPEC.width), np.int64)
+            self._cm = np.zeros((self._cm_spec.depth, self._cm_spec.width),
+                                np.int64)
             self._over_hll = np.zeros(_HLL_SPEC.m, np.int32)
-        cm_add(self._cm, hashes, counts, _CM_SPEC)
+        cm_add(self._cm, hashes, counts, self._cm_spec)
         self._over_hll = hll_merge(self._over_hll,
                                    hll_build(hashes, _HLL_SPEC))
         self.stats["sketch_rows"] = \
@@ -1424,7 +1488,8 @@ class DictAggregator:
         h1_hashes = np.asarray(h1_hashes, np.uint32)
         if self._cm is None:
             return np.zeros(len(h1_hashes), np.int64)
-        return cm_query(self._cm, h1_hashes, _CM_SPEC).astype(np.int64)
+        return cm_query(self._cm, h1_hashes,
+                        self._cm_spec).astype(np.int64)
 
     def sketch_info(self) -> dict:
         """Observable degradation state (parca_agent_tpu's keys)."""
@@ -1590,8 +1655,13 @@ class DictAggregator:
         wts = (np.asarray(weights, np.int64) if weights is not None
                else snapshot.counts[rows].astype(np.int64))
         if len(rows) >= _VEC_MISS_MIN:
+            t0 = time.perf_counter()
             out = self._resolve_misses_vec(snapshot, rows, h1, h2, h3, wts)
             if out is not None:
+                # Shape class: the miss batch's power-of-two envelope.
+                dtel.record("miss_settle", time.perf_counter() - t0,
+                            shape=(1 << max(0, (len(rows)
+                                                - 1).bit_length()),))
                 return out
             self.stats["miss_vec_fallbacks"] = \
                 self.stats.get("miss_vec_fallbacks", 0) + 1

@@ -49,6 +49,8 @@ from parca_agent_tpu_torch.aggregator import probe
 from parca_agent_tpu_torch.aggregator.close import close_pack_sharded
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator
 from parca_agent_tpu_torch.ops import kernels
+from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+from parca_agent_tpu_torch.utils.bounded import device_wait
 from parca_agent_tpu_torch.utils.device import resolve_device
 
 _U32 = 0xFFFFFFFF
@@ -357,26 +359,40 @@ class ShardedDictAggregator(DictAggregator):
     def _feed_dispatch_async(self, packed: np.ndarray, reset: bool):
         t0 = time.perf_counter()
         dev_packed = self._to_device(packed)  # the feed's one H2D
-        self.timings["feed_h2d"] = time.perf_counter() - t0
-        return sharded_feed_step(self._dev, self._acc, dev_packed, reset)
+        t1 = time.perf_counter()
+        self.timings["feed_h2d"] = t1 - t0
+        dtel.record("shard_put", t1 - t0, shape=tuple(packed.shape),
+                    h2d_bytes=packed.nbytes)
+        out = sharded_feed_step(self._dev, self._acc, dev_packed, reset)
+        dtel.record("feed_probe", time.perf_counter() - t1,
+                    shape=("sharded", self._n_shards, self._cap_s,
+                           self._id_cap, packed.shape[1]))
+        return out
 
     def _settle_dispatch(self, handle) -> np.ndarray:
         """The miss rows of one dispatched feed, shard after shard (their
         packed positions). The n_miss fetch is the feed's one sync."""
         n_miss, miss_rows = handle
-        per = n_miss.cpu().numpy()
-        if not per.any():
-            return np.empty(0, np.int64)
-        rows = miss_rows[:, :int(per.max())].cpu().numpy()
+        with device_wait():
+            per = n_miss.cpu().numpy()
+            if not per.any():
+                return np.empty(0, np.int64)
+            rows = miss_rows[:, :int(per.max())].cpu().numpy()
         # Each row has one home shard: the per-shard lists are disjoint.
         return np.concatenate([rows[s, :k] for s, k in enumerate(per.tolist())
                                if k]).astype(np.int64)
 
     def _close_pack_dispatch(self, acc, n_fetch: int, width: int,
                              n_over_buf: int):
-        return close_pack_sharded(acc, n_fetch, width, n_over_buf)
+        t0 = time.perf_counter()
+        out = close_pack_sharded(acc, n_fetch, width, n_over_buf)
+        dtel.record("close_pack", time.perf_counter() - t0,
+                    shape=("sharded", self._n_shards, self._id_cap,
+                           n_fetch, width, n_over_buf))
+        return out
 
     def _dev_scatter(self, slots: np.ndarray, vals: np.ndarray) -> None:
         slots = np.asarray(slots, np.int64)
         self._dev[self._to_device(slots // self._cap_s),
                   self._to_device(slots % self._cap_s)] = self._to_device(vals)
+        dtel.transfer("miss_settle", "h2d", 2 * slots.nbytes + vals.nbytes)

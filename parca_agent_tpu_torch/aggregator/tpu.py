@@ -59,6 +59,8 @@ from parca_agent_tpu_torch.capture.formats import (
 )
 from parca_agent_tpu_torch.ops.hashing import u32_wide
 from parca_agent_tpu_torch.ops.row_hash import row_hash
+from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+from parca_agent_tpu_torch.utils.bounded import device_wait
 from parca_agent_tpu_torch.utils.device import resolve_device
 
 _U32_MAX = 0xFFFFFFFF
@@ -497,24 +499,34 @@ class TPUAggregator:
         t1 = clk()
         host_args, dims = pack_window_inputs(snapshot)
         t2 = clk()
-        dev_args = to_device(host_args, self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with device_wait():
+            dev_args = to_device(host_args, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         t3 = clk()
         attempts = 0
         while True:
             attempts += 1
             stages = StageClock(self.device)
-            out = window_program(*dev_args, dedup=self.dedup, clock=stages,
-                                 **dims)
-            n_locs = int(out[1])
+            with device_wait():
+                out = window_program(*dev_args, dedup=self.dedup,
+                                     clock=stages, **dims)
+                n_locs = int(out[1])
             if n_locs <= dims["l_cap"]:
                 break
             dims["l_cap"] *= 2
         t4 = clk()
-        outs = tuple(x.cpu().numpy().view(dt)
-                     for x, dt in zip(out, OUTPUT_DTYPES))
+        with device_wait():
+            outs = tuple(x.cpu().numpy().view(dt)
+                         for x, dt in zip(out, OUTPUT_DTYPES))
         t5 = clk()
+        # Telemetry: upload to fetch (the program is synchronous here),
+        # keyed on the padded shapes; an l_cap doubling reads as the new
+        # signature it is.
+        dtel.record("loc_dedup", t5 - t2,
+                    shape=(*(dims[k] for k in sorted(dims)), self.dedup),
+                    h2d_bytes=sum(int(a.nbytes) for a in host_args),
+                    d2h_bytes=sum(int(a.nbytes) for a in outs))
         self.timings = {"coalesce": t1 - t0, "pack": t2 - t1, "h2d": t3 - t2,
                         "program": t4 - t3, "d2h": t5 - t4}
         self.device_ms = stages.read_ms()

@@ -50,6 +50,7 @@ from parca_agent_tpu_torch.process.maps import (
     build_mapping_table,
 )
 from parca_agent_tpu_torch.process.objectfile import ObjectFileCache
+from parca_agent_tpu_torch.utils.poison import PoisonInput
 
 
 class SamplerUnavailable(RuntimeError):
@@ -158,24 +159,54 @@ def decode_records_columnar_v1h(lib, buf, nbytes: int) -> tuple:
                             (np.int64, np.uint32, np.uint32, np.uint32))
 
 
-def mapping_table_for_pids(maps_cache, objs_cache, pids) -> MappingTable:
+def mapping_table_for_pids(maps_cache, objs_cache, pids,
+                           quarantine=None) -> MappingTable:
     """MappingTable for a set of pids via the shared caches
     (``maps_cache.executable_mappings(pid)`` -> [ProcMapping],
     ``objs_cache.build_ids(per_pid)`` -> {path: build id}, and
     ``objs_cache.get(pid, mapping)`` for the normalization base); pids
     that exited (maps unreadable: OSError) or are unattributable (< 0)
-    are skipped — their rows keep raw addresses."""
+    are skipped — their rows keep raw addresses.
+
+    Ingest containment: with a quarantine registry (runtime/
+    quarantine.py), a pid whose maps file is poison (PoisonInput) or
+    whose processing blows the per-pid deadline is charged against its
+    error budget and skipped — its samples stay unmapped and ride the
+    degradation ladder — instead of aborting the table for every pid of
+    the window. Without a registry PoisonInput propagates. Scalar-level
+    pids skip the maps parse entirely; address-level pids keep their
+    maps (normalized addresses must travel) but skip the object opens."""
     per_pid = {}
+    healthy = {}
     for pid in pids:
         pid = int(pid)
         if pid < 0:
             continue
+        level = quarantine.level(pid) if quarantine is not None else 0
+        if level >= 2:
+            continue  # scalar ladder level: counts only, no mapping work
+        t0 = quarantine.clock() if quarantine is not None else 0.0
         try:
             per_pid[pid] = maps_cache.executable_mappings(pid)
         except OSError:
             continue
-    return build_mapping_table(per_pid, objs_cache.build_ids(per_pid),
-                               objcache=objs_cache)
+        except PoisonInput as e:
+            if quarantine is None:
+                raise
+            quarantine.record_error(pid, getattr(e, "site", "maps.parse"),
+                                    e)
+            continue
+        if quarantine is not None:
+            quarantine.check_deadline(pid, t0)
+            if quarantine.level(pid) == 0:
+                healthy[pid] = per_pid[pid]
+        else:
+            healthy[pid] = per_pid[pid]
+    # Build ids come from opening mapped objects: only healthy pids pay
+    # (and risk) that; a path mapped by any healthy pid still contributes
+    # its id for everyone.
+    return build_mapping_table(per_pid, objs_cache.build_ids(healthy),
+                               objcache=objs_cache, quarantine=quarantine)
 
 
 def columns_to_snapshot(
@@ -311,6 +342,9 @@ class PerfEventSampler:
         # drain's columns, so a streaming consumer (the window feeder)
         # ships them to the card during the window.
         self.on_drain = None
+        # Ingest containment (runtime/quarantine.py): with a registry, a
+        # poisoned maps file charges its pid and the window goes on.
+        self.quarantine = None
         self.capture_stack = False
         ctypes.set_errno(0)
         self._handle = self._lib.pa_sampler_create2(frequency_hz, 0, 0)
@@ -419,7 +453,8 @@ class PerfEventSampler:
                     np.zeros((0, STACK_SLOTS), np.uint64),
                     np.zeros(0, np.int64)))]
         table = mapping_table_for_pids(self._maps, self._objs,
-                                       np.unique(cols[0]).tolist())
+                                       np.unique(cols[0]).tolist(),
+                                       quarantine=self.quarantine)
         return columns_to_snapshot(*cols[:5], table, int(1e9 / self._freq),
                                    int(self._window * 1e9), weights=cols[5])
 

@@ -73,6 +73,8 @@ class ProcfsSampler:
         self._clock = clock
         self._sleep = sleep
         self._maps = ProcessMapCache(fs=self._fs)
+        # Ingest containment (runtime/quarantine.py), set by the CLI.
+        self.quarantine = None
         self._prev: dict[int, int] = {}
         self._started = False
         # (path, start, offset) -> runtime entry addr; constant per mapping.
@@ -81,10 +83,16 @@ class ProcfsSampler:
     def _pid_mappings(self, pid: int) -> list:
         """executable_mappings with the poison taxonomy contained: an
         exited pid or a poisoned maps file degrades to 'no mappings' for
-        this pid, never aborting the whole window's collect."""
+        this pid, never aborting the whole window's collect; with a
+        quarantine registry the poison is charged to the pid."""
         try:
             return self._maps.executable_mappings(pid)
-        except (OSError, PoisonInput):
+        except OSError:
+            return []
+        except PoisonInput as e:
+            if self.quarantine is not None:
+                self.quarantine.record_error(
+                    pid, getattr(e, "site", "maps.parse"), e)
             return []
 
     def _pids(self) -> list[int]:

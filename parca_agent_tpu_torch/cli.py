@@ -25,12 +25,34 @@ window's rows are merged fleet-wide each interval (parallel/). Flag
 names are those of parca_agent_tpu's CLI. The aggregation runs on the CUDA card
 unless ``--device cpu`` is given; without a CUDA device the run stops
 with an error that names the missing device.
+
+The runtime edges (runtime/): before this process creates a CUDA
+context (it only asks the device count), a throwaway child probes the
+card (CUDA init and one launch of the row hash kernel), killed at
+--device-probe-timeout; a failed probe stops the run
+with the device-health snapshot as the last JSON line. The window loop
+runs as a supervised actor (runtime/supervisor.py: a crashed loop is
+restarted with capped backoff, up to its crash budget), beside the
+encode pipeline's worker (a probe that revives it) and the fleet merge
+actor. Each window's device call runs under a watchdog that gives each
+of its waits on the card --device-timeout seconds (the host work between
+them is not timed): a hang ends the run with a bounded, non-zero exit,
+the trace flushed (an incident file under --trace-incident-dir) and the
+device-health snapshot as the last JSON line. The flight
+recorder (runtime/trace.py) and device telemetry
+(runtime/device_telemetry.py) are always on (both observe only), the
+quarantine registry (runtime/quarantine.py) unless
+--quarantine-max-strikes is 0; every exit prints their state as one
+{"runtime": ...} JSON line, before the source's and the fleet's exit
+lines (after a device hang: before the device-health line, which is
+last). --fault-inject arms the chaos sites (utils/faults.py).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import threading
 import time
@@ -162,6 +184,70 @@ def build_parser() -> argparse.ArgumentParser:
                         "to node-local profiles (counted, rejoin after a "
                         "bounded re-probe — a hung peer must not wedge "
                         "this node's merge actor); 0 = unbounded")
+    p.add_argument("--fault-inject", default="",
+                   help="CHAOS: semicolon-separated fault rules "
+                        "(site:kind[:k=v,...], utils/faults.py) injected "
+                        "at named sites; also read from the PARCA_FAULTS "
+                        "env var. Testing only")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed for the fault injector's probability draws "
+                        "(PARCA_FAULT_SEED env var)")
+    p.add_argument("--trace-ring", type=int, default=512,
+                   help="completed window traces kept in the flight "
+                        "recorder's ring buffer")
+    p.add_argument("--trace-slow-multiple", type=float, default=5.0,
+                   help="slow-window budget: a stage slower than this "
+                        "multiple of its own running p99 (floored at "
+                        "50 ms, after 8 samples) triggers an incident "
+                        "capture")
+    p.add_argument("--trace-incident-dir", default="",
+                   help="directory for incident files (crash-only "
+                        "tmp+rename JSON: the offending trace and the "
+                        "supervisor/device/quarantine state), written on "
+                        "a slow window and on a device hang. Empty "
+                        "disables incident files; slow windows are still "
+                        "counted")
+    p.add_argument("--trace-incident-interval", type=float, default=300.0,
+                   help="minimum seconds between slow-window incident "
+                        "captures (rate limit; suppressed captures are "
+                        "counted)")
+    p.add_argument("--telemetry-ring", type=int, default=256,
+                   help="kernel events and window-budget entries kept in "
+                        "the device flight recorder's timeline rings")
+    p.add_argument("--quarantine-max-strikes", type=int, default=3,
+                   help="ingest containment: per-pid input faults "
+                        "tolerated per budget window before the pid is "
+                        "quarantined and its samples ride the "
+                        "degradation ladder; 0 disables the quarantine "
+                        "registry")
+    p.add_argument("--quarantine-windows", type=int, default=3,
+                   help="base quarantine length in windows (doubles per "
+                        "repeat trip, capped)")
+    p.add_argument("--quarantine-pid-deadline", type=float, default=0.0,
+                   help="per-pid ingest processing deadline in seconds; "
+                        "a pid whose maps/ELF processing exceeds it is "
+                        "charged an input fault (0 = no deadline)")
+    p.add_argument("--device-probe-timeout", type=float, default=60.0,
+                   help="hard deadline of the bring-up probe, a child "
+                        "process that initializes CUDA and launches one "
+                        "hand kernel before this process touches the "
+                        "card (killed past it; a failed probe stops the "
+                        "run). 0 skips the probe. The CPU is not probed")
+    p.add_argument("--device-timeout", type=float, default=60.0,
+                   help="watchdog of each wait on the card in a window's "
+                        "device call (an upload, the miss count, the close "
+                        "fetch; the host work between them is not timed): "
+                        "past it the call is abandoned and the run ends "
+                        "with a non-zero exit (no CPU fallback); 0 = "
+                        "unbounded")
+    p.add_argument("--encode-deadline", type=float, default=45.0,
+                   help="soft deadline (seconds) of one window's inline "
+                        "pprof encode: past it the encode is abandoned to "
+                        "its thread (it keeps warming the template) and "
+                        "the window ships each pid's scalar profile (its "
+                        "exact count from the card in one sample); 0 "
+                        "disables. Applies when the encode pipeline is "
+                        "off, or to a window it refused")
     return p
 
 
@@ -230,8 +316,75 @@ def capture_stats(source, requested: str, capture: str, feeder) -> dict:
     return out
 
 
-def run(argv=None) -> int:
+def startup_probe(device, timeout_s: float):
+    """The device-health registry after the bring-up probe: a child
+    process initializes ``device`` and launches the row hash kernel,
+    killed at ``timeout_s`` (0: no probe, the registry trusts the card).
+    The CPU is never probed."""
+    from parca_agent_tpu_torch.runtime.device_health import (
+        DeviceHealthRegistry,
+        subprocess_probe,
+    )
+
+    probe = None
+    if timeout_s > 0 and device.type == "cuda":
+        def probe():
+            return subprocess_probe(timeout_s, str(device))
+    health = DeviceHealthRegistry(probe=probe, probe_timeout_s=timeout_s)
+    health.run_probe()
+    return health
+
+
+def _install_faults(args) -> None:
+    from parca_agent_tpu_torch.utils import faults
+
+    spec = args.fault_inject or os.environ.get("PARCA_FAULTS", "")
+    if spec:
+        seed = args.fault_seed or int(os.environ.get("PARCA_FAULT_SEED", 0))
+        faults.install(faults.FaultInjector.from_spec(spec, seed=seed))
+
+
+def _uninstall_runtime() -> None:
+    """Remove the process-global hooks run() installed (an in-process
+    caller, such as a test, must not inherit them)."""
+    from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+    from parca_agent_tpu_torch.runtime import trace as trace_mod
+    from parca_agent_tpu_torch.utils import faults
+
+    faults.install(None)
+    trace_mod.install(None)
+    dtel.install(None)
+
+
+def run(argv=None, hard_exit: bool = False) -> int:
+    """The CLI. ``hard_exit`` (the ``python -m`` entry) leaves a run
+    ended by a device hang through os._exit once its output is flushed:
+    interpreter teardown could block on the wedged CUDA stream that the
+    abandoned call still holds."""
     args = build_parser().parse_args(argv)
+    _install_faults(args)
+    try:
+        code = _run(args)
+    except _HangExit as e:
+        code = e.code
+        if hard_exit:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(code)
+    finally:
+        _uninstall_runtime()
+    return code
+
+
+class _HangExit(Exception):
+    """A device hang ended the run; its output is already flushed."""
+
+    def __init__(self, code: int):
+        super().__init__(code)
+        self.code = code
+
+
+def _run(args) -> int:
     if args.profiling_duration <= 0:
         raise SystemExit("--profiling-duration must be > 0")
     if args.fast_encode and args.aggregator not in ("dict", "dict+cm",
@@ -250,8 +403,15 @@ def run(argv=None) -> int:
         WindowSnapshot,
         load_snapshot,
     )
-    from parca_agent_tpu_torch.pprof.builder import build_pprof
-    from parca_agent_tpu_torch.profiler.cpu import labels_for
+    from parca_agent_tpu_torch.profiler.cpu import (
+        AggregateLoop,
+        CPUProfiler,
+        DeviceHang,
+    )
+    from parca_agent_tpu_torch.runtime import device_telemetry as dtel_mod
+    from parca_agent_tpu_torch.runtime import trace as trace_mod
+    from parca_agent_tpu_torch.runtime.quarantine import QuarantineRegistry
+    from parca_agent_tpu_torch.runtime.supervisor import Supervisor
     from parca_agent_tpu_torch.utils.device import resolve_device
     from parca_agent_tpu_torch.utils.log import get_logger
     from parca_agent_tpu_torch.utils.window_clock import windows_for
@@ -261,6 +421,14 @@ def run(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"parca-agent-tpu-torch: {e}", file=sys.stderr)
         return 2
+    # The bring-up probe runs before this process touches the card: a
+    # wedged card costs a killed child, not a hung agent.
+    health = startup_probe(device, args.device_probe_timeout)
+    if health.state != "healthy":
+        print(f"parca-agent-tpu-torch: the device probe failed: "
+              f"{health.last_error}", file=sys.stderr)
+        print(json.dumps({"device_health": health.snapshot()}), flush=True)
+        return 1
 
     # The fleet join precedes any device work, on --device's backend.
     if args.fleet_coordinator:
@@ -324,6 +492,27 @@ def run(argv=None) -> int:
                                "running one-shot", capture=capture)
     carry = streaming and not args.no_feed_carry
 
+    # The window flight recorder, device telemetry and the quarantine
+    # registry, installed before any window runs.
+    recorder = trace_mod.FlightRecorder(
+        ring=args.trace_ring, slow_multiple=args.trace_slow_multiple,
+        incident_dir=args.trace_incident_dir,
+        incident_interval_s=args.trace_incident_interval)
+    trace_mod.install(recorder)
+    telemetry = dtel_mod.DeviceTelemetry(
+        period_s=args.profiling_duration, ring=args.telemetry_ring,
+        incident_interval_s=args.trace_incident_interval, device=device)
+    dtel_mod.install(telemetry)
+    quarantine = None
+    if args.quarantine_max_strikes > 0:
+        quarantine = QuarantineRegistry(
+            max_strikes=args.quarantine_max_strikes,
+            quarantine_windows=args.quarantine_windows,
+            deadline_s=args.quarantine_pid_deadline or None,
+            window_s=args.profiling_duration)
+        if hasattr(source, "quarantine"):
+            source.quarantine = quarantine
+
     if args.aggregator in ("dict", "dict+cm"):
         # "dict" fails fast at capacity; "dict+cm" degrades to the
         # count-min sideband and rotates cold stacks. The rotation age is
@@ -384,7 +573,7 @@ def run(argv=None) -> int:
     # The fleet merge actor (multi-node mode): a daemon thread runs one
     # merge round each window interval; each window's rows reach it
     # through the window sink, hashed lazily on the actor's thread.
-    fleet_merger = fleet_stop = fleet_thread = window_sink = None
+    fleet_merger = fleet_stop = window_sink = None
     if args.fleet_coordinator:
         from parca_agent_tpu_torch.ops.hashing import row_hash_np
         from parca_agent_tpu_torch.parallel.distributed import (
@@ -404,10 +593,6 @@ def run(argv=None) -> int:
                 snapshot.counts)
 
         fleet_stop = threading.Event()
-        fleet_thread = threading.Thread(
-            target=fleet_merger.run, args=(fleet_stop,), name="fleet-merge",
-            daemon=True)
-        fleet_thread.start()
 
     statics_store = None
     if args.statics_snapshot_path:
@@ -422,10 +607,14 @@ def run(argv=None) -> int:
                 args.statics_snapshot_path,
                 max_age_s=args.statics_snapshot_max_age or None)
 
-    profiler = feeder = None
+    feeder = None
+    # The loop's runtime edges, the same on both write paths.
+    runtime = dict(window_sink=window_sink,
+                   device_timeout_s=args.device_timeout,
+                   device_health=health, quarantine=quarantine,
+                   trace_recorder=recorder,
+                   duration_s=args.profiling_duration)
     if args.fast_encode:
-        from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
-
         if streaming:
             from parca_agent_tpu_torch.profiler.streaming import (
                 StreamingWindowFeeder,
@@ -436,95 +625,134 @@ def run(argv=None) -> int:
             # first window is amortized too.
             feeder = StreamingWindowFeeder(
                 aggregator, source._maps, source._objs,
-                prebuild_period_ns=period_ns)
+                prebuild_period_ns=period_ns, quarantine=quarantine)
             source.on_drain = feeder.on_drain
-        profiler = CPUProfiler(source, aggregator, profile_writer=writer,
-                               encode_pipeline=not args.no_encode_pipeline,
-                               statics_cache_bytes=args.statics_cache_bytes,
-                               on_window=emit, statics_store=statics_store,
-                               statics_snapshot_every=max(
-                                   1, args.statics_snapshot_interval),
-                               window_sink=window_sink,
-                               streaming_feeder=feeder)
+        loop = CPUProfiler(source, aggregator, profile_writer=writer,
+                           encode_pipeline=not args.no_encode_pipeline,
+                           statics_cache_bytes=args.statics_cache_bytes,
+                           on_window=emit, statics_store=statics_store,
+                           statics_snapshot_every=max(
+                               1, args.statics_snapshot_interval),
+                           streaming_feeder=feeder,
+                           encode_deadline_s=args.encode_deadline,
+                           **runtime)
         if statics_store is not None:
             # Adopt the previous run's snapshot before anything touches
             # the aggregator or the encoder (registries install only into
             # a cold pid). A missing, stale or corrupt snapshot degrades
             # to the cold build, record by record; statics built at
             # another period than the source's windows count as stale.
-            adopt = statics_store.adopt(aggregator, profiler.encoder,
+            adopt = statics_store.adopt(aggregator, loop.encoder,
                                         period_ns)
             print(json.dumps({"statics_adopt": adopt,
                               "adopt_ms": statics_store.stats[
                                   "snapshot_adopt_ms"]}), flush=True)
-        step = profiler.run_iteration
     else:
-        def step() -> bool:
-            snapshot = source.poll()
-            if snapshot is None:
-                return False
-            t0 = time.perf_counter()
-            profiles = aggregator.aggregate(snapshot)
-            t_agg = time.perf_counter() - t0
-            if writer is not None:
-                for prof in profiles:
-                    writer.write(labels_for(prof.pid),
-                                 build_pprof(prof, compress=False))
-            emit({"window": n + 1, "rows": len(snapshot),
-                  "samples": snapshot.total_samples(),
-                  "profiles": len(profiles),
-                  "mass": sum(p.total() for p in profiles),
-                  "aggregate_ms": t_agg * 1e3,
-                  "window_ms": (time.perf_counter() - t0) * 1e3})
-            if window_sink is not None:
-                try:
-                    window_sink(snapshot)
-                except Exception as e:  # noqa: BLE001 - a tee, not a result
-                    get_logger("cli").warn("window sink failed",
-                                           error=repr(e))
-            return True
+        loop = AggregateLoop(source, aggregator, profile_writer=writer,
+                             on_window=emit, **runtime)
 
-    n = 0
-    next_window = time.monotonic()
+    # Supervision: a crashed window loop restarts with capped backoff,
+    # up to its crash budget (a device hang is never restarted: it ends
+    # the run); the encode worker is a probe its revive re-arms; the
+    # fleet merge actor and its heartbeat are not critical.
+    sup = Supervisor(probe_tick_s=0.2)
+    sup.add_actor("profiler", run=lambda: loop.run(args.windows),
+                  stop=loop.stop)
+    if fleet_merger is not None:
+        sup.add_actor("fleet", run=lambda: fleet_merger.run(fleet_stop),
+                      stop=fleet_stop.set, critical=False)
+        sup.add_probe("fleet-heartbeat", check=fleet_merger.heartbeat,
+                      revive=fleet_merger.request_rejoin, critical=False)
+    if loop.pipeline is not None:
+        pipe = loop.pipeline
+        sup.add_probe("encode", check=lambda: not pipe.disabled,
+                      revive=pipe.revive, critical=False)
+
+    def runtime_state() -> dict:
+        """The runtime state of an incident file and of the summary."""
+        out = {"supervisor": sup.health(), "overall": sup.overall(),
+               "device": health.snapshot(), "watchdog": loop.watchdog.stats}
+        if quarantine is not None:
+            out["quarantine"] = quarantine.snapshot()
+        if feeder is not None:
+            out["feeder"] = {k: feeder.stats[k] for k in (
+                "feed_errors", "feed_hangs", "drain_map_errors",
+                "cooldowns", "reprobes", "windows_fallback")}
+        return out
+
+    recorder.set_context(runtime_state)
+
+    def print_runtime() -> None:
+        print(json.dumps({"runtime": runtime_summary(
+            recorder, telemetry, runtime_state)}), flush=True)
+
+    hung = None
+    sup.start()
     try:
-        while not args.windows or n < args.windows:
-            # One window per --profiling-duration: sleep out the remainder
-            # of the previous window's period before taking the next one.
-            time.sleep(max(0.0, next_window - time.monotonic()))
-            next_window = time.monotonic() + args.profiling_duration
-            if not step():
-                break
-            n += 1
+        while not sup.finished("profiler"):
+            time.sleep(0.05)
+        hung = loop.crashed if isinstance(loop.crashed, DeviceHang) \
+            else None
+        if hung is not None:
+            # The card is wedged: flush what the run knows and leave. The
+            # abandoned call still holds the device, so nothing below
+            # touches it (no close, no pipeline flush).
+            get_logger("cli").error("device hang ended the run",
+                                    error=str(hung))
+            if args.trace_incident_dir:
+                recorder.flush_incident("device_hang", "close",
+                                        {"error": str(hung)})
+            print_runtime()
+            print(json.dumps({"device_health": health.snapshot()}),
+                  flush=True)
+            raise _HangExit(1)
     finally:
-        try:
-            if profiler is not None:
-                # Flush the in-flight window (and surface a pipelined
-                # failure).
-                profiler.close()
-                if statics_store is not None:
-                    st = statics_store.stats
-                    keys = ("snapshots_written", "snapshots_skipped_clean",
-                            "snapshot_bytes", "snapshot_records",
-                            "snapshot_write_errors", "records_dropped_cap")
-                    print(json.dumps({"statics_snapshot": {
-                        k: st[k] for k in keys}}), flush=True)
-        finally:
-            close_source = getattr(source, "close", None)
-            if close_source is not None:
-                close_source()
-            if capture in ("perf", "procfs"):
-                print(json.dumps({"capture": capture_stats(
-                    source, args.capture, capture, feeder)}), flush=True)
-            if fleet_merger is not None:
-                # A round in flight finishes (or hits its collective bound)
-                # before the actor sees the stop.
-                fleet_stop.set()
-                fleet_thread.join(args.profiling_duration
-                                  + (args.collective_timeout or 0.0) + 1.0)
-                failed = fleet_merger.failed
-                print(json.dumps({
-                    "fleet": fleet_merger.fleet_stats,
-                    "fleet_merger": fleet_merger.stats,
-                    "degraded": fleet_merger.degraded,
-                    "failed": repr(failed) if failed else None}), flush=True)
+        if hung is None:
+            _finish(args, sup, loop, statics_store, source, capture,
+                    feeder, fleet_merger, fleet_stop, print_runtime)
+    if loop.crashed is not None:
+        get_logger("cli").error("window loop crashed", exc=loop.crashed)
+        return 1
     return 0
+
+
+def runtime_summary(recorder, telemetry, runtime_state) -> dict:
+    """The {"runtime": ...} exit line's body."""
+    return {**runtime_state(),
+            "trace": {"stage_percentiles": recorder.percentiles(),
+                      "stats": dict(recorder.stats)},
+            "device_telemetry": telemetry.snapshot()}
+
+
+def _finish(args, sup, loop, statics_store, source, capture, feeder,
+            fleet_merger, fleet_stop, print_runtime) -> None:
+    """A clean (or crashed, but not hung) run's end: stop the actors,
+    flush the encode pipeline, print the exit lines (the runtime line
+    first)."""
+    try:
+        sup.stop(timeout_s=args.profiling_duration
+                 + (args.collective_timeout or 0.0) + 1.0)
+        # Flush the in-flight window (and surface a pipelined failure).
+        loop.close()
+    finally:
+        print_runtime()
+        if statics_store is not None:
+            st = statics_store.stats
+            keys = ("snapshots_written", "snapshots_skipped_clean",
+                    "snapshot_bytes", "snapshot_records",
+                    "snapshot_write_errors", "records_dropped_cap")
+            print(json.dumps({"statics_snapshot": {
+                k: st[k] for k in keys}}), flush=True)
+        close_source = getattr(source, "close", None)
+        if close_source is not None:
+            close_source()
+        if capture in ("perf", "procfs"):
+            print(json.dumps({"capture": capture_stats(
+                source, args.capture, capture, feeder)}), flush=True)
+        if fleet_merger is not None:
+            failed = fleet_merger.failed
+            print(json.dumps({
+                "fleet": fleet_merger.fleet_stats,
+                "fleet_merger": fleet_merger.stats,
+                "degraded": fleet_merger.degraded,
+                "failed": repr(failed) if failed else None}), flush=True)

@@ -24,8 +24,9 @@ uninitialized: the merges then run on the caller's device with no
 collective. That is the JAX package's semantics, not a fallback: the
 device is never swapped for the CPU.
 
-The chaos sites of the JAX package (faults.inject("fleet.join") and
-("fleet.collective")) are not here: the port has no fault injector yet.
+Chaos sites: ``fleet.join`` fires inside the bounded join before the
+group is touched, ``fleet.collective`` at the head of each merge round's
+and each rejoin probe's collectives (utils/faults.py).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from parca_agent_tpu_torch.parallel.fleet import (
     merge_rows,
 )
 from parca_agent_tpu_torch.parallel.mesh import FleetMesh
+from parca_agent_tpu_torch.utils import faults
 from parca_agent_tpu_torch.utils.bounded import bounded_call
 from parca_agent_tpu_torch.utils.device import resolve_device
 from parca_agent_tpu_torch.utils.log import get_logger
@@ -96,6 +98,9 @@ def fleet_initialize(coordinator_address: str, num_nodes: int,
     def join():
         global _FLEET_DEVICE
 
+        # Chaos first: an injected fleet.join hang or refusal fires
+        # before any backend touch.
+        faults.inject("fleet.join")
         if dist.is_initialized():
             return
         if dev.type == "cuda":
@@ -337,6 +342,7 @@ class FleetWindowMerger:
     def _merge_collective(self, h1, h2, counts):
         """The full merge round's collectives (width agreement is itself
         a collective, so it rides the bounded thunk too)."""
+        faults.inject("fleet.collective")
         mesh = local_fleet_mesh(self._device)
         width = _agree_width(len(h1), mesh)
         ph1 = np.zeros(width, np.uint32)
@@ -366,6 +372,7 @@ class FleetWindowMerger:
         back off. A peer that died outright never answers — the bound
         expires and the merger stays node-local (recovery from process
         loss requires restarting the fleet)."""
+        faults.inject("fleet.collective")
         epoch = (self.stats["local_only_rounds"]
                  + self.fleet_stats.get("fleet_rounds", 0))
         out = _all_gather_i64([epoch], local_fleet_mesh(self._device))

@@ -49,6 +49,7 @@ import zlib
 
 from parca_agent_tpu_torch.aggregator.base import ProfileMapping
 from parca_agent_tpu_torch.aggregator.dict import registry_content_digest
+from parca_agent_tpu_torch.utils import faults
 from parca_agent_tpu_torch.utils.log import get_logger
 from parca_agent_tpu_torch.utils.vfs import atomic_write_bytes
 
@@ -173,6 +174,9 @@ class StaticsStore:
                     pass
                 self.stats["snapshots_skipped_clean"] += 1
                 return "skipped"  # truthy: the on-disk snapshot IS current
+            # Chaos site: a failed snapshot is counted and skipped; the
+            # window it followed is already shipped.
+            faults.inject("statics.snapshot")
             # Whether the encoder's statics are provably complete at
             # this version (its clean marker): only then may this save's
             # state be recorded for future skips — else a straggler pid

@@ -134,6 +134,7 @@ def build_mapping_table(
     per_pid: dict[int, list[ProcMapping]],
     build_ids: dict[str, str] | None = None,
     objcache=None,
+    quarantine=None,
 ) -> MappingTable:
     """Fold executable file-backed mappings of many pids into one sorted
     MappingTable; objects dedup by path.
@@ -142,19 +143,25 @@ def build_mapping_table(
     object with ``base()``, or None), each row's normalization base comes
     from the mapped object (pprof GetBase semantics); an object that is
     missing or whose base() raises takes base = start - offset. Such
-    failures are counted per pid and logged at debug."""
+    failures are counted per pid and logged at debug, and with a
+    quarantine registry (runtime/quarantine.py) they feed the pid's
+    error budget. Pids already on the degradation ladder skip the object
+    open entirely (the file is the suspected poison) and take the
+    file-offset base."""
     build_ids = build_ids or {}
     obj_ids: dict[str, int] = {}
     rows: list[tuple[int, int, int, int, int, int]] = []
     for pid, maps in per_pid.items():
         obj_failures = 0
         last_err: Exception | None = None
+        degraded = quarantine is not None and quarantine.level(pid) > 0
+        t0 = quarantine.clock() if quarantine is not None else 0.0
         for m in maps:
             if not (m.executable and m.file_backed):
                 continue
             obj = obj_ids.setdefault(m.path, len(obj_ids))
             base = None
-            if objcache is not None:
+            if objcache is not None and not degraded:
                 of = objcache.get(pid, m)
                 if of is not None:
                     try:
@@ -170,6 +177,12 @@ def build_mapping_table(
             _log.debug("object-file failures during mapping build",
                        pid=pid, failures=obj_failures,
                        error=repr(last_err))
+            if quarantine is not None:
+                quarantine.record_error(pid, "maps.objfile", last_err)
+        if quarantine is not None:
+            # The per-pid deadline covers the object opens too: an object
+            # that parses slowly is poison as well.
+            quarantine.check_deadline(pid, t0)
     if not rows:
         return MappingTable.empty()
     rows.sort(key=lambda r: (r[0], r[1]))

@@ -1,7 +1,14 @@
-"""The window loop of the fast write path (``--fast-encode``).
+"""The window loop: one loop, two per-window bodies.
 
 The part of parca_agent_tpu's CPUProfiler (profiler/cpu.py there) that
-its --fast-encode path runs: each window, the dictionary's counts (on
+the port's CLI runs. ``WindowLoop`` is the supervised loop both write
+paths share: the poll, the window trace, the window sink, the quarantine,
+device-health and telemetry ticks, the stop event and the window count.
+``AggregateLoop`` is the path without --fast-encode: each window's
+profiles from ``aggregator.aggregate`` (under the device watchdog), down
+the quarantine ladder, through build_pprof into the writer.
+``CPUProfiler`` is the --fast-encode path: each window, the dictionary's
+counts (on
 the card unless the aggregator was made on the CPU), then the vectorized
 pprof encode — handed to the encode pipeline's worker thread, or inline
 on this thread — then the profile writer, one profile a pid, under the
@@ -18,12 +25,32 @@ statics snapshot every ``statics_snapshot_every`` windows. A
 the encoder (the fleet merge actor feeds on it: cli.py); a sink that
 raises is logged and the window goes on, as the original's tee.
 
-There is no fallback: no CPU aggregator stands behind the card and no
-scalar pprof builder behind the encoder. So, as in the original's loop
-when it has no fallback aggregator:
+The window's device call (the streamed close, or window_counts) runs
+under the device watchdog, as the original's guarded call: on an
+abandonable thread, behind the chaos site ``device.dispatch``, its
+outcome recorded in the device-health registry
+(runtime/device_health.py). Unlike the original's, the bound
+``device_timeout_s`` applies to each of the call's waits on the card
+(utils/bounded.py device_wait: the uploads, the miss count, the close
+fetch; the site itself counts as one), not to the call: the host's miss
+settle between them, tens of seconds in a cold window at the bench
+width, is not the card's. No CPU aggregator stands behind the card, so:
 
-  * an inline encode that raises propagates (the window is not shipped
-    by another path);
+  * a device call that raises propagates (counted in the registry);
+  * a device call that hangs is abandoned and ENDS THE RUN: the loop
+    raises DeviceHang, which the supervisor does not restart and the CLI
+    turns into a bounded, non-zero exit (the trace and the health
+    snapshot flushed first). A wedged card costs a bounded exit, not a
+    hung agent;
+  * an inline encode that raises propagates;
+  * with ``encode_deadline_s``, an inline encode that overruns it is
+    abandoned to its thread (it keeps warming the template) and the
+    window ships each pid's scalar profile instead — one sample holding
+    the pid's exact count from the card (runtime/quarantine.py
+    scalar_profile, the ladder's level 2) — counted in
+    encode_deadline_hits_total. This is the original's output
+    degradation for a slow host encode, not a device fallback: the
+    counts are the card's either way;
   * a window the pipeline refuses because its worker is still busy
     (backpressure, counted) waits the worker out, bounded, and is then
     encoded inline on this thread;
@@ -31,12 +58,15 @@ when it has no fallback aggregator:
     loss is counted in the pipeline's windows_lost) and the loop raises
     that error at the next window or at close.
 
-Left out of this port (parca_agent_tpu has them): the CPU fallback
-aggregator and the device hang watchdog, quarantine, admission, process
-identity, sinks, hotspots, the regression sentinel, the feeder's
-watchdog and cooldown, the inline soft deadline (--encode-deadline,
-which ships through a scalar fallback), symbolization, and the flight
-recorder.
+Each window records a trace in the flight recorder when one is given
+(runtime/trace.py: drain, close, the feeder's feed spans, fetch,
+buffer_flip, delta_fetch, then encode and ship here or prepare,
+statics, encode and ship on the pipeline's worker), and each iteration
+ticks the quarantine registry, the device-health registry and device
+telemetry's window budget (runtime/device_telemetry.py).
+
+Left out of this port (parca_agent_tpu has them): admission, process
+identity, sinks, hotspots, the regression sentinel and symbolization.
 """
 
 from __future__ import annotations
@@ -50,8 +80,17 @@ from typing import Callable, Protocol
 import numpy as np
 
 from parca_agent_tpu_torch.capture.formats import WindowSnapshot
+from parca_agent_tpu_torch.pprof.builder import build_pprof
 from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 from parca_agent_tpu_torch.profiler.encode_pipeline import EncodePipeline
+from parca_agent_tpu_torch.runtime import device_telemetry as dtel
+from parca_agent_tpu_torch.runtime.quarantine import (
+    apply_ladder,
+    scalar_profile,
+)
+from parca_agent_tpu_torch.runtime.trace import NULL_TRACE
+from parca_agent_tpu_torch.utils import faults
+from parca_agent_tpu_torch.utils.bounded import bounded_call, device_wait
 from parca_agent_tpu_torch.utils.log import get_logger
 
 _log = get_logger("profiler")
@@ -67,6 +106,13 @@ class CaptureSource(Protocol):
 FLUSH_TIMEOUT_S = 60.0
 
 
+class DeviceHang(BaseException):
+    """A guarded device call blew the device watchdog and was abandoned:
+    the card is wedged. A BaseException, so that neither the supervisor
+    (which restarts crashed actors on Exception) nor a caller's
+    ``except Exception`` carries on past it: the run ends."""
+
+
 @dataclasses.dataclass
 class ProfilerMetrics:
     """The counters of parca_agent_tpu's ProfilerMetrics that this loop
@@ -76,6 +122,103 @@ class ProfilerMetrics:
     profiles_written: int = 0
     last_encode_duration_s: float = 0.0
     encode_backpressure_total: int = 0
+    # Inline encodes abandoned at --encode-deadline, and the windows
+    # shipped as per-pid scalar profiles (a deadline hit, or the next
+    # window while the abandoned encode still owns the encoder).
+    encode_deadline_hits_total: int = 0
+    scalar_windows_total: int = 0
+
+
+class DeviceWatchdog:
+    """The guard around a window's device call (the original's
+    _watchdog_call and _inspect_abandoned): the call runs on an
+    abandonable thread, each of its device waits bounded by
+    ``timeout_s`` (None or 0: unbounded, on the caller's thread), behind
+    the chaos site ``device.dispatch`` (itself a device wait),
+    and its outcome goes to the device-health registry when one is
+    given. ``call`` returns the call's value, raises its error, or raises
+    DeviceHang when it was abandoned; the abandoned call's completion is
+    inspected once, at the next call, and until it returns every call
+    raises DeviceHang without touching the device state."""
+
+    def __init__(self, timeout_s: float | None = 60.0, health=None):
+        self.timeout_s = timeout_s or None
+        self._health = health
+        self._inflight = None   # threading.Event of an abandoned call
+        self._abandoned = None  # its result box
+        self.stats = {"calls": 0, "errors": 0, "hangs": 0,
+                      "abandoned_ok": 0, "abandoned_err": 0}
+
+    def _inspect_abandoned(self) -> None:
+        done = self._inflight
+        if done is None:
+            return
+        if not done.is_set():
+            raise DeviceHang("an abandoned device call is still in flight")
+        box = self._abandoned or {}
+        if "err" in box:
+            self.stats["abandoned_err"] += 1
+            _log.warn("abandoned device call completed with an error",
+                      error=repr(box["err"]))
+        else:
+            self.stats["abandoned_ok"] += 1
+            _log.info("abandoned device call completed")
+        self._inflight = None
+        self._abandoned = None
+
+    def _watchdog_call(self, thunk):
+        """("ok", out) | ("err", exc) | ("hang", None); a hang leaves the
+        call registered as in flight."""
+        def site():
+            with device_wait():
+                faults.inject("device.dispatch")
+            return thunk()
+
+        if self.timeout_s is None:
+            try:
+                return "ok", site()
+            except Exception as e:  # noqa: BLE001 - returned to the caller
+                return "err", e
+        status, out, done, box = bounded_call(
+            site, self.timeout_s, thread_name="aggregate-device",
+            waits_only=True)
+        if status == "hang":
+            self._inflight = done
+            self._abandoned = box
+        return status, out
+
+    def call(self, thunk):
+        self._inspect_abandoned()
+        self.stats["calls"] += 1
+        status, out = self._watchdog_call(thunk)
+        if status == "ok":
+            return out
+        if status == "err":
+            self.stats["errors"] += 1
+            if self._health is not None:
+                self._health.record_dispatch_error(out)
+            raise out
+        self.stats["hangs"] += 1
+        _log.error("device call hung; abandoning it and ending the run",
+                   timeout_s=self.timeout_s)
+        if self._health is not None:
+            self._health.record_hang()
+        raise DeviceHang(f"device call hung past the {self.timeout_s} s "
+                         "watchdog; the card is wedged")
+
+
+@dataclasses.dataclass
+class _PidTotal:
+    """A pid's window mass, in the shape scalar_profile reads."""
+
+    pid: int
+    mass: int
+    period_ns: int
+    time_ns: int
+    duration_ns: int
+
+    def total(self) -> int:
+        return self.mass
 
 
 def labels_for(pid: int) -> dict[str, str]:
@@ -83,7 +226,159 @@ def labels_for(pid: int) -> dict[str, str]:
     return {"__name__": "parca_agent_cpu", "pid": str(pid)}
 
 
-class CPUProfiler:
+class WindowLoop:
+    """The supervised window loop: one window each ``duration_s``, its
+    body ``_window(snapshot, window, trace)``. Each window records a
+    trace in the flight recorder when one is given and its snapshot goes
+    to ``window_sink`` (a sink that raises is logged); each iteration
+    ticks the quarantine registry, the device-health registry and
+    device telemetry's window budget. ``on_window(record)`` gets each
+    window's record once its profiles are written."""
+
+    pipeline = None
+
+    def __init__(self, source: CaptureSource, profile_writer=None,
+                 on_window: Callable[[dict], None] | None = None,
+                 window_sink: Callable[[WindowSnapshot], None] | None = None,
+                 device_timeout_s: float | None = 60.0,
+                 device_health=None, quarantine=None, trace_recorder=None,
+                 duration_s: float = 10.0):
+        self._source = source
+        self._writer = profile_writer
+        self._on_window = on_window
+        # Optional tee of each window's snapshot; its failures must not
+        # fail the window.
+        self._window_sink = window_sink
+        # The device watchdog (None or 0: unbounded) and the registry its
+        # outcomes go to.
+        self.watchdog = DeviceWatchdog(device_timeout_s, device_health)
+        self._health = device_health
+        # Ingest containment: the loop owns the window clock and ticks
+        # the registry once an iteration.
+        self._quarantine = quarantine
+        # The window flight recorder (runtime/trace.py); tracing is
+        # fail-open, so no call to it needs a guard.
+        self._recorder = trace_recorder
+        self._duration = duration_s
+        self._stop = threading.Event()
+        self.crashed: BaseException | None = None
+        self.metrics = ProfilerMetrics()
+
+    def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
+        raise NotImplementedError
+
+    def _before_window(self) -> None:
+        """Raise what must stop the loop before the next window."""
+
+    def run_iteration(self) -> bool:
+        """One window: False when the source is exhausted. Raises what
+        the window's body raises (DeviceHang when its device call was
+        abandoned)."""
+        t_iter0 = time.perf_counter()
+        self._before_window()
+        tr = (self._recorder.begin() if self._recorder is not None
+              else NULL_TRACE)
+        try:
+            with tr.span("drain"):
+                snapshot = self._source.poll()
+            if snapshot is None:
+                tr.discard()  # never a window: not ringed, not histogrammed
+                return False
+            self.metrics.attempts_total += 1
+            tr.annotate(time_ns=snapshot.time_ns,
+                        samples=int(snapshot.total_samples()))
+            self._window(snapshot, self.metrics.attempts_total, tr)
+            if self._window_sink is not None:
+                try:
+                    self._window_sink(snapshot)
+                except Exception as e:  # noqa: BLE001 - tee must not fail us
+                    _log.warn("window sink failed", error=repr(e))
+        except BaseException as e:
+            tr.finish(error=repr(e)[:200])
+            raise
+        # Pipelined windows detached their trace (the worker completes it
+        # after the ship); everything else finishes here.
+        tr.finish()
+        if self._quarantine is not None:
+            # Quarantine time is window time.
+            self._quarantine.tick_window()
+        if self._health is not None:
+            self._health.tick_window()
+        # Window-SLO accounting: this thread's busy wall for the window.
+        dtel.tick_window(time.perf_counter() - t_iter0)
+        return True
+
+    def run(self, max_windows: int = 0) -> None:
+        """The loop as a supervised actor: one window each ``duration_s``
+        until the source is exhausted, stop() is called, or (with
+        ``max_windows``) that many windows were taken, restarts
+        included. Re-runnable: a restart after a crash clears the crash
+        record; only a real exit closes the loop."""
+        self.crashed = None
+        try:
+            while not self._stop.is_set():
+                if max_windows and self.metrics.attempts_total >= max_windows:
+                    return
+                t0 = time.monotonic()
+                faults.inject("actor.profiler")
+                if not self.run_iteration():
+                    return
+                if max_windows and self.metrics.attempts_total >= max_windows:
+                    return
+                elapsed = time.monotonic() - t0
+                self._stop.wait(max(0.0, self._duration - elapsed))
+        except BaseException as e:
+            # Recorded so the CLI exits non-zero (and so the supervisor
+            # can decide on a restart).
+            self.crashed = e
+            raise
+        finally:
+            if self.crashed is None:
+                self.close()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def close(self) -> None:
+        """The loop's end (nothing to flush here)."""
+
+
+class AggregateLoop(WindowLoop):
+    """The window loop without --fast-encode: each window's profiles from
+    ``aggregator.aggregate`` (under the device watchdog), down the
+    quarantine ladder (quarantined pids lose their detail, level 1, or
+    collapse to their scalar count), through build_pprof into the
+    writer. The record holds the window's number, rows, samples,
+    profiles, mass, aggregate ms and window ms."""
+
+    def __init__(self, source: CaptureSource, aggregator, **kw):
+        super().__init__(source, **kw)
+        self._aggregator = aggregator
+
+    def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
+        t0 = time.perf_counter()
+        with tr.span("close"):
+            profiles = self.watchdog.call(
+                lambda: self._aggregator.aggregate(snapshot))
+        t_agg = time.perf_counter() - t0
+        profiles = apply_ladder(profiles, self._quarantine)
+        with tr.span("ship"):
+            if self._writer is not None:
+                for prof in profiles:
+                    self._writer.write(labels_for(prof.pid),
+                                       build_pprof(prof, compress=False))
+        self.metrics.profiles_written += len(profiles)
+        tr.annotate(pids=len(profiles), path="scalar")
+        if self._on_window is not None:
+            self._on_window({"window": window, "rows": len(snapshot),
+                             "samples": snapshot.total_samples(),
+                             "profiles": len(profiles),
+                             "mass": sum(p.total() for p in profiles),
+                             "aggregate_ms": t_agg * 1e3,
+                             "window_ms": (time.perf_counter() - t0) * 1e3})
+
+
+class CPUProfiler(WindowLoop):
     """Fast-path window loop: counts -> WindowEncoder -> writer.
 
     ``on_window(record)`` is called once a window's profiles are written:
@@ -104,18 +399,27 @@ class CPUProfiler:
                  on_window: Callable[[dict], None] | None = None,
                  streaming_feeder=None, statics_store=None,
                  statics_snapshot_every: int = 6,
-                 window_sink: Callable[[WindowSnapshot], None] | None = None):
+                 window_sink: Callable[[WindowSnapshot], None] | None = None,
+                 device_timeout_s: float | None = 60.0,
+                 device_health=None,
+                 encode_deadline_s: float | None = None,
+                 quarantine=None, trace_recorder=None,
+                 duration_s: float = 10.0):
         if not hasattr(aggregator, "window_counts"):
             raise ValueError(
                 "fast_encode requires a dict-style aggregator "
                 "(window_counts/close_window protocol)")
-        self._source = source
+        super().__init__(source, profile_writer=profile_writer,
+                         on_window=on_window, window_sink=window_sink,
+                         device_timeout_s=device_timeout_s,
+                         device_health=device_health, quarantine=quarantine,
+                         trace_recorder=trace_recorder,
+                         duration_s=duration_s)
         self._aggregator = aggregator
-        self._writer = profile_writer
-        self._on_window = on_window
-        # Optional tee of each window's snapshot; its failures must not
-        # fail the window.
-        self._window_sink = window_sink
+        # The inline encode's soft deadline, and its abandoned encode.
+        self._encode_deadline = encode_deadline_s or None
+        self._encode_inflight = None
+        self._encode_abandoned = None
         self._encoder = WindowEncoder(
             aggregator, statics_cache_bytes=statics_cache_bytes)
         # The warm statics snapshot is written on the encode worker only:
@@ -150,7 +454,6 @@ class CPUProfiler:
         # Records of the windows handed to the worker, oldest first: the
         # worker ships them in order, one at a time.
         self._handed = collections.deque()
-        self.metrics = ProfilerMetrics()
 
     @property
     def encoder(self) -> WindowEncoder:
@@ -160,22 +463,13 @@ class CPUProfiler:
     def pipeline(self) -> EncodePipeline | None:
         return self._pipeline
 
-    def run_iteration(self) -> bool:
-        """One window: False when the source is exhausted. Raises what
-        the aggregator or an inline encode raises, and the error of a
-        pipelined encode that failed since the last window."""
+    def _before_window(self) -> None:
+        # The error of a pipelined encode that failed since the last
+        # window.
         self._raise_pipeline_error()
-        snapshot = self._source.poll()
-        if snapshot is None:
-            return False
-        self.metrics.attempts_total += 1
-        self._aggregate_encode_write(snapshot, self.metrics.attempts_total)
-        if self._window_sink is not None:
-            try:
-                self._window_sink(snapshot)
-            except Exception as e:  # noqa: BLE001 - tee must not fail us
-                _log.warn("window sink failed", error=repr(e))
-        return True
+
+    def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
+        self._aggregate_encode_write(snapshot, window, tr)
 
     def close(self) -> None:
         """Flush the in-flight window and stop the worker; raises if a
@@ -193,17 +487,35 @@ class CPUProfiler:
             raise RuntimeError("a pipelined window's encode failed; the "
                                "window was not shipped") from p.last_error
 
-    def _aggregate_encode_write(self, snapshot: WindowSnapshot,
-                                window: int) -> None:
-        t0 = time.perf_counter()
+    def _window_counts(self, snapshot: WindowSnapshot):
+        """The window's counts from the card: the streamed close, or
+        window_counts of the snapshot."""
+        feeder = self._feeder
+        if feeder is not None and feeder.device_blocked():
+            # An abandoned feed (stuck in a device wait) may still be
+            # executing inside the aggregator: wait for it, as a device
+            # wait of this call, before touching the aggregator.
+            with device_wait():
+                feeder.wait_unblocked()
         counts = None
-        if self._feeder is not None:
+        if feeder is not None:
             # The streamed close (None: the feeder did not see the whole
             # window, and the snapshot is aggregated here instead).
-            counts = self._feeder.take_window_if_complete(snapshot)
+            counts = feeder.take_window_if_complete(snapshot)
         if counts is None:
             counts = self._aggregator.window_counts(snapshot)
-        agg_s = time.perf_counter() - t0
+        return counts
+
+    def _aggregate_encode_write(self, snapshot: WindowSnapshot,
+                                window: int, tr=NULL_TRACE) -> None:
+        t0 = time.perf_counter()
+        # The close span is the guarded device call; its duration also
+        # sets the aggregate gauge, so gauge and histogram agree.
+        with tr.span("close") as sp_close:
+            counts = self.watchdog.call(
+                lambda: self._window_counts(snapshot))
+        agg_s = sp_close.duration_s
+        self._record_close_spans(tr)
         record = {"window": window, "rows": len(snapshot),
                   "samples": snapshot.total_samples(),
                   "mass": int(np.asarray(counts).sum()),
@@ -216,19 +528,118 @@ class CPUProfiler:
                 if k.startswith("last_window_") and k.endswith("_s")}
             record["feeder_s"]["close"] = (
                 fs["last_close_s"] if record["streamed"] else 0.0)
-        if self._submit_to_pipeline(counts, snapshot, record):
+        if self._submit_to_pipeline(counts, snapshot, record, tr):
             return
-        t1 = time.perf_counter()
-        out = self._encoder.encode(counts, snapshot.time_ns,
-                                   snapshot.window_ns, snapshot.period_ns)
-        self.metrics.last_encode_duration_s = time.perf_counter() - t1
-        n = self._write_encoded(out)
+        out = self._encode_inline(counts, snapshot)
+        if out is None:
+            # The soft deadline fired (or its abandoned encode still owns
+            # the encoder): the window ships scalar profiles.
+            tr.annotate(path="scalar-deadline")
+            with tr.span("ship"):
+                n = self._write_scalar(counts, snapshot)
+            record.update(path="scalar",
+                          encode_ms=self.metrics.last_encode_duration_s
+                          * 1e3)
+            self._finish(record, n)
+            return
+        tr.add_span("encode", self.metrics.last_encode_duration_s)
+        tr.annotate(path="inline")
+        with tr.span("ship"):
+            n = self._write_encoded(out)
         record.update(path="inline",
                       encode_ms=self.metrics.last_encode_duration_s * 1e3)
         self._finish(record, n)
 
+    def _record_close_spans(self, tr) -> None:
+        """The close's sub-spans, from the numbers the feeder and the
+        aggregator already keep (so spans and stats agree): the streamed
+        window's feed work split into dispatch, hash, coalesce and carry,
+        its fetch, and the close's buffer flip and delta fetch."""
+        if self._feeder is not None:
+            fs = self._feeder.stats
+            for key, stage in (("last_window_feed_s", "feed"),
+                               ("last_window_dispatch_s",
+                                "feed_dispatch_overlap"),
+                               ("last_window_hash_s", "feed_hash"),
+                               ("last_window_coalesce_s", "feed_coalesce"),
+                               ("last_window_carry_s", "feed_carry")):
+                if fs.get(key, 0.0):
+                    tr.add_span(stage, fs[key])
+            if fs.get("last_window_streamed", 0):
+                tr.add_span("fetch", fs.get("last_close_s", 0.0))
+        tim = self._aggregator.timings
+        for stage in ("buffer_flip", "delta_fetch"):
+            if tim.get(stage, 0.0):
+                tr.add_span(stage, tim[stage])
+
+    def _encode_inline(self, counts, snapshot: WindowSnapshot):
+        """Encode on this thread; with encode_deadline_s, on an
+        abandonable thread instead. None when the deadline fired or an
+        abandoned encode still owns the encoder (the caller ships scalar
+        profiles)."""
+        if self._encode_inflight is not None:
+            if not self._encode_inflight.is_set():
+                self.metrics.last_encode_duration_s = 0.0
+                return None
+            if "err" in (self._encode_abandoned or {}):
+                # The abandoned encode died mid-flight: the template may
+                # be half-mutated. Drop the mirrors first.
+                _log.warn("abandoned encode failed; resetting encoder",
+                          error=repr(self._encode_abandoned["err"]))
+                self._encoder.reset()
+            self._encode_inflight = None
+            self._encode_abandoned = None
+        args = (snapshot.time_ns, snapshot.window_ns, snapshot.period_ns)
+        t0 = time.perf_counter()
+        try:
+            if self._encode_deadline is None:
+                return self._encoder.encode(counts, *args)
+            # The counts view is only valid through the next close; an
+            # abandoned encode may still be reading after that.
+            counts_copy = np.asarray(counts).copy()
+            status, out, done, box = bounded_call(
+                lambda: self._encoder.encode(counts_copy, *args),
+                self._encode_deadline, thread_name="encode-deadline")
+            if status == "hang":
+                self._encode_inflight = done
+                self._encode_abandoned = box
+                self.metrics.encode_deadline_hits_total += 1
+                _log.warn("encode exceeded the soft deadline; shipping "
+                          "scalar profiles for this window",
+                          deadline_s=self._encode_deadline)
+                return None
+            if status == "err":
+                raise out
+            return out
+        finally:
+            self.metrics.last_encode_duration_s = time.perf_counter() - t0
+
+    def _write_scalar(self, counts, snapshot: WindowSnapshot) -> int:
+        """Ship each pid's scalar profile: one sample holding the pid's
+        exact mass in this window's counts."""
+        counts = np.asarray(counts)
+        id_pid = np.asarray(self._aggregator._id_pid[:len(counts)],
+                            np.int64)
+        live = counts > 0
+        pids, inv = np.unique(id_pid[live], return_inverse=True)
+        mass = np.bincount(inv, weights=counts[live].astype(np.float64),
+                           minlength=len(pids)).astype(np.int64)
+        n = 0
+        for pid, m in zip(pids.tolist(), mass.tolist()):
+            prof = scalar_profile(_PidTotal(pid, m, snapshot.period_ns,
+                                            snapshot.time_ns,
+                                            snapshot.window_ns))
+            if self._writer is not None:
+                self._writer.write(labels_for(pid),
+                                   build_pprof(prof, compress=False))
+            n += 1
+        with self._write_mu:
+            self.metrics.profiles_written += n
+        self.metrics.scalar_windows_total += 1
+        return n
+
     def _submit_to_pipeline(self, counts, snapshot: WindowSnapshot,
-                            record: dict) -> bool:
+                            record: dict, tr=NULL_TRACE) -> bool:
         """Hand the closed window to the worker; False when this thread
         must encode it inline: no pipeline, or backpressure (the worker
         is then waited out first, so the encoder is this thread's)."""
@@ -244,12 +655,14 @@ class CPUProfiler:
         self._handed.append((record, timed))
         try:
             n = self._pipeline.submit(counts, snapshot.time_ns,
-                                      snapshot.window_ns, snapshot.period_ns)
+                                      snapshot.window_ns, snapshot.period_ns,
+                                      trace=tr)
         except BaseException:
             self._handed.pop()
             raise
         if n is not None:
             record["handoff_ms"] = (time.perf_counter() - t0) * 1e3
+            tr.annotate(path="pipeline")
             timed.set()
             return True
         self._handed.pop()

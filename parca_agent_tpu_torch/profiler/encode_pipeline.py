@@ -43,6 +43,7 @@ import threading
 import time
 
 from parca_agent_tpu_torch.runtime.trace import NULL_TRACE
+from parca_agent_tpu_torch.utils import faults
 from parca_agent_tpu_torch.utils.log import get_logger
 
 _log = get_logger("encode-pipeline")
@@ -328,6 +329,10 @@ class EncodePipeline:
     def _do_window(self, prep, rollup_ctx, fallback,
                    trace=NULL_TRACE) -> None:
         t0 = time.perf_counter()
+        # Chaos site: an injected crash here is a worker death — the
+        # pipeline disables and counts the window, and a supervisor's
+        # probe revives it (cli.py).
+        faults.inject("actor.encode")
         # Statics work that runs inside this encode (a cold build, a
         # post-rotation rebuild) is the latency cliff the trace exists
         # for: span it from the encoder's own accumulated-build clock so

@@ -11,11 +11,29 @@ close_window(): one pack kernel, one packed fetch.
 
 Exactness: at the window boundary the fed mass is checked against the
 snapshot's total. On any mismatch (a drain raced the boundary, a drain
-was never teed) the fed window is discarded and the profiler
-re-aggregates the snapshot with window_counts on the SAME aggregator —
-counted in windows_fallback. That is the only re-aggregation: there is
-no device watchdog, no cooldown and no other aggregator behind this
-feeder, so a feed that raises propagates out of on_drain.
+was never teed, a feed failed) the fed window is discarded and the
+profiler re-aggregates the snapshot with window_counts on the SAME
+aggregator, on the same card — counted in windows_fallback. No other
+aggregator stands behind this feeder.
+
+Safety (the original's model, with no CPU path): every feed runs under
+an abandonable watchdog with a SHORT timeout (the polling thread is
+stalled while a feed runs, and a long stall wraps the perf rings). The
+timeout bounds each of the feed's waits on the card
+(utils/bounded.py device_wait: the upload, the miss count and rows),
+not the feed: a cold drain's host miss settle takes seconds at the bench
+width and is not a hang. The process's first feed gets the long
+first-feed budget: its first upload pays the CUDA context. A failure or
+a hang disables the feeder for a
+capped-exponential number of WINDOWS (2, 4, ... 32): mid-window it never
+retries (a wedged card would stall the polling thread again next drain);
+at a window boundary it re-probes by streaming the next window, once any
+abandoned feed has returned. An abandoned feed may still be EXECUTING
+inside the aggregator: until it returns, device_blocked() says so and
+the profiler waits for it under its own device watchdog before it
+touches the aggregator (profiler/cpu.py). A drain whose mapping table
+cannot be built is skipped (its window re-aggregates); with a
+quarantine registry a poisoned pid is charged and the drain goes on.
 
 With an encoder attached, each fed drain is followed by a budgeted
 statics prebuild (WindowEncoder.build_statics), on the encode pipeline's
@@ -35,6 +53,8 @@ from parca_agent_tpu_torch.capture.live import (
     columns_to_snapshot,
     mapping_table_for_pids,
 )
+from parca_agent_tpu_torch.utils import faults
+from parca_agent_tpu_torch.utils.bounded import bounded_call
 from parca_agent_tpu_torch.utils.log import get_logger
 
 _log = get_logger("streaming")
@@ -58,13 +78,38 @@ class StreamingWindowFeeder:
 
     ``maps_cache.executable_mappings(pid)`` and ``objs_cache`` (with
     ``build_ids(per_pid)`` and ``get(pid, mapping)``) give each drain's
-    mapping table (capture/live.py mapping_table_for_pids)."""
+    mapping table (capture/live.py mapping_table_for_pids), charging
+    poisoned pids to ``quarantine`` when one is given.
+
+    ``feed_timeout_s`` bounds each device wait of a feed and
+    ``first_feed_timeout_s`` those of the process's first (its upload
+    creates the CUDA context); ``reprobe_base_windows`` and
+    ``reprobe_max_windows`` are the cooldown's first and largest length
+    in windows."""
 
     def __init__(self, aggregator, maps_cache, objs_cache,
-                 prebuild_period_ns: int = 0):
+                 prebuild_period_ns: int = 0, quarantine=None,
+                 feed_timeout_s: float = 3.0,
+                 first_feed_timeout_s: float = 60.0,
+                 reprobe_base_windows: int = 2,
+                 reprobe_max_windows: int = 32):
         self._agg = aggregator
         self._maps = maps_cache
         self._objs = objs_cache
+        self._quarantine = quarantine
+        self._timeout = feed_timeout_s
+        # The long budget applies exactly once: if the first attempt
+        # hangs (a card wedged from boot), every re-probe runs under the
+        # short timeout, so a dead card costs one long stall, not one a
+        # cooldown.
+        self._first_timeout = max(feed_timeout_s, first_feed_timeout_s)
+        self._first_attempted = False
+        self._inflight = None        # threading.Event of an abandoned feed
+        self.disabled = False        # not feeding (cooling down)
+        self._cooldown = 0           # windows until re-probe
+        self._backoff_base = max(1, reprobe_base_windows)
+        self._backoff_max = max(self._backoff_base, reprobe_max_windows)
+        self._backoff = self._backoff_base  # next cooldown length
         self._fed_total = 0          # mass fed into the open window
         self._encoder = None
         self._prebuild_fn = None
@@ -72,6 +117,12 @@ class StreamingWindowFeeder:
         self.stats = {"drains_fed": 0, "windows_streamed": 0,
                       "windows_fallback": 0, "statics_prebuilt": 0,
                       "prebuild_errors": 0, "last_close_s": 0.0,
+                      # The watchdog's counts: feeds that raised, feeds
+                      # abandoned at their timeout, drains skipped for
+                      # their mapping table, cooldowns entered, re-probes.
+                      "feed_errors": 0, "feed_hangs": 0,
+                      "drain_map_errors": 0, "cooldowns": 0,
+                      "reprobes": 0,
                       # Capture-thread seconds of the last window: its
                       # drain tees in all, and of them the feeds'
                       # dispatch (the device work overlaps capture), the
@@ -101,15 +152,36 @@ class StreamingWindowFeeder:
     def on_drain(self, cols) -> None:
         """Feed one drain. ``cols`` is (pids, tids, user_len, kernel_len,
         stacks, counts), optionally followed by a capture-carried (h1, h2,
-        h3) triple. A feed that raises propagates."""
+        h3) triple. Nothing raises out of here: a failed or hung feed
+        enters the cooldown."""
+        if self.disabled:
+            return
+        try:
+            # Chaos site: the drain tick runs synchronously inside the
+            # sampler's poll(), so an injected crash must degrade (the
+            # cooldown), never escape into capture.
+            faults.inject("actor.feeder")
+        except Exception:  # noqa: BLE001 - injected crash -> cooldown
+            self._enter_cooldown("injected feeder crash")
+            return
         pids, tids, ulen, klen, stacks, counts = cols[:6]
         hashes = tuple(cols[6:9]) if len(cols) >= 9 else None
         if not len(pids):
             return
         t_feed0 = time.perf_counter()
         try:
-            table = mapping_table_for_pids(self._maps, self._objs,
-                                           np.unique(pids).tolist())
+            try:
+                table = mapping_table_for_pids(
+                    self._maps, self._objs, np.unique(pids).tolist(),
+                    quarantine=self._quarantine)
+            except Exception as e:  # noqa: BLE001 - costs this drain only
+                # A poisoned maps file (PoisonInput without a registry)
+                # costs this DRAIN's feed, never the capture loop: the
+                # fed mass then differs and the window re-aggregates.
+                self.stats["drain_map_errors"] += 1
+                _log.warn("drain mapping build failed; skipping feed",
+                          error=repr(e))
+                return
             mini = columns_to_snapshot(pids, tids, ulen, klen, stacks,
                                        table, 0, 0, weights=counts,
                                        hashes=hashes)
@@ -131,7 +203,11 @@ class StreamingWindowFeeder:
                     # does at its entry, so it cannot ride into this
                     # window's close.
                     self._agg.discard_open_window()
-            self._agg.feed(mini, hashes=hashes)
+            if not self._feed_guarded(mini, hashes):
+                # Not again this window: a wedged card would stall the
+                # capture loop on every later drain.
+                self._enter_cooldown("streaming feed failed")
+                return
             # Popped, not read: a timing is only written when its stage
             # ran, and a stale value must not count twice.
             for key, name in _SPLIT:
@@ -155,6 +231,57 @@ class StreamingWindowFeeder:
         finally:
             self._window_feed_s += time.perf_counter() - t_feed0
 
+    def _feed_guarded(self, mini: WindowSnapshot, hashes=None) -> bool:
+        """One feed under the abandonable watchdog (utils/bounded.py),
+        its device waits bounded: False when it raised or was
+        abandoned."""
+        timeout = (self._timeout if self._first_attempted
+                   else self._first_timeout)
+        self._first_attempted = True
+        status, out, done, _box = bounded_call(
+            lambda: self._agg.feed(mini, hashes=hashes), timeout,
+            thread_name="stream-feed", waits_only=True)
+        if status == "hang":
+            # Abandoned: the call may still be mutating the aggregator.
+            self._inflight = done
+            self.stats["feed_hangs"] += 1
+            _log.error("streaming feed hung; abandoning", timeout_s=timeout)
+            return False
+        if status == "err":
+            self.stats["feed_errors"] += 1
+            _log.warn("streaming feed error", error=repr(out))
+            return False
+        return True
+
+    def _enter_cooldown(self, why: str) -> None:
+        """Stop feeding for a capped-exponential number of windows (the
+        one degradation path for feed errors, hangs and injected crashes
+        alike)."""
+        self.disabled = True
+        self._cooldown = self._backoff
+        self._backoff = min(self._backoff * 2, self._backoff_max)
+        self.stats["cooldowns"] += 1
+        _log.warn(why + "; re-aggregating the next windows at their close",
+                  cooldown_windows=self._cooldown)
+
+    def device_blocked(self) -> bool:
+        """True while an abandoned feed may still be executing inside the
+        aggregator (nothing else may touch it until then)."""
+        if self._inflight is None:
+            return False
+        if self._inflight.is_set():
+            self._inflight = None
+            return False
+        return True
+
+    def wait_unblocked(self, timeout_s: float | None = None) -> bool:
+        """Wait for an abandoned feed to return; True once none is in
+        flight."""
+        done = self._inflight
+        if done is not None and not done.wait(timeout_s):
+            return False
+        return not self.device_blocked()
+
     # -- window boundary -----------------------------------------------------
 
     def take_window_if_complete(self, snapshot: WindowSnapshot):
@@ -172,6 +299,18 @@ class StreamingWindowFeeder:
         self.stats["last_window_streamed"] = 0
         if snapshot.period_ns:
             self._prebuild_period = snapshot.period_ns
+        if self.disabled:
+            self.stats["windows_fallback"] += 1
+            self._cooldown -= 1
+            # Re-probe here, at the boundary — never mid-window — and
+            # only once any abandoned feed has returned.
+            if self._cooldown <= 0 and not self.device_blocked():
+                self.disabled = False
+                self.stats["reprobes"] += 1
+                self._agg.discard_open_window()
+                _log.info("streaming feeder re-enabled; probing next "
+                          "window")
+            return None
         if fed != snapshot.total_samples():
             # A drain raced the boundary or was never teed: discard the
             # whole partial window (including any deferred miss check,
@@ -189,4 +328,5 @@ class StreamingWindowFeeder:
         tim = self._agg.timings
         for key, name in _SPLIT:
             self.stats[f"last_window_{name}_s"] += tim.pop(key, 0.0)
+        self._backoff = self._backoff_base  # healthy again
         return counts

@@ -1,1 +1,4 @@
-"""Runtime edges of the agent: the window trace hooks (trace.py)."""
+"""Runtime edges of the agent: the window flight recorder (trace.py),
+device telemetry (device_telemetry.py), per-pid quarantine
+(quarantine.py), the device probe and fault record (device_health.py)
+and actor supervision (supervisor.py)."""

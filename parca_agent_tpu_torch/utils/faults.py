@@ -1,9 +1,12 @@
 """Deterministic fault injection for the ship path.
 
-The port's copy of parca_agent_tpu's utils/faults.py, whole. Of its
-sites, the port injects only ``maps.parse`` (process/maps.py) and
-``elf.read`` (elf/reader.py) so far; the registry below names every
-site of the original, as the chaos suite's contract.
+The port's copy of parca_agent_tpu's utils/faults.py, whole. The port
+injects ``maps.parse``, ``elf.read``, ``feed.coalesce``, ``feed.carry``,
+``statics.snapshot``, ``trace.record``, ``incident.dump``,
+``device.telemetry``, ``device.probe``, ``device.dispatch``,
+``fleet.join``, ``fleet.collective`` and the actor sites
+``actor.profiler``, ``actor.encode`` and ``actor.feeder``; the registry
+below names every site of the original, as the chaos suite's contract.
 
 The always-on agent's hard scenarios — hours-long store outages, cert
 rotations, disk-full spool directories, partial actor death — cannot be

@@ -85,7 +85,8 @@ def test_cli_on_cpu_writes_profiles(tmp_path):
         timeout=300)
     assert r.returncode == 0, r.stderr
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
-    assert len(lines) == 2
+    assert sum('"window"' in ln for ln in lines) == 2
+    assert "runtime" in json.loads(lines[-1])
     files = sorted(store.glob("*.pb.gz"))
     assert len(files) >= 2
     prof = parse_pprof(files[0].read_bytes())
@@ -105,7 +106,7 @@ def test_cli_on_cpu_with_the_one_shot_aggregator(tmp_path):
         timeout=300)
     assert r.returncode == 0, r.stderr
     lines = [json.loads(ln) for ln in r.stdout.splitlines()
-             if ln.startswith("{")]
+             if ln.startswith("{") and '"window"' in ln]
     assert [ln["aggregator"] for ln in lines] == ["tpu", "tpu"]
     files = sorted(store.glob("*.pb.gz"))
     assert len(files) == sum(ln["profiles"] for ln in lines)
@@ -130,7 +131,7 @@ def test_cli_on_cpu_with_the_bounded_memory_dictionary(tmp_path):
         timeout=300)
     assert r.returncode == 0, r.stderr
     lines = [json.loads(ln) for ln in r.stdout.splitlines()
-             if ln.startswith("{")]
+             if ln.startswith("{") and '"window"' in ln]
     assert [ln["aggregator"] for ln in lines] == ["dict+cm"] * 3
     files = sorted(store.glob("*.pb.gz"))
     assert len(files) == sum(ln["profiles"] for ln in lines)

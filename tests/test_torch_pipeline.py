@@ -362,7 +362,8 @@ def _cli(tmp_path, *flags, device=("--device", "cpu")):
         env=_env(), cwd=tmp_path, capture_output=True, text=True,
         timeout=300)
     lines = sorted((json.loads(ln) for ln in r.stdout.splitlines()
-                    if ln.startswith("{")), key=lambda ln: ln["window"])
+                    if ln.startswith("{") and '"window"' in ln),
+                   key=lambda ln: ln["window"])
     return r, lines, sorted(store.glob("*.pb.gz"))
 
 

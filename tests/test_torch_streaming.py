@@ -6,10 +6,11 @@ window_counts on the same aggregator. Every case feeds the same seeded
 drains to the port's feeder (aggregator on the CPU) and to
 parca_agent_tpu's: counts, ids and pprof bytes must be equal. The cases
 are those of tests/test_streaming.py that apply to the port (no
-watchdog, cooldown or sharded aggregator here), plus the carry cache
-through the feeder, the fast loop's statics snapshot across a restart,
-a feed that raises, and the port's copies of build_mapping_table,
-columns_to_snapshot and registry_content_digest.
+sharded aggregator here; the watchdog and cooldown are held in
+tests/test_torch_runtime.py), plus the carry cache through the feeder,
+the fast loop's statics snapshot across a restart, a feed that raises,
+and the port's copies of build_mapping_table, columns_to_snapshot and
+registry_content_digest.
 """
 
 from __future__ import annotations
@@ -302,8 +303,11 @@ def test_feeder_discards_residual_device_mass():
 
 
 def test_feed_error_propagates_out_of_on_drain():
-    """No watchdog and no cooldown: a feed that raises reaches the caller,
-    and the window it broke is re-aggregated whole at its boundary."""
+    """Since the feeder has its watchdog, a feed that raises no longer
+    propagates out of on_drain (the capture loop must not die of it): it
+    is counted and the feeder cools down, as parca_agent_tpu's does; the
+    window it broke is re-aggregated whole at its boundary, on the same
+    aggregator, and the next feeds wait out the cooldown."""
     snap, _ = _snaps(seed=3)
 
     class Boom(DictAggregator):
@@ -316,10 +320,12 @@ def test_feed_error_propagates_out_of_on_drain():
 
     agg = Boom(capacity=1 << 11, device="cpu")
     feeder = StreamingWindowFeeder(agg, FakeMaps(), FakeObjs())
-    with pytest.raises(RuntimeError, match="device gone"):
-        feeder.on_drain(_cols(snap, 0, len(snap)))
+    feeder.on_drain(_cols(snap, 0, len(snap)))
     assert feeder.stats["drains_fed"] == 0
+    assert feeder.stats["feed_errors"] == 1 and feeder.disabled
     agg.fail = False
+    feeder.on_drain(_cols(snap, 0, len(snap)))  # cooling down: not fed
+    assert feeder.stats["drains_fed"] == 0
     assert feeder.take_window_if_complete(snap) is None
     assert feeder.stats["windows_fallback"] == 1
     assert int(agg.window_counts(snap).sum()) == snap.total_samples()
