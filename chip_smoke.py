@@ -197,11 +197,45 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                make (16 B a lane of each feed's power-of-two buffer) and
                the D2H bytes to those each close pack's plan makes (its
                lanes, block ids, sideband and counters), the identity
-               naming this card. The bring-up probe (a child
-               that launches the row hash kernel) timed; then the CLI with
-               an injected device.dispatch hang: it must exit non-zero
-               within --device-timeout plus a margin, the health snapshot
-               on its last line, the incident file written.
+               naming this card. Then the CLI with an injected
+               device.dispatch hang: it must exit non-zero within
+               --device-timeout plus a margin, the health snapshot on its
+               last line (with the bring-up probe it ran first, a child
+               that launches the row hash kernel, timed and passed), the
+               incident file written.
+ 12. symbolize the path without --fast-encode, named and walked: (a) on
+               phase 7's first-run dictionary (capacity 2^22, warm with
+               the bench window), aggregate() of the bench window
+               plus two new stacks for one pid in 8, whose user frames run
+               in an anonymous JIT region (K1 and the close launched),
+               then the Symbolizer over a FakeFS made from the seed: a
+               kallsyms of 20,000 symbols over the synthetic kernel
+               addresses, and a perf map in each JIT pid's mount
+               namespace; every 64th pid's names (each of them a JIT
+               pid) equal to an oracle written here (a sorted address table
+               and np.searchsorted; the perf map's ranges), in the
+               profile and in its build_pprof parsed back; the close ms
+               and the symbolize ms. (b) On the host it runs on: a nonzero
+               /proc/kallsyms address resolved to its name through
+               KsymCache (unless kptr_restrict zeroes them all), and
+               three entries of a `python3 -X perf` child's perf map
+               through PerfMapCache and namespaced_pid (unless the
+               interpreter writes none). (c) A frameless C fixture built
+               with gcc -O2 -fomit-frame-pointer, which recurses through
+               outer/middle/leaf 6 times and dumps its registers and 16 KiB
+               of its stack: its unwind tables built by
+               UnwindTableCache.build_now from its real maps (the binary,
+               libc, ld.so), the sample walked 16,000 times (100 Hz x 16
+               CPUs x 10 s) by unwind_records from an FP chain of depth 1,
+               every walk reaching main at depth 19 through the expected
+               functions, then the walked records through
+               records_to_snapshot and the scalar loop on the card (mass
+               equal to the samples). (d) The CLI without --fast-encode,
+               3 windows each: procfs with process identity on, procfs
+               with --fault-inject process.identity:error, and synthetic
+               (kernel frames) with --fault-inject symbolize.kernel:error;
+               each exits 0, names the symbolize span, and counts the
+               faults.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -2576,7 +2610,8 @@ def phase_streaming(dev, snap, want) -> dict:
     Every window's per-pid mass equals the numpy oracle's, every live
     pid has one blob, every 64th pid's blob parses to build_pprof's
     samples; the restart's bytes equal a cold encoder's for every pid.
-    Returns the path's kernel launch counts."""
+    Returns the path's kernel launch counts and the first run's
+    dictionary (capacity 2^22), warm with the bench window."""
     import dataclasses
     import tempfile
 
@@ -2830,8 +2865,9 @@ def phase_streaming(dev, snap, want) -> dict:
         "snapshot_save_ms")}, file_bytes=Path(path).stat().st_size,
          pids=len(agg._pids), carry_entries=st.get("carry_entries"),
          footprint=agg.footprint_bytes())
-    # The first run's dictionary and encoder go before the restart's.
-    del prof, writer, records, src, feeder, agg
+    # The first run's encoder goes before the restart's; its dictionary,
+    # warm with the bench window, is phase 12's.
+    del prof, writer, records, src, feeder
     # The restart: a fresh dictionary and encoder adopt the snapshot, then
     # the last window's first RESTART_DRAINS drains stream again.
     agg2, feeder2 = stack()
@@ -2896,7 +2932,7 @@ def phase_streaming(dev, snap, want) -> dict:
         if name not in kernel_rows:
             raise AssertionError(f"phase 7 launched {name} but never held "
                                  "it against its plain version")
-    return launches
+    return launches, agg
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -4333,7 +4369,6 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
     from parca_agent_tpu_torch.aggregator import close, probe
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.runtime import device_telemetry as dtel
-    from parca_agent_tpu_torch.runtime.device_health import subprocess_probe
 
     class Counted(DictAggregator):
         """While telemetry is installed, sums the bytes its close packs
@@ -4493,14 +4528,6 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
          stats=tel["stats"],
          note="execute is the host's launch time, not the kernel's")
 
-    # The bring-up probe, as the CLI runs it before it touches the card.
-    t0 = time.perf_counter()
-    ok, detail = subprocess_probe(120, str(dev))
-    probe_s = time.perf_counter() - t0
-    if not ok:
-        raise AssertionError(f"the device probe failed: {detail}")
-    emit("runtime_probe", s=probe_s, detail=detail)
-
     # The CLI with an injected device.dispatch hang: a bounded exit.
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -4523,16 +4550,634 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
         incidents = sorted((Path(tmp) / "incidents").glob("*.json"))
         kinds = [json.loads(f.read_text())["kind"] for f in incidents]
     health = last.get("device_health", {})
+    # The bring-up probe ran in that CLI before it touched the card: a
+    # child that launched the row hash kernel, timed in its snapshot.
     if r.returncode == 0 or wall > HANG_TIMEOUT_S + HANG_MARGIN_S \
             or health.get("state") != "wedged" \
             or health["stats"]["hangs_total"] != 1 \
+            or health["stats"]["probes_ok"] != 1 \
+            or not health.get("last_probe_s") \
             or kinds != ["device_hang"]:
         raise AssertionError(f"hang CLI: rc {r.returncode}, {wall:.1f} s, "
                              f"{last}, incidents {kinds}: {r.stderr[-1500:]}")
+    emit("runtime_probe", s=health["last_probe_s"],
+         probes=health["stats"], source="runtime_hang_cli")
     emit("runtime_hang_cli", rc=r.returncode, wall_s=wall,
          device_timeout_s=HANG_TIMEOUT_S, margin_s=HANG_MARGIN_S,
          device_health=health, incidents=kinds)
     return launches
+
+
+# -- phase 12: symbolization, process identity, DWARF unwinding ---------------
+
+SYM_KSYMS = 20_000          # text symbols of the synthetic kallsyms
+JIT_EVERY = 8               # one pid in 8 runs JIT code
+JIT_BASE = 0x2000_0000_0000  # below every synthetic mapping: unmapped
+JIT_SPAN = 0x10000          # each JIT pid's code region
+SYM_EVERY = 64
+DWARF_LEVELS = 6            # (outer, middle, leaf) triples below main
+DWARF_DUMP = 16_384         # --dwarf-stack-dump-bytes' default
+DWARF_SAMPLES = 16_000      # 100 Hz x 16 CPUs x 10 s
+DWARF_CPUS = 16
+SYM_CLI_WINDOWS = 3
+DWARF_FIXTURE = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <unistd.h>
+
+static unsigned char buf[DUMP];
+static const char *out_path;
+
+/* The captured thread's registers and DUMP bytes of its stack from rsp
+   (less where the stack ends), written as u64 rip, rsp, rbp, n, then
+   the bytes: one sample as perf's user-regs and user-stack dump give
+   it. */
+__attribute__((noinline, noclone)) void dump(void) {
+  uint64_t ip, sp, bp;
+  __asm__ volatile("lea 0(%%rip), %0\n\tmov %%rsp, %1\n\tmov %%rbp, %2"
+                   : "=r"(ip), "=r"(sp), "=r"(bp));
+  uint64_t end = 0, lo, hi;
+  char line[512];
+  FILE *m = fopen("/proc/self/maps", "r");
+  while (m && fgets(line, sizeof line, m))
+    if (strstr(line, "[stack]") && sscanf(line, "%lx-%lx", &lo, &hi) == 2)
+      end = hi;
+  if (m) fclose(m);
+  uint64_t n = end > sp && end - sp < DUMP ? end - sp : DUMP;
+  memcpy(buf, (const void *)sp, n);
+  FILE *f = fopen(out_path, "wb");
+  uint64_t hdr[4] = {ip, sp, bp, n};
+  fwrite(hdr, 8, 4, f);
+  fwrite(buf, 1, n, f);
+  fclose(f);
+}
+
+__attribute__((noinline, noclone)) int outer(int n);
+
+__attribute__((noinline, noclone)) int leaf(int n) {
+  int r;
+  if (n == 0) {
+    dump();
+    r = 1;
+  } else {
+    r = outer(n - 1);
+  }
+  __asm__ volatile("" ::: "memory");
+  return r + 1;
+}
+
+__attribute__((noinline, noclone)) int middle(int n) {
+  int r = leaf(n);
+  __asm__ volatile("" ::: "memory");
+  return r + 2;
+}
+
+__attribute__((noinline, noclone)) int outer(int n) {
+  int r = middle(n);
+  __asm__ volatile("" ::: "memory");
+  return r + 3;
+}
+
+int main(int argc, char **argv) {
+  out_path = argv[1];
+  int r = outer(atoi(argv[2]) - 1);
+  printf("%d\n", r);
+  fflush(stdout);
+  sleep(120);
+  return 0;
+}
+"""
+PERF_CHILD = """
+import sys, time
+def hot(n):
+    return sum(i * i for i in range(n))
+for _ in range(200):
+    hot(500)
+active = getattr(sys, "is_stack_trampoline_active", lambda: False)()
+print("ready", int(active), flush=True)
+time.sleep(120)
+"""
+
+
+class SymbolWorld:
+    """Phase 12's names, made from a seed: a kallsyms over the synthetic
+    kernel addresses, and for one pid in JIT_EVERY two new stacks whose
+    user frames run in an anonymous (unmapped) JIT region, with a perf
+    map of that region in the pid's mount namespace. ``files`` is the
+    FakeFS content; ``ksym`` and ``perf`` are the oracles (a sorted
+    address table for np.searchsorted, and each pid's (start, end,
+    name) entries)."""
+
+    def __init__(self, snap, seed: int = 12):
+        import dataclasses
+
+        import numpy as np
+
+        from parca_agent_tpu_torch.capture.formats import KERNEL_ADDR_START
+
+        rng = np.random.default_rng(seed)
+        # The synthetic kernel frames lie in [K, K + 2^22) (synthetic.py).
+        offs = np.sort(rng.choice(1 << 18, SYM_KSYMS, replace=False))
+        addrs = np.uint64(KERNEL_ADDR_START) + offs.astype(np.uint64) * 16
+        types = rng.choice(list("TTTTttWDr"), SYM_KSYMS)
+        lines = []
+        for i, (a, t) in enumerate(zip(addrs.tolist(), types)):
+            lines.append(f"{a:016x} {t} k_{i}_{t}")
+        text = types != "D"
+        text &= types != "r"
+        self.ksym_addrs = addrs[text]
+        self.ksym_names = [f"k_{i}_{t}" for i, t in enumerate(types)
+                           if t not in "Dr"]
+        self.files = {"/proc/kallsyms": ("\n".join(lines) + "\n").encode()}
+        pids, first = np.unique(snap.pids, return_index=True)
+        self.jit_pids = pids[::JIT_EVERY]
+        self.perf: dict[int, list] = {}
+        n = len(self.jit_pids)
+        stacks = np.zeros((2 * n, snap.stacks.shape[1]), np.uint64)
+        ulen = np.zeros(2 * n, np.int32)
+        klen = np.zeros(2 * n, np.int32)
+        for j, pid in enumerate(self.jit_pids.tolist()):
+            base = JIT_BASE + j * JIT_SPAN
+            # Two hot JIT functions and one the map does not name.
+            stacks[2 * j, :2] = (base + 0x100, base + 0x900)
+            ulen[2 * j] = 2
+            row = first[j * JIT_EVERY]
+            stacks[2 * j + 1, :2] = (base + 0x1500, snap.stacks[row, 0])
+            stacks[2 * j + 1, 2:4] = KERNEL_ADDR_START + np.uint64(0x40) \
+                * rng.integers(1, 1 << 16, 2).astype(np.uint64)
+            ulen[2 * j + 1] = 2
+            klen[2 * j + 1] = 2
+            nspid = 7 + j % 5
+            self.perf[pid] = [(base, base + 0x400, f"jit::{pid}::hot"),
+                              (base + 0x800, base + 0xC00,
+                               f"jit::{pid}::loop (tier 2)"),
+                              (base + 0x1400, base + 0x1480,
+                               f"jit::{pid}::cold")]
+            self.files[f"/proc/{pid}/status"] = \
+                f"Name:\tjit\nNSpid:\t{pid}\t{nspid}\n".encode()
+            self.files[f"/proc/{pid}/root/tmp/perf-{nspid}.map"] = "".join(
+                f"{lo:x} {hi - lo:x} {name}\n"
+                for lo, hi, name in self.perf[pid]).encode()
+        jp = np.repeat(self.jit_pids.astype(np.int32), 2)
+        self.window = dataclasses.replace(
+            snap, pids=np.concatenate([snap.pids, jp]),
+            tids=np.concatenate([snap.tids, jp]),
+            counts=np.concatenate([snap.counts,
+                                   np.full(2 * n, 3, np.int64)]),
+            user_len=np.concatenate([snap.user_len, ulen]),
+            kernel_len=np.concatenate([snap.kernel_len, klen]),
+            stacks=np.concatenate([snap.stacks, stacks]))
+
+    def want(self, prof) -> list:
+        """The name the symbolizer must give each location of ``prof``
+        (None: no name): kernel locations from the kallsyms' sorted
+        address table, unmapped user locations from the pid's perf map,
+        mapped user locations none."""
+        import numpy as np
+
+        out = [None] * prof.n_locations
+        kern = np.asarray(prof.loc_is_kernel, bool)
+        ki = np.flatnonzero(kern)
+        pos = np.searchsorted(self.ksym_addrs, prof.loc_address[ki],
+                              side="right") - 1
+        for i, k in zip(ki.tolist(), pos.tolist()):
+            out[i] = self.ksym_names[k] if k >= 0 else None
+        mapped = np.isin(prof.loc_mapping_id,
+                         [m.id for m in prof.mappings if m.path])
+        entries = self.perf.get(prof.pid, ())
+        for i in np.flatnonzero(~kern & ~mapped).tolist():
+            addr = int(prof.loc_address[i])
+            for lo, hi, name in entries:
+                if lo <= addr < hi:
+                    out[i] = name
+        return out
+
+
+def check_names(world, prof) -> int:
+    """Raise unless every location of ``prof`` carries the oracle's name
+    (one line, or none), in the profile and in its build_pprof parsed
+    back; returns the named locations."""
+    from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
+
+    want = [[w] if w else [] for w in world.want(prof)]
+    fns = [f[0] for f in prof.functions]
+    got = ([[fns[fid - 1] for fid, _ in ls] for ls in prof.loc_lines]
+           if prof.loc_lines is not None else [[]] * prof.n_locations)
+    parsed = parse_pprof(build_pprof(prof, compress=False))
+    pf = {fid: f["name"] for fid, f in parsed.functions.items()}
+    back = [[pf[fid] for fid, _ in parsed.locations[i + 1]["lines"]]
+            for i in range(prof.n_locations)]
+    if got != want or back != got:
+        bad = next(i for i in range(prof.n_locations)
+                   if got[i] != want[i] or back[i] != got[i])
+        raise AssertionError(
+            f"symbolize pid {prof.pid} location {bad} "
+            f"{int(prof.loc_address[bad]):#x}: {got[bad]} (pprof "
+            f"{back[bad]}), oracle {want[bad]}")
+    return sum(1 for w in want if w)
+
+
+def symbolize_window(dev, snap, agg) -> dict:
+    """Phase 12 (a): aggregate() of the bench window plus the JIT pids'
+    stacks on ``agg``, phase 7's warm dictionary, then the Symbolizer
+    over a FakeFS of SymbolWorld's names; every 64th pid checked against
+    the oracle, with the collector as the CLI's loop runs it. Returns
+    the launches."""
+    import gc
+
+    t0 = time.perf_counter()
+    world = SymbolWorld(snap)
+    world_s = time.perf_counter() - t0
+    # The collector as the CLI's loop runs it after its first window
+    # (WindowLoop manage_gc): the warm state frozen, no automatic pass.
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        return _symbolize_window(dev, world, agg, world_s)
+    finally:
+        gc.enable()
+        gc.unfreeze()
+
+
+def _symbolize_window(dev, world, agg, world_s: float) -> dict:
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.symbolize import KsymCache, Symbolizer
+    from parca_agent_tpu_torch.symbolize.perfmap import PerfMapCache
+    from parca_agent_tpu_torch.utils.vfs import FakeFS
+
+    win = world.window
+    probe.reset_launches()
+    close.reset_launches()
+    t0 = time.perf_counter()
+    profiles = agg.aggregate(win)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    aggregate_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                "close_pack": close.LAUNCHES["close_pack"],
+                "close_pack_delta": close.LAUNCHES["close_pack_delta"]}
+    if launches["feed_accumulate"] < 1 \
+            or launches["close_pack"] + launches["close_pack_delta"] < 1:
+        raise AssertionError(f"symbolize window launches {launches}")
+    total = sum(p.total() for p in profiles)
+    if total != win.total_samples() or len(profiles) != len(
+            np.unique(win.pids)):
+        raise AssertionError(f"symbolize window: {total} samples in "
+                             f"{len(profiles)} profiles")
+    timings = {k: v * 1e3 for k, v in agg.timings.items()}
+    fs = FakeFS(dict(world.files))
+    sym = Symbolizer(ksym=KsymCache(fs=fs), perf=PerfMapCache(fs=fs))
+    n_fn = sum(len(p.functions) for p in profiles)
+    t0 = time.perf_counter()
+    sym.symbolize(profiles)
+    symbolize_ms = (time.perf_counter() - t0) * 1e3
+    if sym.last_errors:
+        raise AssertionError(f"symbolize errors: {sym.last_errors}")
+    t0 = time.perf_counter()
+    jit = set(world.jit_pids.tolist())
+    # Every 64th pid (one in JIT_EVERY runs JIT code, so each of these).
+    checked = profiles[::SYM_EVERY]
+    named = sum(check_names(world, p) for p in checked)
+    if not all(p.pid in jit for p in checked) or named == 0:
+        raise AssertionError("symbolize: a checked pid without JIT code, "
+                             "or no name checked")
+    check_ms = (time.perf_counter() - t0) * 1e3
+    n_loc = sum(p.n_locations for p in profiles)
+    named_loc = sum(sum(1 for ls in p.loc_lines if ls)
+                    for p in profiles if p.loc_lines is not None)
+    emit("symbolize_window", rows=len(win), pids=len(profiles),
+         jit_pids=len(jit), samples=total, world_s=world_s,
+         aggregate_ms=aggregate_ms,
+         close_ms=timings.get("close_dispatch", 0.0)
+         + timings.get("close_fetch", 0.0) + timings.get("close_unpack", 0.0),
+         timings_ms=timings, symbolize_ms=symbolize_ms,
+         pids_named=sum(1 for p in profiles if p.functions),
+         locations=n_loc, locations_named=named_loc,
+         functions_added=sum(len(p.functions) for p in profiles) - n_fn,
+         checked_pids=len(checked), checked_named=named, check_ms=check_ms,
+         gc="frozen and disabled, as WindowLoop(manage_gc=True)",
+         launches=launches)
+    return launches
+
+
+def symbolize_real_fs() -> dict:
+    """Phase 12 (b): a /proc/kallsyms symbol through KsymCache, and three
+    entries of a `python3 -X perf` child's perf map through PerfMapCache
+    and namespaced_pid, on the running host's filesystem."""
+    from parca_agent_tpu_torch.symbolize import KsymCache
+    from parca_agent_tpu_torch.symbolize.ksym import parse_kallsyms
+    from parca_agent_tpu_torch.symbolize.perfmap import (
+        PerfMapCache,
+        namespaced_pid,
+        parse_perf_map,
+    )
+    from parca_agent_tpu_torch.utils.vfs import RealFS
+
+    out = {}
+    try:
+        text = Path("/proc/kallsyms").read_bytes()
+    except OSError as e:
+        out["kallsyms"] = {"note": f"no /proc/kallsyms here: {e}"}
+    else:
+        addrs, names = parse_kallsyms(text)
+        nz = [i for i in range(1, len(addrs) - 1) if addrs[i]
+              and addrs[i - 1] != addrs[i] != addrs[i + 1]]
+        if not nz:
+            out["kallsyms"] = {"symbols": len(addrs), "nonzero": 0,
+                               "note": "kptr_restrict zeroes every address"}
+        else:
+            i = nz[len(nz) // 2]
+            got = KsymCache().resolve([int(addrs[i]) + 1])[0]
+            if got != names[i]:
+                raise AssertionError(f"kallsyms {int(addrs[i]):#x}: {got} "
+                                     f"!= {names[i]}")
+            out["kallsyms"] = {"symbols": len(addrs), "nonzero": len(nz),
+                               "address": hex(int(addrs[i])), "name": got}
+    child = subprocess.Popen([sys.executable, "-X", "perf", "-c", PERF_CHILD],
+                             stdout=subprocess.PIPE, text=True)
+    path = Path(f"/tmp/perf-{child.pid}.map")
+    try:
+        ready = child.stdout.readline().split()
+        if not path.exists():
+            out["perf_map"] = {"note": "this interpreter wrote no perf map "
+                                       "(built without the perf trampoline)",
+                               "ready": ready, "python": sys.version.split()[0]}
+            return out
+        nspid = namespaced_pid(RealFS(), child.pid)
+        text = path.read_bytes()
+        pm = parse_perf_map(text)
+        spans = sorted(zip(pm.starts.tolist(), pm.ends.tolist(), pm.names))
+        alone = [(lo, hi, n) for k, (lo, hi, n) in enumerate(spans)
+                 if (k == 0 or spans[k - 1][1] <= lo)
+                 and (k + 1 == len(spans) or hi <= spans[k + 1][0])
+                 and hi > lo]
+        if len(alone) < 3:
+            raise AssertionError(f"perf map of {len(spans)} entries")
+        picks = [alone[0], alone[len(alone) // 2], alone[-1]]
+        cache = PerfMapCache()
+        got = cache.map_for_pid(child.pid).lookup_many(
+            [(lo + hi) // 2 for lo, hi, _ in picks])
+        if got != [n for _, _, n in picks] or nspid != child.pid:
+            raise AssertionError(f"perf map: {got} against {picks}, nspid "
+                                 f"{nspid}")
+        out["perf_map"] = {"entries": len(pm), "bytes": len(text),
+                           "nspid": nspid, "resolved": got,
+                           "trampoline": ready}
+    finally:
+        child.kill()
+        child.wait()
+        path.unlink(missing_ok=True)
+    return out
+
+
+def dwarf_walk(dev, tmp: Path) -> dict:
+    """Phase 12 (c): the frameless fixture built with gcc at run time, its
+    dumped sample walked DWARF_SAMPLES times through unwind_records over
+    tables that UnwindTableCache.build_now built from its real maps, then
+    the walked records through records_to_snapshot and the scalar loop
+    on the card. Returns the launches."""
+    import dataclasses
+    import struct
+
+    import numpy as np
+    import torch
+
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.capture.live import (
+        UnwindTableCache,
+        mapping_table_for_pids,
+        records_to_snapshot,
+        unwind_records,
+    )
+    from parca_agent_tpu_torch.elf.reader import ElfFile
+    from parca_agent_tpu_torch.process.maps import ProcessMapCache
+    from parca_agent_tpu_torch.process.objectfile import ObjectFileCache
+    from parca_agent_tpu_torch.profiler.cpu import AggregateLoop
+    from parca_agent_tpu_torch.unwind.walker import WalkStats
+
+    src = tmp / "frameless.c"
+    exe = tmp / "frameless"
+    dumpf = tmp / "sample.bin"
+    src.write_text(DWARF_FIXTURE)
+    cc = subprocess.run(["gcc", "-O2", "-fomit-frame-pointer",
+                         f"-DDUMP={DWARF_DUMP}", str(src), "-o", str(exe)],
+                        capture_output=True, text=True, timeout=120)
+    if cc.returncode != 0:
+        raise AssertionError(f"fixture build failed: {cc.stderr[-2000:]}")
+    proc = subprocess.Popen([str(exe), str(dumpf), str(DWARF_LEVELS)],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        if not proc.stdout.readline().strip():
+            raise AssertionError("the fixture did not run")
+        raw = dumpf.read_bytes()
+        rip, rsp, rbp, n = struct.unpack_from("<4Q", raw)
+        stack = np.frombuffer(raw, np.uint8, n, 32).copy()
+        maps = ProcessMapCache()
+        tables = UnwindTableCache(maps)
+        try:
+            t0 = time.perf_counter()
+            table = tables.build_now(proc.pid)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            if table is None or len(table) == 0:
+                raise AssertionError("no unwind table for the fixture")
+            mine = maps.executable_mappings(proc.pid)
+            objs = sorted({m.path for m in mine})
+            recs = [(proc.pid, proc.pid + k % DWARF_CPUS,
+                     np.zeros(0, np.uint64), np.array([rip], np.uint64),
+                     rip, rsp, rbp, stack) for k in range(DWARF_SAMPLES)]
+            stats = WalkStats()
+            t0 = time.perf_counter()
+            walked = unwind_records(recs, tables, stats=stats)
+            walk_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            tables.close()
+        ef = ElfFile(exe.read_bytes())
+        syms = [(s.value, s.value + s.size, s.name) for s in ef.symbols()
+                if s.name in ("dump", "leaf", "middle", "outer", "main")]
+        base = min(m.start - m.offset for m in mine
+                   if m.path == str(exe))
+        want = ["dump"] + ["leaf", "middle", "outer"] * DWARF_LEVELS \
+            + ["main"]
+
+        def names(frames):
+            out = []
+            for a in frames[:len(want)].tolist():
+                hit = [nm for lo, hi, nm in syms if lo <= a - base < hi]
+                out.append(hit[0] if hit else hex(a))
+            return out
+
+        first = names(walked[0][3])
+        if first != want or any(not np.array_equal(w[3], walked[0][3])
+                                for w in walked):
+            raise AssertionError(f"walk: {first} against {want}")
+        if stats.total != DWARF_SAMPLES or stats.pc_not_covered \
+                or stats.unsupported:
+            raise AssertionError(f"walk stats {stats}")
+        t0 = time.perf_counter()
+        snap = records_to_snapshot(
+            walked, mapping_table_for_pids(maps, ObjectFileCache(),
+                                           [proc.pid]),
+            int(1e7), int(10e9))
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        proc.kill()
+        proc.wait()
+
+    class Source:
+        def __init__(self):
+            self.left = [snap]
+
+        def poll(self):
+            return self.left.pop() if self.left else None
+
+    class Kept(DictAggregator):
+        profiles = None
+
+        def aggregate(self, s, hashes=None):
+            self.profiles = super().aggregate(s, hashes)
+            return self.profiles
+
+    agg = Kept(capacity=1 << 12, device=dev, overflow="raise")
+    records = []
+    probe.reset_launches()
+    close.reset_launches()
+    loop = AggregateLoop(Source(), agg, on_window=records.append,
+                         duration_s=0.01)
+    while loop.run_iteration():
+        pass
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    launches = {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+                "close_pack": close.LAUNCHES["close_pack"],
+                "close_pack_delta": close.LAUNCHES["close_pack_delta"]}
+    mass = {p.pid: p.total() for p in agg.profiles}
+    if mass != {proc.pid: DWARF_SAMPLES} or len(records) != 1 \
+            or launches["feed_accumulate"] < 1 \
+            or launches["close_pack"] + launches["close_pack_delta"] < 1:
+        raise AssertionError(f"walked window: mass {mass}, {records}, "
+                             f"launches {launches}")
+    depth = int(snap.user_len.max())
+    emit("symbolize_dwarf", levels=DWARF_LEVELS, objects=objs,
+         table_rows=len(table), table_shards=len(table.shards),
+         table_build_ms=build_ms, samples=DWARF_SAMPLES,
+         dump_bytes=int(n), walk_ms=walk_ms,
+         walk_stats=dataclasses.asdict(stats),
+         success_ratio=stats.success / stats.total,
+         main_at_depth=len(want) - 1, walked_depth=depth,
+         frames=names(walked[0][3]), snapshot_ms=snapshot_ms,
+         rows=len(snap), window=records[0], launches=launches)
+    return launches
+
+
+def start_sym_cli(store: Path, capture: str, *flags):
+    """The CLI without --fast-encode on the card: SYM_CLI_WINDOWS windows
+    of 1 s from ``capture`` with ``flags``, started (finish_sym_cli waits
+    for it)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    argv = ["--capture", capture, "--aggregator", "dict", "--windows",
+            str(SYM_CLI_WINDOWS), "--profiling-duration", "1",
+            "--local-store-directory", str(store), *NO_PROBE, *flags]
+    proc = subprocess.Popen([sys.executable, "-m", "parca_agent_tpu_torch",
+                             *argv], cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, argv, time.perf_counter()
+
+
+def finish_sym_cli(started) -> dict:
+    """The started CLI's windows and runtime line; raises unless it exits
+    0 with SYM_CLI_WINDOWS windows that name the symbolize span and ship
+    their whole mass."""
+    proc, argv, t0 = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    wins = [ln for ln in lines if "window" in ln]
+    runtime = [ln["runtime"] for ln in lines if "runtime" in ln]
+    label = " ".join(argv)
+    if proc.returncode != 0 or len(wins) != SYM_CLI_WINDOWS \
+            or any("symbolize_ms" not in w or w["mass"] != w["samples"]
+                   for w in wins):
+        raise AssertionError(f"CLI {label}: rc {proc.returncode}, {wins}: "
+                             f"{err[-2000:]}")
+    cli_runtime_clean(f"CLI {label}", runtime)
+    rt = runtime[0]
+    if "symbolize" not in rt["trace"]["stage_percentiles"] \
+            or "process_identity" not in rt:
+        raise AssertionError(f"CLI {label}: runtime {rt}")
+    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+            "windows": [{k: w[k] for k in ("window", "capture", "rows",
+                                           "mass", "aggregate_ms",
+                                           "symbolize_ms")} for w in wins],
+            "symbolize_p50_ms":
+                rt["trace"]["stage_percentiles"]["symbolize"]["p50_ms"],
+            "process_identity": rt["process_identity"],
+            "faults_fired": rt.get("faults_fired", {}),
+            "dwarf_walk": rt.get("dwarf_walk")}
+
+
+def phase_symbolize(dev, snap, agg) -> dict:
+    """Phase 12 (module docs). Returns the phase's launches, summed over
+    its scalar window and its walked window."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # The CLI runs go first and overlap the library checks.
+        clis = {
+            "identity": start_sym_cli(tmp / "s0", "procfs"),
+            "process.identity": start_sym_cli(
+                tmp / "s1", "procfs", "--fault-inject",
+                "process.identity:error"),
+            # procfs stacks are depth 1 at each process's entry point, with
+            # no kernel frames: the kernel resolve runs on the synthetic
+            # windows' kernel tails.
+            "symbolize.kernel": start_sym_cli(
+                tmp / "s2", "synthetic", "--fault-inject",
+                "symbolize.kernel:error"),
+        }
+        try:
+            la = symbolize_window(dev, snap, agg)
+            emit("symbolize_real_fs", **symbolize_real_fs())
+            lc = dwarf_walk(dev, tmp)
+        finally:
+            runs = {}
+            for name, started in clis.items():
+                try:
+                    runs[name] = finish_sym_cli(started)
+                except Exception:
+                    for other in clis.values():
+                        if other[0].poll() is None:
+                            other[0].kill()
+                    raise
+    ident = runs["identity"]["process_identity"]
+    faulted = runs["process.identity"]
+    if ident["checks_total"] < 1 \
+            or faulted["faults_fired"].get("process.identity", 0) \
+            < SYM_CLI_WINDOWS \
+            or faulted["process_identity"]["errors_total"] \
+            < SYM_CLI_WINDOWS \
+            or runs["symbolize.kernel"]["faults_fired"].get(
+                "symbolize.kernel", 0) < SYM_CLI_WINDOWS:
+        raise AssertionError(f"symbolize CLI runs: {runs}")
+    emit("symbolize_cli", runs=runs)
+    return {k: la[k] + lc[k] for k in la}
 
 
 def main() -> int:
@@ -4656,7 +5301,8 @@ def main() -> int:
     bounded, launches_cm = timed("bounded", phase_bounded, dev, snap, hashes,
                                  state, close_refs)
     rows.update(bounded)
-    launches_stream = timed("streaming", phase_streaming, dev, snap, want)
+    launches_stream, dict_agg = timed("streaming", phase_streaming, dev,
+                                      snap, want)
     sharded_rows, launches_sharded = timed("sharded", phase_sharded, dev,
                                            snap, want, hashes, b7_ref)
     rows.update(sharded_rows)
@@ -4667,12 +5313,16 @@ def main() -> int:
     launches_runtime = timed("runtime", phase_runtime, dev, snap, want,
                              state, hashes)
     del state
+    launches_sym = timed("symbolize", phase_symbolize, dev, snap, dict_agg)
+    del dict_agg
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
     # bounded-memory dictionary (phase 6), the streaming window (phase 7),
     # the sharded dictionary (phase 8), the fleet merge (phase 9), the
-    # CLI on the live machine (phase 10) and the dictionary at bench.py's
-    # option settings (phase 11). `launches` is their sum.
+    # CLI on the live machine (phase 10), the dictionary at bench.py's
+    # option settings (phase 11) and the scalar path's windows that phase
+    # 12 symbolizes (the bench window on phase 7's dictionary, and the
+    # walked DWARF window). `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
@@ -4681,7 +5331,8 @@ def main() -> int:
                "sharded": launches_sharded,
                "fleet": launches_fleet,
                "live": launches_live,
-               "runtime": launches_runtime}
+               "runtime": launches_runtime,
+               "symbolize": {k: n for k, n in launches_sym.items() if n}}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

@@ -13,9 +13,18 @@ unless --no-encode-pipeline is given (profiler/cpu.py); with
 which the next run adopts before its first window. With
 --streaming-window (perf capture, --fast-encode, a dictionary) each
 capture drain is fed to the card during the window and the close is one
-packed fetch (profiler/streaming.py). Live capture ships profiles
-unsymbolized, so it goes with --fast-encode: the port has no symbolizer
-yet. --capture perf degrades to procfs only when the kernel refuses
+packed fetch (profiler/streaming.py). Without --fast-encode each
+window's profiles are symbolized on the host before they are written:
+kernel frames from /proc/kallsyms, JIT frames from /tmp/perf-<pid>.map
+read through the process's own mount namespace (symbolize/); the
+--fast-encode path ships addresses, for the server to symbolize.
+--dwarf-unwinding (perf capture) also snapshots each sample's user
+registers and stack and walks frameless user stacks against .eh_frame
+tables built in the background (unwind/, dwarf/); that mode runs
+one-shot. Each window's pids are checked against their /proc start time
+before the close (process/identity.py), so a recycled pid's stale state
+is dropped, unless --no-pid-generation or PARCA_NO_PID_GENERATION=1.
+--capture perf degrades to procfs only when the kernel refuses
 perf_event_open (EACCES or EPERM); each window's JSON line names the
 source that ran. With
 --fleet-coordinator the agent joins a fleet of agent processes
@@ -43,9 +52,11 @@ recorder (runtime/trace.py) and device telemetry
 (runtime/device_telemetry.py) are always on (both observe only), the
 quarantine registry (runtime/quarantine.py) unless
 --quarantine-max-strikes is 0; every exit prints their state as one
-{"runtime": ...} JSON line, before the source's and the fleet's exit
-lines (after a device hang: before the device-health line, which is
-last). --fault-inject arms the chaos sites (utils/faults.py).
+{"runtime": ...} JSON line (with the process identity's counters, the
+faults fired at each armed chaos site and, in DWARF mode, the walk
+counters under the original's /metrics names), before the source's and
+the fleet's exit lines (after a device hang: before the device-health
+line, which is last). --fault-inject arms the chaos sites (utils/faults.py).
 """
 
 from __future__ import annotations
@@ -72,8 +83,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel.perf_event_paranoid <= 0; refused, it "
                         "degrades to procfs), procfs = per-process CPU "
                         "ticks from /proc (depth-1 stacks at each "
-                        "process's entry point). Live capture ships "
-                        "unsymbolized profiles: use it with --fast-encode")
+                        "process's entry point)")
+    p.add_argument("--dwarf-unwinding", action="store_true",
+                   help="capture user registers + stack slices and unwind "
+                        "frameless user stacks against .eh_frame tables "
+                        "(reference --experimental-enable-dwarf-unwinding); "
+                        "--capture perf only, runs one-shot")
+    p.add_argument("--dwarf-unwinding-comm-regex", default="",
+                   help="only build unwind tables for processes whose comm "
+                        "matches (reference --debug-process-names); empty "
+                        "= all sampled processes")
+
+    def _non_negative(text: str) -> int:
+        v = int(text)
+        if v < 0:
+            raise argparse.ArgumentTypeError("must be >= 0")
+        return v
+
+    p.add_argument("--dwarf-trust-fp-frames", type=_non_negative, default=0,
+                   help="skip the DWARF walk for samples whose frame-"
+                        "pointer chain already has this many frames "
+                        "(throughput knob; 0 = walk every sample of a "
+                        "targeted process, the reference's behavior)")
+    p.add_argument("--dwarf-stack-dump-bytes", type=int, default=16384,
+                   help="user-stack bytes snapshotted per sample in DWARF "
+                        "mode (multiple of 8, < 64 KiB)")
+    p.add_argument("--no-pid-generation", action="store_true",
+                   help="disable generation-stamped process identity "
+                        "(pid-reuse detection via /proc/<pid>/stat "
+                        "starttime + stale-state invalidation); "
+                        "PARCA_NO_PID_GENERATION=1 does the same")
     p.add_argument("--profiling-cpu-sampling-frequency", type=int,
                    default=100,
                    help="samples a second a CPU (perf), or the rate that "
@@ -289,7 +328,11 @@ def live_source(args):
         try:
             return PerfEventSampler(
                 frequency_hz=args.profiling_cpu_sampling_frequency,
-                window_s=args.profiling_duration), "perf"
+                window_s=args.profiling_duration,
+                capture_stack=args.dwarf_unwinding,
+                stack_dump_bytes=args.dwarf_stack_dump_bytes,
+                dwarf_comm_regex=args.dwarf_unwinding_comm_regex or None,
+                trust_fp_frames=args.dwarf_trust_fp_frames or None), "perf"
         except SamplerUnavailable as e:
             if e.errno not in (errno.EACCES, errno.EPERM):
                 raise
@@ -298,6 +341,51 @@ def live_source(args):
                 errno=e.errno, error=str(e))
     return ProcfsSampler(frequency_hz=args.profiling_cpu_sampling_frequency,
                          window_s=args.profiling_duration), "procfs"
+
+
+def walk_metrics(source) -> dict:
+    """DWARF mode's walk counters under the original's /metrics names
+    (empty before the first walk, and outside DWARF mode)."""
+    ws = getattr(source, "walk_stats", None)
+    if ws is None or not ws.total:
+        return {}
+    return {"parca_agent_dwarf_walk_total": ws.total,
+            "parca_agent_dwarf_walk_success_total": ws.success,
+            "parca_agent_dwarf_walk_truncated_total": ws.truncated,
+            "parca_agent_dwarf_walk_pc_not_covered_total": ws.pc_not_covered,
+            "parca_agent_dwarf_walk_unsupported_total": ws.unsupported,
+            "parca_agent_dwarf_walk_success_ratio":
+                round(ws.success / ws.total, 4)}
+
+
+def identity_tracker(args, source, aggregator, quarantine):
+    """The generation-stamped process identity and the perf-map cache
+    its invalidators share with the symbolizer: (None, None) with
+    --no-pid-generation or PARCA_NO_PID_GENERATION=1. A recycled pid
+    evicts its perf map, maps, unwind tables, quarantine record and the
+    dictionary's per-pid registry."""
+    if args.no_pid_generation \
+            or os.environ.get("PARCA_NO_PID_GENERATION", "") == "1":
+        return None, None
+    from parca_agent_tpu_torch.process.identity import (
+        ProcessIdentityTracker,
+    )
+    from parca_agent_tpu_torch.symbolize.perfmap import PerfMapCache
+
+    identity = ProcessIdentityTracker()
+    perf_cache = PerfMapCache()
+    identity.add_invalidator("perfmap", perf_cache.evict)
+    maps_cache = getattr(source, "_maps", None)
+    if maps_cache is not None and hasattr(maps_cache, "evict"):
+        identity.add_invalidator("maps", maps_cache.evict)
+    unwind_cache = getattr(source, "_tables", None)
+    if unwind_cache is not None and hasattr(unwind_cache, "evict"):
+        identity.add_invalidator("unwind", unwind_cache.evict)
+    if quarantine is not None:
+        identity.add_invalidator("quarantine", quarantine.forget_pid)
+    if hasattr(aggregator, "invalidate_pid"):
+        identity.add_invalidator("aggregator", aggregator.invalidate_pid)
+    return identity, perf_cache
 
 
 def capture_stats(source, requested: str, capture: str, feeder) -> dict:
@@ -309,7 +397,8 @@ def capture_stats(source, requested: str, capture: str, feeder) -> dict:
                    lost_samples=source.lost_samples,
                    truncated_drains=source.truncated_drains,
                    dedup_hits=source.dedup_hits,
-                   dedup_overflow=source.dedup_overflow)
+                   dedup_overflow=source.dedup_overflow,
+                   dwarf=source.capture_stack)
     if feeder is not None:
         out["streaming"] = {k: feeder.stats[k] for k in (
             "drains_fed", "windows_streamed", "windows_fallback")}
@@ -412,6 +501,7 @@ def _run(args) -> int:
     from parca_agent_tpu_torch.runtime import trace as trace_mod
     from parca_agent_tpu_torch.runtime.quarantine import QuarantineRegistry
     from parca_agent_tpu_torch.runtime.supervisor import Supervisor
+    from parca_agent_tpu_torch.utils import faults
     from parca_agent_tpu_torch.utils.device import resolve_device
     from parca_agent_tpu_torch.utils.log import get_logger
     from parca_agent_tpu_torch.utils.window_clock import windows_for
@@ -486,10 +576,13 @@ def _run(args) -> int:
                 "--debug-process-names filters at the window boundary; "
                 "running one-shot (streaming disabled)")
             args.streaming_window = False
-    streaming = args.streaming_window and hasattr(source, "on_drain")
+    streaming = args.streaming_window and hasattr(source, "on_drain") \
+        and not getattr(source, "capture_stack", False)
     if args.streaming_window and not streaming:
-        get_logger("cli").warn("--streaming-window needs --capture perf; "
-                               "running one-shot", capture=capture)
+        get_logger("cli").warn("--streaming-window needs the perf capture "
+                               "source in FP mode; running one-shot",
+                               capture=capture,
+                               dwarf=getattr(source, "capture_stack", False))
     carry = streaming and not args.no_feed_carry
 
     # The window flight recorder, device telemetry and the quarantine
@@ -546,6 +639,8 @@ def _run(args) -> int:
         aggregator = TPUAggregator(device=device)
     else:
         aggregator = CPUAggregator()
+    identity, perf_cache = identity_tracker(args, source, aggregator,
+                                            quarantine)
     writer = (FileProfileWriter(args.local_store_directory)
               if args.local_store_directory else None)
     print_mu = threading.Lock()
@@ -563,6 +658,8 @@ def _run(args) -> int:
             line["encode_path"] = rec["path"]
             line["encode_ms"] = round(rec["encode_ms"], 3)
         line["window_ms"] = round(rec["window_ms"], 3)
+        if "symbolize_ms" in rec:
+            line["symbolize_ms"] = round(rec["symbolize_ms"], 3)
         if "handoff_ms" in rec:
             line["handoff_ms"] = round(rec["handoff_ms"], 3)
         if "streamed" in rec:
@@ -613,7 +710,8 @@ def _run(args) -> int:
                    device_timeout_s=args.device_timeout,
                    device_health=health, quarantine=quarantine,
                    trace_recorder=recorder,
-                   duration_s=args.profiling_duration)
+                   duration_s=args.profiling_duration, identity=identity,
+                   manage_gc=True)
     if args.fast_encode:
         if streaming:
             from parca_agent_tpu_torch.profiler.streaming import (
@@ -648,8 +746,18 @@ def _run(args) -> int:
                               "adopt_ms": statics_store.stats[
                                   "snapshot_adopt_ms"]}), flush=True)
     else:
-        loop = AggregateLoop(source, aggregator, profile_writer=writer,
-                             on_window=emit, **runtime)
+        from parca_agent_tpu_torch.symbolize import KsymCache, Symbolizer
+        from parca_agent_tpu_torch.symbolize.perfmap import PerfMapCache
+
+        # Kernel names from kallsyms, JIT names from perf maps (through
+        # the identity's cache, which a recycled pid evicts).
+        symbolizer = Symbolizer(
+            ksym=KsymCache(),
+            perf=perf_cache if perf_cache is not None else PerfMapCache(),
+            quarantine=quarantine)
+        loop = AggregateLoop(source, aggregator, symbolizer=symbolizer,
+                             profile_writer=writer, on_window=emit,
+                             **runtime)
 
     # Supervision: a crashed window loop restarts with capped backoff,
     # up to its crash budget (a device hang is never restarted: it ends
@@ -678,6 +786,14 @@ def _run(args) -> int:
             out["feeder"] = {k: feeder.stats[k] for k in (
                 "feed_errors", "feed_hangs", "drain_map_errors",
                 "cooldowns", "reprobes", "windows_fallback")}
+        if identity is not None:
+            out["process_identity"] = identity.metrics()
+        injector = faults.get()
+        if injector is not None:
+            out["faults_fired"] = injector.stats()
+        walks = walk_metrics(source)
+        if walks:
+            out["dwarf_walk"] = walks
         return out
 
     recorder.set_context(runtime_state)

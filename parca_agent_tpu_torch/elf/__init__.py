@@ -1,7 +1,7 @@
 """Minimal ELF toolkit: the port's copy of the parts of parca_agent_tpu's
-elf/ that address normalization needs (the reader over in-memory bytes,
-build ids, the base-address rule). The writer and the executable
-classification are not ported yet.
+elf/: the reader over in-memory bytes, build ids, the base-address
+rule, the executable classification (executable.py) and the filtering
+writer (writer.py) that debuginfo extraction builds on.
 """
 
 from parca_agent_tpu_torch.elf.base import compute_base

@@ -6,7 +6,9 @@ paths share: the poll, the window trace, the window sink, the quarantine,
 device-health and telemetry ticks, the stop event and the window count.
 ``AggregateLoop`` is the path without --fast-encode: each window's
 profiles from ``aggregator.aggregate`` (under the device watchdog), down
-the quarantine ladder, through build_pprof into the writer.
+the quarantine ladder, through the symbolizer when one is given (kernel
+names from kallsyms, JIT names from perf maps: symbolize/; pids on the
+ladder are skipped), then build_pprof into the writer.
 ``CPUProfiler`` is the --fast-encode path: each window, the dictionary's
 counts (on
 the card unless the aggregator was made on the CPU), then the vectorized
@@ -58,21 +60,31 @@ width, is not the card's. No CPU aggregator stands behind the card, so:
     loss is counted in the pipeline's windows_lost) and the loop raises
     that error at the next window or at close.
 
+Both loops take a process identity tracker (process/identity.py): it
+observes each window's pids before the close, so a recycled pid's stale
+state (its maps, perf map, unwind tables, quarantine record and the
+dictionary's per-pid registry) is invalidated before the new process's
+samples resolve through it. With a debuginfo manager (debuginfo/), each
+window's object files go to ``ensure_uploaded`` after the window. The
+fast path ships unsymbolized profiles and refuses a symbolizer.
+
 Each window records a trace in the flight recorder when one is given
 (runtime/trace.py: drain, close, the feeder's feed spans, fetch,
-buffer_flip, delta_fetch, then encode and ship here or prepare,
-statics, encode and ship on the pipeline's worker), and each iteration
-ticks the quarantine registry, the device-health registry and device
-telemetry's window budget (runtime/device_telemetry.py).
+buffer_flip, delta_fetch, then symbolize (without --fast-encode),
+encode and ship here or prepare, statics, encode and ship on the
+pipeline's worker), and each iteration ticks the quarantine registry,
+the device-health registry and device telemetry's window budget
+(runtime/device_telemetry.py).
 
-Left out of this port (parca_agent_tpu has them): admission, process
-identity, sinks, hotspots, the regression sentinel and symbolization.
+Left out of this port (parca_agent_tpu has them): admission, sinks,
+hotspots and the regression sentinel.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import threading
 import time
 from typing import Callable, Protocol
@@ -127,6 +139,8 @@ class ProfilerMetrics:
     # window while the abandoned encode still owns the encoder).
     encode_deadline_hits_total: int = 0
     scalar_windows_total: int = 0
+    # The last window's symbolize span (the path without --fast-encode).
+    last_symbolize_duration_s: float = 0.0
 
 
 class DeviceWatchdog:
@@ -221,6 +235,20 @@ class _PidTotal:
         return self.mass
 
 
+def window_objects(snapshot: WindowSnapshot) -> list[tuple[int, str, str]]:
+    """(pid, path, build id) of each object file the window's mapping
+    table names, with the first pid that maps it (the original's
+    debuginfo hand-off)."""
+    objs = []
+    mt = snapshot.mappings
+    for i, path in enumerate(mt.obj_paths):
+        bid = mt.obj_buildids[i] if i < len(mt.obj_buildids) else ""
+        rows = (mt.objs == i).nonzero()[0]
+        if len(rows) and path:
+            objs.append((int(mt.pids[rows[0]]), path, bid))
+    return objs
+
+
 def labels_for(pid: int) -> dict[str, str]:
     """The label set of a pid's profile (the CLI's)."""
     return {"__name__": "parca_agent_cpu", "pid": str(pid)}
@@ -232,8 +260,17 @@ class WindowLoop:
     trace in the flight recorder when one is given and its snapshot goes
     to ``window_sink`` (a sink that raises is logged); each iteration
     ticks the quarantine registry, the device-health registry and
-    device telemetry's window budget. ``on_window(record)`` gets each
-    window's record once its profiles are written."""
+    device telemetry's window budget. With ``manage_gc`` (the process
+    owner only: the CLI) the loop stewards CPython's collector as the
+    original does: after the first window the warm state is frozen and
+    the automatic scheduler disabled, and each window boundary collects
+    what the window allocated (every _GC_REFREEZE windows a full
+    collect and a refreeze); run() restores the default collector when
+    it returns or raises. ``on_window(record)`` gets each
+    window's record once its profiles are written. With ``identity`` (a
+    ProcessIdentityTracker) each window's pids are observed before its
+    body runs; with ``debuginfo`` (a DebuginfoManager) each window's
+    object files are handed to ``ensure_uploaded`` after it."""
 
     pipeline = None
 
@@ -242,7 +279,8 @@ class WindowLoop:
                  window_sink: Callable[[WindowSnapshot], None] | None = None,
                  device_timeout_s: float | None = 60.0,
                  device_health=None, quarantine=None, trace_recorder=None,
-                 duration_s: float = 10.0):
+                 duration_s: float = 10.0, identity=None, debuginfo=None,
+                 manage_gc: bool = False):
         self._source = source
         self._writer = profile_writer
         self._on_window = on_window
@@ -259,6 +297,11 @@ class WindowLoop:
         # The window flight recorder (runtime/trace.py); tracing is
         # fail-open, so no call to it needs a guard.
         self._recorder = trace_recorder
+        # Generation-stamped process identity, observed once a window
+        # before the close (fail-open by the tracker's own contract).
+        self._identity = identity
+        self._debuginfo = debuginfo
+        self._manage_gc_enabled = manage_gc
         self._duration = duration_s
         self._stop = threading.Event()
         self.crashed: BaseException | None = None
@@ -285,9 +328,16 @@ class WindowLoop:
                 tr.discard()  # never a window: not ringed, not histogrammed
                 return False
             self.metrics.attempts_total += 1
+            if self._identity is not None:
+                # Before the close: a recycled pid's stale state must be
+                # invalidated before the new process's samples resolve
+                # through it.
+                self._identity.observe_window(snapshot.pids)
             tr.annotate(time_ns=snapshot.time_ns,
                         samples=int(snapshot.total_samples()))
             self._window(snapshot, self.metrics.attempts_total, tr)
+            if self._debuginfo is not None:
+                self._debuginfo.ensure_uploaded(window_objects(snapshot))
             if self._window_sink is not None:
                 try:
                     self._window_sink(snapshot)
@@ -306,7 +356,45 @@ class WindowLoop:
             self._health.tick_window()
         # Window-SLO accounting: this thread's busy wall for the window.
         dtel.tick_window(time.perf_counter() - t_iter0)
+        self._manage_gc(self.metrics.attempts_total)
         return True
+
+    # A gen-2 collection scans every tracked object, and the dictionary's
+    # host mirror and a window's profiles hold millions (the symbolizer
+    # alone makes a list a location): an automatic pass costs seconds and
+    # lands inside a window. After the first window the warm state is
+    # frozen (out of every collection), the scheduler disabled, and each
+    # window boundary collects what the window allocated; every
+    # _GC_REFREEZE windows (~1 h at 10 s) a full collect and refreeze
+    # reclaims garbage that slipped into the frozen set.
+    _GC_REFREEZE = 360
+    _gc_modified = False
+
+    def _manage_gc(self, window: int) -> None:
+        if not self._manage_gc_enabled:
+            return
+        if not self._gc_modified:
+            # The first managed window of this run (a supervised restart
+            # re-arms here after run() restored the collector).
+            gc.collect()
+            gc.freeze()
+            gc.disable()
+            self._gc_modified = True
+        elif window % self._GC_REFREEZE == 0:
+            gc.unfreeze()
+            gc.collect()
+            gc.freeze()
+        else:
+            gc.collect()
+
+    def _restore_gc(self) -> None:
+        """The default collector back: the process may outlive the loop
+        (a supervised restart, an in-process caller)."""
+        if not self._gc_modified:
+            return
+        self._gc_modified = False
+        gc.unfreeze()
+        gc.enable()
 
     def run(self, max_windows: int = 0) -> None:
         """The loop as a supervised actor: one window each ``duration_s``
@@ -333,6 +421,7 @@ class WindowLoop:
             self.crashed = e
             raise
         finally:
+            self._restore_gc()
             if self.crashed is None:
                 self.close()
 
@@ -347,13 +436,17 @@ class AggregateLoop(WindowLoop):
     """The window loop without --fast-encode: each window's profiles from
     ``aggregator.aggregate`` (under the device watchdog), down the
     quarantine ladder (quarantined pids lose their detail, level 1, or
-    collapse to their scalar count), through build_pprof into the
-    writer. The record holds the window's number, rows, samples,
-    profiles, mass, aggregate ms and window ms."""
+    collapse to their scalar count), through the ``symbolizer`` when one
+    is given (its own span; laddered pids are skipped), through
+    build_pprof into the writer. The record holds the window's number,
+    rows, samples, profiles, mass, aggregate ms, symbolize ms (with a
+    symbolizer) and window ms."""
 
-    def __init__(self, source: CaptureSource, aggregator, **kw):
+    def __init__(self, source: CaptureSource, aggregator, symbolizer=None,
+                 **kw):
         super().__init__(source, **kw)
         self._aggregator = aggregator
+        self._symbolizer = symbolizer
 
     def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
         t0 = time.perf_counter()
@@ -361,7 +454,16 @@ class AggregateLoop(WindowLoop):
             profiles = self.watchdog.call(
                 lambda: self._aggregator.aggregate(snapshot))
         t_agg = time.perf_counter() - t0
+        # The ladder first (level-1 pids lose local symbols, level-2 pids
+        # collapse to scalar counts), then symbolize, which skips
+        # laddered pids: a degraded profile is never symbolized again.
         profiles = apply_ladder(profiles, self._quarantine)
+        sym_ms = None
+        if self._symbolizer is not None:
+            with tr.span("symbolize") as sp_sym:
+                self._symbolizer.symbolize(profiles)
+            self.metrics.last_symbolize_duration_s = sp_sym.duration_s
+            sym_ms = sp_sym.duration_s * 1e3
         with tr.span("ship"):
             if self._writer is not None:
                 for prof in profiles:
@@ -370,12 +472,15 @@ class AggregateLoop(WindowLoop):
         self.metrics.profiles_written += len(profiles)
         tr.annotate(pids=len(profiles), path="scalar")
         if self._on_window is not None:
-            self._on_window({"window": window, "rows": len(snapshot),
-                             "samples": snapshot.total_samples(),
-                             "profiles": len(profiles),
-                             "mass": sum(p.total() for p in profiles),
-                             "aggregate_ms": t_agg * 1e3,
-                             "window_ms": (time.perf_counter() - t0) * 1e3})
+            record = {"window": window, "rows": len(snapshot),
+                      "samples": snapshot.total_samples(),
+                      "profiles": len(profiles),
+                      "mass": sum(p.total() for p in profiles),
+                      "aggregate_ms": t_agg * 1e3,
+                      "window_ms": (time.perf_counter() - t0) * 1e3}
+            if sym_ms is not None:
+                record["symbolize_ms"] = sym_ms
+            self._on_window(record)
 
 
 class CPUProfiler(WindowLoop):
@@ -404,7 +509,14 @@ class CPUProfiler(WindowLoop):
                  device_health=None,
                  encode_deadline_s: float | None = None,
                  quarantine=None, trace_recorder=None,
-                 duration_s: float = 10.0):
+                 duration_s: float = 10.0, identity=None, debuginfo=None,
+                 symbolizer=None, manage_gc: bool = False):
+        if symbolizer is not None:
+            # Profiles ship unsymbolized on this path (the server
+            # symbolizes, as with the reference agent).
+            raise ValueError(
+                "fast_encode ships unsymbolized profiles; it cannot be "
+                "combined with a local symbolizer")
         if not hasattr(aggregator, "window_counts"):
             raise ValueError(
                 "fast_encode requires a dict-style aggregator "
@@ -414,7 +526,8 @@ class CPUProfiler(WindowLoop):
                          device_timeout_s=device_timeout_s,
                          device_health=device_health, quarantine=quarantine,
                          trace_recorder=trace_recorder,
-                         duration_s=duration_s)
+                         duration_s=duration_s, identity=identity,
+                         debuginfo=debuginfo, manage_gc=manage_gc)
         self._aggregator = aggregator
         # The inline encode's soft deadline, and its abandoned encode.
         self._encode_deadline = encode_deadline_s or None

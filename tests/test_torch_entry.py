@@ -55,7 +55,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "parallel.fleet", "parallel.distributed", "utils.bounded",
                 "native", "utils.vfs", "utils.poison", "utils.filehash",
                 "utils.faults", "elf", "elf.base", "elf.buildid",
-                "elf.reader", "process.objectfile", "capture.procfs"):
+                "elf.reader", "process.objectfile", "capture.procfs",
+                "elf.executable", "elf.writer", "dwarf", "dwarf.frame",
+                "unwind", "unwind.table", "unwind.walker", "symbolize",
+                "symbolize.ksym", "symbolize.perfmap",
+                "symbolize.symbolizer", "process.identity", "debuginfo",
+                "debuginfo.find", "debuginfo.extract", "debuginfo.manager"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
