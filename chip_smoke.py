@@ -236,6 +236,35 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                (kernel frames) with --fault-inject symbolize.kernel:error;
                each exits 0, names the symbolize span, and counts the
                faults.
+ 13. transport the CLI's ship path (agent/, labels/), after phase 12: (a)
+               phase 4's steady window as the encode pipeline shipped it
+               (50,000 pids, after K1 and the close kernel) through
+               RemoteProfileWriter -> MatchingProfileListener ->
+               BatchWriteClient at the CLI's defaults (64 MiB and 100,000
+               samples a buffer, retry budget 8) with a SpoolDir in a
+               temporary directory, under the LabelsManager's labels
+               (--node, external labels, kernel_release dropped), to a
+               GRPCStoreClient on an in-process store on 127.0.0.1 (where
+               grpc does not import, an in-process StoreClient through the
+               WriteRaw codec), flushed until the buffer and the spool are
+               empty: every pid's profile arrives exactly once, gunzipped
+               equal to the encoder's bytes, under its labels. Prints the
+               gzip ms, the raw and gzipped bytes, the flushes, the
+               largest request against the channel's MAX_MSG_BYTES and
+               the largest batch as one request (as the original's client
+               sends it), the overflow spills, the drops (0 with a spool)
+               and the replay ms; then the same window without a spool,
+               and its drops. (b) Where grpc imports, the CLI in this
+               process, --aggregator dict --fast-encode, replaying 3
+               procfs windows of a CPU-burning child recorded here (their
+               mapping tables rebuilt with the objects' build ids), to an
+               in-process store with its debuginfo service, with --node,
+               --metadata-external-labels and, where yaml imports, a
+               --config-path relabel rule: every window's mass arrives,
+               the last window's included, under the labels asked for,
+               every upload finishes by build id, and K1 and the close
+               kernel launch. The phase prints grpc, yaml and
+               cryptography as this host has them, on a line of its own.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -1437,8 +1466,9 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     """The dict main path on `dev` over `snap`, every window encoded by
     one WindowEncoder (--fast-encode), the last one also through the
     encode pipeline; returns its kernels' launch counts, the
-    dictionary's exported state after its last window and the window's
-    hashes. Raises on any disagreement with the numpy oracle or with
+    dictionary's exported state after its last window, the window's
+    hashes and the last window's [(pid, pprof bytes)] as the pipeline
+    shipped them (phase 13 ships them to a store). Raises on any disagreement with the numpy oracle or with
     build_pprof. `vec_rec` (a VecRecorder) records the cold encode's
     varint and ragged-copy calls."""
     import numpy as np
@@ -1566,7 +1596,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
          ship_ms=pipe.stats["last_ship_s"] * 1e3, pids=len(shipped),
          bytes=sum(len(b) for _, b in shipped),
          encoder_stats=dict(enc.stats))
-    del shipped, blobs
+    del blobs
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
                              f"{launches_per_feed}")
@@ -1585,7 +1615,7 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
     drain_k1(dev, agg, table,
              drain_packed(snap, hashes, int(bounds[0]), int(bounds[1])),
              "main_path_drain_k1", ref)
-    return launches, agg.export_state(), hashes
+    return launches, agg.export_state(), hashes, shipped
 
 
 def drain_packed(snap, hashes, lo: int, hi: int):
@@ -5180,6 +5210,491 @@ def phase_symbolize(dev, snap, agg) -> dict:
     return {k: la[k] + lc[k] for k in la}
 
 
+TRANSPORT_NODE = "chip-smoke"
+TRANSPORT_LABELS = "cell=transport,path=main"
+TRANSPORT_CLI_WINDOWS = 3
+TRANSPORT_TICK_S = 0.5      # each recorded window's CPU-tick interval
+TRANSPORT_RELABEL = ("relabel_configs:\n- action: labeldrop\n"
+                     "  regex: kernel_release\n")
+
+
+def transport_packages() -> dict:
+    """grpc, yaml and cryptography as this host has them: each one's
+    version, or "absent"."""
+    import importlib
+
+    out = {}
+    for name in ("grpc", "yaml", "cryptography"):
+        try:
+            out[name] = getattr(importlib.import_module(name),
+                                "__version__", "present")
+        except ImportError:
+            out[name] = "absent"
+    return out
+
+
+class ParcaStore:
+    """An in-process Parca store: WriteRaw and the debuginfo upload
+    conversation. With grpc, one gRPC server on 127.0.0.1 that takes
+    requests up to the client's message cap (``client()`` a
+    GRPCStoreClient to it); without, ``client()`` is this object, a
+    StoreClient that runs each batch through the WriteRaw codec. Records
+    each request's bytes and series, and the debuginfo uploads by build
+    id."""
+
+    def __init__(self, grpc=None):
+        import threading
+
+        from parca_agent_tpu_torch.agent.grpc_client import MAX_MSG_BYTES
+
+        self._mu = threading.Lock()
+        self.sizes: list[int] = []
+        self.series: list = []
+        self.uploads: dict = {}     # upload id -> build id, size, bytes
+        self.finished: set = set()  # build ids marked finished
+        self._grpc = grpc
+        self.server = None
+        if grpc is None:
+            return
+        from concurrent import futures
+
+        from parca_agent_tpu_torch.agent import debuginfo_client as dbg
+        from parca_agent_tpu_torch.agent.grpc_client import WRITE_RAW_METHOD
+
+        def unary(fn):
+            return grpc.unary_unary_rpc_method_handler(
+                fn, request_deserializer=lambda b: b,
+                response_serializer=lambda b: b)
+
+        svc, method = WRITE_RAW_METHOD.lstrip("/").rsplit("/", 1)
+        handlers = [grpc.method_handlers_generic_handler(svc, {
+            method: unary(lambda req, ctx: self._take(req))})]
+        name = dbg.SVC.lstrip("/")
+        handlers.append(grpc.method_handlers_generic_handler(name, {
+            dbg.SHOULD_INITIATE.rsplit("/", 1)[1]: unary(self._should),
+            dbg.INITIATE.rsplit("/", 1)[1]: unary(self._initiate),
+            dbg.UPLOAD.rsplit("/", 1)[1]: grpc.stream_unary_rpc_method_handler(
+                self._upload, request_deserializer=lambda b: b,
+                response_serializer=lambda b: b),
+            dbg.MARK_FINISHED.rsplit("/", 1)[1]: unary(self._mark)}))
+        self.server = grpc.server(
+            futures.ThreadPoolExecutor(max_workers=8),
+            options=[("grpc.max_receive_message_length", MAX_MSG_BYTES)])
+        self.server.add_generic_rpc_handlers(handlers)
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.server.start()
+
+    def client(self):
+        if self._grpc is None:
+            return self
+        from parca_agent_tpu_torch.agent.grpc_client import GRPCStoreClient
+
+        return GRPCStoreClient(f"127.0.0.1:{self.port}", insecure=True)
+
+    def write_raw(self, series, normalized) -> None:
+        from parca_agent_tpu_torch.agent.profilestore import (
+            encode_write_raw_request,
+        )
+
+        self._take(encode_write_raw_request(series, normalized))
+
+    def _take(self, request: bytes) -> bytes:
+        from parca_agent_tpu_torch.agent.profilestore import (
+            decode_write_raw_request,
+        )
+
+        series, normalized = decode_write_raw_request(request)
+        if not normalized:
+            raise AssertionError("a WriteRaw request not normalized")
+        with self._mu:
+            self.sizes.append(len(request))
+            self.series.extend(series)
+        return b""
+
+    @staticmethod
+    def _fields(data: bytes) -> dict:
+        from parca_agent_tpu_torch.pprof.proto import iter_fields
+
+        return {f: v for f, _w, v in iter_fields(data)}
+
+    def _should(self, request, context) -> bytes:
+        from parca_agent_tpu_torch.pprof.proto import put_tag_varint
+
+        build_id = self._fields(request)[1].decode()
+        out = bytearray()
+        with self._mu:
+            put_tag_varint(out, 1, 0 if build_id in self.finished else 1)
+        return bytes(out)
+
+    def _initiate(self, request, context) -> bytes:
+        from parca_agent_tpu_torch.pprof.proto import put_tag_bytes
+
+        f = self._fields(request)
+        build_id = f[1].decode()
+        with self._mu:
+            upload_id = f"up-{len(self.uploads)}"
+            self.uploads[upload_id] = {"build_id": build_id,
+                                       "size": f.get(2, 0), "bytes": 0}
+        instr = bytearray()
+        put_tag_bytes(instr, 1, build_id.encode())
+        put_tag_bytes(instr, 2, upload_id.encode())
+        out = bytearray()
+        put_tag_bytes(out, 1, bytes(instr))
+        return bytes(out)
+
+    def _upload(self, request_iterator, context) -> bytes:
+        upload_id = None
+        for req in request_iterator:
+            f = self._fields(req)
+            if 1 in f:
+                upload_id = self._fields(f[1])[2].decode()
+            elif 2 in f:
+                with self._mu:
+                    self.uploads[upload_id]["bytes"] += len(f[2])
+        return b""
+
+    def _mark(self, request, context) -> bytes:
+        f = self._fields(request)
+        with self._mu:
+            if self.uploads[f[2].decode()]["build_id"] != f[1].decode():
+                raise AssertionError("an upload finished under another "
+                                     "build id")
+            self.finished.add(f[1].decode())
+        return b""
+
+    def stop(self) -> None:
+        if self.server is not None:
+            self.server.stop(0)
+
+
+class BatchSizes:
+    """A StoreClient in front of another: records the bytes of each
+    batch as one WriteRaw request (the original's client sends it so)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.sizes: list[int] = []
+
+    def write_raw(self, series, normalized) -> None:
+        from parca_agent_tpu_torch.agent.profilestore import (
+            encode_write_raw_request,
+        )
+
+        self.sizes.append(len(encode_write_raw_request(series, normalized)))
+        self.inner.write_raw(series, normalized)
+
+
+class Tap:
+    """A write_raw sink in front of another: keeps each (labels, gzipped
+    sample) and the time spent below it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.samples: list = []
+        self.s = 0.0
+
+    def write_raw(self, labels, sample) -> None:
+        self.samples.append((labels, sample))
+        t0 = time.perf_counter()
+        self.inner.write_raw(labels, sample)
+        self.s += time.perf_counter() - t0
+
+
+def transport_labels():
+    """The CLI's label pipeline with --node, --metadata-external-labels
+    and a relabel rule that drops kernel_release."""
+    from parca_agent_tpu_torch import cli
+    from parca_agent_tpu_torch.labels.manager import LabelsManager
+    from parca_agent_tpu_torch.labels.relabel import RelabelConfig
+    from parca_agent_tpu_torch.metadata import providers as mp
+
+    return LabelsManager(
+        [mp.ServiceDiscoveryProvider(), mp.ProcessProvider(),
+         mp.CgroupProvider(), mp.SystemProvider(),
+         mp.TargetProvider(node=TRANSPORT_NODE,
+                           external=cli._parse_external_labels(
+                               TRANSPORT_LABELS))],
+        [RelabelConfig(action="labeldrop", regex="kernel_release")])
+
+
+def check_arrivals(label: str, series, want: dict, labels: dict) -> int:
+    """Raise unless every sample of the store's `series` is a pid's
+    gzipped pprof equal to `want[pid]` under `labels[pid]`, and no pid's
+    arrives twice. Returns the pids that arrived."""
+    import gzip
+
+    seen = set()
+    for s in series:
+        pid = int(s.labels["pid"])
+        if s.labels != labels[pid]:
+            raise AssertionError(f"{label}: pid {pid} under {s.labels}, "
+                                 f"not {labels[pid]}")
+        for blob in s.samples:
+            if pid in seen:
+                raise AssertionError(f"{label}: pid {pid} arrived twice")
+            seen.add(pid)
+            if gzip.decompress(blob) != want[pid]:
+                raise AssertionError(f"{label}: pid {pid}'s profile "
+                                     "differs from the encoder's bytes")
+    return len(seen)
+
+
+def ship_until_drained(label: str, batch) -> int:
+    """Flush intervals until the buffer and the spool are empty; the
+    flushes it took."""
+    flushes = 0
+    while batch.buffered()[1] or batch.replay_backlog()[0]:
+        if flushes == 64:
+            raise AssertionError(f"{label}: not drained in 64 flushes: "
+                                 f"{batch.stats}")
+        if not batch.flush():
+            raise AssertionError(f"{label}: a flush failed: {batch.stats}")
+        flushes += 1
+    return flushes
+
+
+def transport_window(blobs, grpc) -> dict:
+    """Phase 13 (a): phase 4's steady window through the port's
+    transport at the CLI's defaults, with a spool, then without one."""
+    import tempfile
+
+    from parca_agent_tpu_torch.agent.batch import BatchWriteClient
+    from parca_agent_tpu_torch.agent.grpc_client import MAX_MSG_BYTES
+    from parca_agent_tpu_torch.agent.listener import MatchingProfileListener
+    from parca_agent_tpu_torch.agent.spool import SpoolDir
+    from parca_agent_tpu_torch.agent.writer import RemoteProfileWriter
+    from parca_agent_tpu_torch.runtime import trace as trace_mod
+
+    want = dict(blobs)
+    manager = transport_labels()
+    t0 = time.perf_counter()
+    labels = {pid: manager.label_set("parca_agent_cpu", pid)
+              for pid in want}
+    labels_ms = (time.perf_counter() - t0) * 1e3
+    if any(v is None or "kernel_release" in v
+           or v.get("node") != TRANSPORT_NODE for v in labels.values()):
+        raise AssertionError("transport: labels not as asked")
+    out = {"store": "grpc" if grpc is not None else
+           "in-process StoreClient (no grpc)", "pids": len(want),
+           "raw_bytes": sum(map(len, want.values())),
+           "max_msg_bytes": MAX_MSG_BYTES, "labels_ms": labels_ms}
+    recorder = trace_mod.FlightRecorder()
+    trace_mod.install(recorder)
+    store = ParcaStore(grpc)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            spool = SpoolDir(tmp)
+            sized = BatchSizes(store.client())
+            batch = BatchWriteClient(sized, spool=spool)  # the CLI's defaults
+            tap = Tap(batch)
+            writer = RemoteProfileWriter(MatchingProfileListener(tap))
+            t0 = time.perf_counter()
+            for pid, blob in blobs:
+                writer.write(labels[pid], blob)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            flushes = ship_until_drained("transport", batch)
+            ship_ms = (time.perf_counter() - t0) * 1e3
+            spool_stats = dict(spool.stats)
+        hist = recorder.export_histograms()
+        arrived = check_arrivals("transport", store.series, want, labels)
+    finally:
+        trace_mod.install(None)
+        store.stop()
+
+    def stage(name):
+        h = hist.get(name, {"sum_s": 0.0, "count": 0})
+        return {"ms": h["sum_s"] * 1e3, "count": h["count"]}
+
+    dropped = batch.stats["samples_dropped"] + spool_stats["samples_dropped"]
+    out.update(
+        gz_bytes=sum(len(s) for _, s in tap.samples),
+        write_ms=write_s * 1e3, gzip_ms=(write_s - tap.s) * 1e3,
+        sink_ms=tap.s * 1e3, flushes=flushes, ship_ms=ship_ms,
+        requests=len(store.sizes), largest_request_bytes=max(store.sizes),
+        batches=len(sized.sizes), largest_batch_bytes=max(sized.sizes),
+        batches_over_cap=sum(n > MAX_MSG_BYTES for n in sized.sizes),
+        arrived=arrived, overflow_spills=batch.stats["overflow_spills"],
+        samples_dropped=dropped, stats=dict(batch.stats), spool=spool_stats,
+        replay=stage("spool_replay"), spill=stage("spool_spill"),
+        store_ack=stage("store_ack"), store_rpc=stage("store_rpc"))
+    # Over gRPC every request must fit the channel's cap (without grpc
+    # the in-process store takes a batch as one request, whatever its
+    # size).
+    if arrived != len(want) or dropped or (
+            grpc is not None and max(store.sizes) > MAX_MSG_BYTES):
+        raise AssertionError(f"transport: {out}")
+
+    # The same window without a spool: what the defaults do at this width.
+    store = ParcaStore(grpc)
+    try:
+        batch = BatchWriteClient(store.client())
+        for lab, sample in tap.samples:
+            batch.write_raw(lab, sample)
+        flushes = ship_until_drained("transport without a spool", batch)
+        arrived = check_arrivals("transport without a spool", store.series,
+                                 want, labels)
+    finally:
+        store.stop()
+    out["no_spool"] = {"flushes": flushes, "arrived": arrived,
+                       "samples_dropped": batch.stats["samples_dropped"],
+                       "bytes_dropped": batch.stats["bytes_dropped"],
+                       "overflow_spills": batch.stats["overflow_spills"]}
+    if arrived + batch.stats["samples_dropped"] != len(want):
+        raise AssertionError(f"transport without a spool: {out['no_spool']}")
+    return out
+
+
+def burner_windows(pid: int, tmp: Path) -> list[str]:
+    """TRANSPORT_CLI_WINDOWS procfs windows of process `pid` on this host
+    (its CPU ticks over TRANSPORT_TICK_S each, a depth-1 stack at its
+    entry point, its real maps), each with its mapping table rebuilt
+    with the mapped objects' build ids (procfs tables carry none, in
+    both packages, so their objects are never uploaded), saved as
+    snapshot files. Returns their paths."""
+    import dataclasses
+
+    from parca_agent_tpu_torch.capture.formats import save_snapshot
+    from parca_agent_tpu_torch.capture.live import mapping_table_for_pids
+    from parca_agent_tpu_torch.capture.procfs import ProcfsSampler
+    from parca_agent_tpu_torch.process.objectfile import ObjectFileCache
+
+    sampler = ProcfsSampler(window_s=TRANSPORT_TICK_S)
+    table = mapping_table_for_pids(sampler._maps, ObjectFileCache(), [pid])
+    if not any(table.obj_buildids):
+        raise AssertionError(f"transport CLI: no build id in {table}")
+    paths = []
+    for w in range(TRANSPORT_CLI_WINDOWS):
+        t0 = sampler.sample_ticks().get(pid, 0)
+        time.sleep(TRANSPORT_TICK_S)
+        ticks = sampler.sample_ticks().get(pid, 0) - t0
+        snap = sampler.collect({pid: max(1, ticks)})
+        if not len(snap):
+            raise AssertionError(f"transport CLI: no row for pid {pid}")
+        path = tmp / f"window-{w}.snap"
+        save_snapshot(dataclasses.replace(snap, mappings=table), str(path))
+        paths.append(str(path))
+    return paths
+
+
+def transport_cli(dev, grpc, with_yaml: bool) -> dict:
+    """Phase 13 (b): the port's CLI in this process on the card,
+    --aggregator dict --fast-encode, replaying windows recorded here of
+    a CPU-burning child (burner_windows), shipping to an in-process store
+    whose debuginfo service takes the child's objects. Returns the run's
+    record and its launches."""
+    import contextlib
+    import gzip
+    import io
+    import tempfile
+
+    from parca_agent_tpu_torch import cli
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.pprof.builder import parse_pprof
+
+    store = ParcaStore(grpc)
+    burner = subprocess.Popen([sys.executable, "-c", BURNER])
+    out = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            replay = burner_windows(burner.pid, Path(tmp))
+            record_s = time.perf_counter() - t0
+            flags = [*NO_PROBE, "--capture", "replay", "--replay", *replay,
+                     "--aggregator", "dict",
+                     "--fast-encode", "--windows", str(TRANSPORT_CLI_WINDOWS),
+                     "--profiling-duration", str(TRANSPORT_TICK_S),
+                     "--remote-store-address", f"127.0.0.1:{store.port}",
+                     "--remote-store-insecure",
+                     "--remote-store-batch-write-interval", "1",
+                     "--node", TRANSPORT_NODE,
+                     "--metadata-external-labels", TRANSPORT_LABELS]
+            if with_yaml:
+                cfg = Path(tmp) / "relabel.yaml"
+                cfg.write_text(TRANSPORT_RELABEL)
+                flags += ["--config-path", str(cfg)]
+            # Every count to 0 just before the path; read just after.
+            probe.reset_launches()
+            close.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.run(flags)
+            cli_s = time.perf_counter() - t0
+            launches = {k: n for k, n in (
+                ("feed_accumulate", probe.LAUNCHES["feed_accumulate"]),
+                ("close_pack", close.LAUNCHES["close_pack"]),
+                ("close_pack_delta", close.LAUNCHES["close_pack_delta"]))
+                if n}
+    finally:
+        burner.kill()
+        burner.wait()
+        store.stop()
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    windows = [ln for ln in lines if "window" in ln]
+    runtime = [ln["runtime"] for ln in lines if "runtime" in ln]
+    cli_runtime_clean("transport CLI", runtime)
+    mass, pids = 0, set()
+    for s in store.series:
+        if s.labels.get("node") != TRANSPORT_NODE \
+                or s.labels.get("cell") != "transport" \
+                or (with_yaml and "kernel_release" in s.labels):
+            raise AssertionError(f"transport CLI: labels {s.labels}")
+        pids.add(int(s.labels["pid"]))
+        for blob in s.samples:
+            mass += sum(v[0] for _, v, _ in
+                        parse_pprof(gzip.decompress(blob)).samples)
+    t = runtime[0]["transport"]
+    uploads = {u["build_id"]: u for u in store.uploads.values()}
+    rec = {"rc": rc, "record_s": record_s, "s": cli_s,
+           "windows": len(windows),
+           "window_mass": [ln["mass"] for ln in windows], "mass": mass,
+           "samples": sum(len(s.samples) for s in store.series),
+           "profiles": sum(ln["profiles"] for ln in windows),
+           "pids": len(pids), "burner_in_store": burner.pid in pids,
+           "requests": len(store.sizes), "relabel": with_yaml,
+           "launches": launches, "transport": t,
+           "debuginfo": {"initiated": len(uploads),
+                         "finished": len(store.finished),
+                         "bytes": sum(u["bytes"] for u in uploads.values())}}
+    if rc != 0 or len(windows) != TRANSPORT_CLI_WINDOWS or mass <= 0 \
+            or mass != sum(ln["mass"] for ln in windows) \
+            or rec["samples"] != rec["profiles"] \
+            or not rec["burner_in_store"] \
+            or t["parca_agent_remote_write_errors_total"] \
+            or t["parca_agent_remote_write_samples_dropped"] \
+            or not uploads or set(uploads) != store.finished \
+            or any(u["bytes"] != u["size"] for u in uploads.values()):
+        raise AssertionError(f"transport CLI: {rec}, {lines}, "
+                             f"{store.uploads}")
+    return rec
+
+
+def phase_transport(dev, blobs) -> dict:
+    """Phase 13 (module docs). Returns the launches of its CLI run ({}
+    when grpc does not import here)."""
+    packages = transport_packages()
+    print("transport packages: " + json.dumps(packages), flush=True)
+    try:
+        import grpc
+    except ImportError:
+        grpc = None
+    emit("transport_window", packages=packages,
+         **transport_window(blobs, grpc))
+    if grpc is None:
+        emit("transport_cli", run=False,
+             reason="grpc does not import on this host")
+        return {}
+    rec = transport_cli(dev, grpc, packages["yaml"] != "absent")
+    emit("transport_cli", run=True, **rec)
+    if rec["launches"].get("feed_accumulate", 0) < 1 \
+            or rec["launches"].get("close_pack", 0) \
+            + rec["launches"].get("close_pack_delta", 0) < 1:
+        raise AssertionError(f"the transport CLI launched "
+                             f"{rec['launches']}")
+    return rec["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k1-reference", metavar="FEED_PROBE_CU",
@@ -5295,8 +5810,9 @@ def main() -> int:
     timed("close_kernels", phase_close_kernels, dev, close_refs)
     snap, want = timed("main_path_setup", window_setup)
     vec_rec = VecRecorder()
-    launches, state, hashes = timed("main_path", phase_main_path, dev, snap,
-                                    want, STEADY_WINDOWS, ref, vec_rec)
+    launches, state, hashes, steady_blobs = timed(
+        "main_path", phase_main_path, dev, snap, want, STEADY_WINDOWS, ref,
+        vec_rec)
     rows.update(timed("one_shot", phase_one_shot, dev, snap, want, rh_refs))
     bounded, launches_cm = timed("bounded", phase_bounded, dev, snap, hashes,
                                  state, close_refs)
@@ -5315,14 +5831,18 @@ def main() -> int:
     del state
     launches_sym = timed("symbolize", phase_symbolize, dev, snap, dict_agg)
     del dict_agg
+    launches_transport = timed("transport", phase_transport, dev,
+                               steady_blobs)
+    del steady_blobs
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
     # bounded-memory dictionary (phase 6), the streaming window (phase 7),
     # the sharded dictionary (phase 8), the fleet merge (phase 9), the
     # CLI on the live machine (phase 10), the dictionary at bench.py's
-    # option settings (phase 11) and the scalar path's windows that phase
+    # option settings (phase 11), the scalar path's windows that phase
     # 12 symbolizes (the bench window on phase 7's dictionary, and the
-    # walked DWARF window). `launches` is their sum.
+    # walked DWARF window) and the CLI that ships to a store (phase 13).
+    # `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
@@ -5332,7 +5852,8 @@ def main() -> int:
                "fleet": launches_fleet,
                "live": launches_live,
                "runtime": launches_runtime,
-               "symbolize": {k: n for k, n in launches_sym.items() if n}}
+               "symbolize": {k: n for k, n in launches_sym.items() if n},
+               "transport": launches_transport}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

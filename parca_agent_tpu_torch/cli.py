@@ -5,10 +5,26 @@ package carries: a capture source (synthetic, replay, or the real
 machine: perf_event call chains or procfs CPU ticks) -> window
 aggregation (the device-resident stack dictionary, fail-fast or in
 bounded memory, whole or split into home sub-tables; the one-shot window
-program; or the numpy CPUAggregator) -> per-pid pprof -> the local
-store. With --fast-encode (dictionary aggregators only) the per-pid pprof
-comes from the vectorized window encoder, on an encode worker thread
-unless --no-encode-pipeline is given (profiler/cpu.py); with
+program; or the numpy CPUAggregator) -> per-pid pprof -> the transport
+of parca_agent_tpu's CLI (agent/): each profile gzipped by
+RemoteProfileWriter, through MatchingProfileListener into the
+BatchWriteClient, whose supervised flush loop ships a WriteRaw request
+each --remote-store-batch-write-interval to the Parca store at
+--remote-store-address (gRPC; a no-op store without one), spills to
+--spool-directory past its caps or after failed flushes and replays the
+spool when the store takes data again; teed to the local store under
+--local-store-directory. With --remote-store-address each window's
+object files are also uploaded to the store's debuginfo service
+(debuginfo/, unless --debuginfo-upload-disable). With a store or a label
+flag (--node, --metadata-external-labels, --config-path) each profile's
+labels come from the label pipeline (labels/, metadata/: process,
+cgroup, system and target labels, then --config-path's relabel rules,
+hot-reloaded; a dropped target is not written); without, they are
+{__name__, pid}. grpc is imported only with --remote-store-address and
+yaml only with --config-path. With --fast-encode (dictionary aggregators
+only) the per-pid pprof comes from the vectorized window encoder, on an
+encode worker thread unless --no-encode-pipeline is given
+(profiler/cpu.py); with
 --statics-snapshot-path the worker also keeps a warm statics snapshot,
 which the next run adopts before its first window. With
 --streaming-window (perf capture, --fast-encode, a dictionary) each
@@ -53,7 +69,8 @@ recorder (runtime/trace.py) and device telemetry
 quarantine registry (runtime/quarantine.py) unless
 --quarantine-max-strikes is 0; every exit prints their state as one
 {"runtime": ...} JSON line (with the process identity's counters, the
-faults fired at each armed chaos site and, in DWARF mode, the walk
+faults fired at each armed chaos site, the batch client's, the spool's
+and the store channel's counters and, in DWARF mode, the walk
 counters under the original's /metrics names), before the source's and
 the fleet's exit lines (after a device hang: before the device-health
 line, which is last). --fault-inject arms the chaos sites (utils/faults.py).
@@ -194,6 +211,68 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--local-store-directory", default="",
                    help="write each window's per-pid profiles here as "
                         ".pb.gz")
+    p.add_argument("--node", default="", help="node name label")
+    p.add_argument("--config-path", default="",
+                   help="YAML file with relabel_configs; hot-reloaded")
+    p.add_argument("--metadata-external-labels", default="",
+                   help="k=v,k2=v2 labels attached to every profile")
+    p.add_argument("--remote-store-address", default="")
+    p.add_argument("--remote-store-bearer-token", default="")
+    p.add_argument("--remote-store-bearer-token-file", default="")
+    p.add_argument("--remote-store-insecure", action="store_true")
+    p.add_argument("--remote-store-insecure-skip-verify",
+                   action="store_true",
+                   help="skip TLS certificate verification: the server's "
+                        "cert is fetched unverified and pinned for the "
+                        "channel (encrypted, unauthenticated — reference "
+                        "--remote-store-insecure-skip-verify)")
+    p.add_argument("--remote-store-batch-write-interval", type=float,
+                   default=10.0)
+    p.add_argument("--remote-store-batch-buffer-bytes", type=int,
+                   default=64 << 20,
+                   help="in-memory batch buffer byte cap; past it the "
+                        "buffered batch spills to --spool-directory (or "
+                        "is dropped, counted) — deviation from the "
+                        "reference's unbounded retry-forever buffer "
+                        "(docs/robustness.md)")
+    p.add_argument("--remote-store-batch-buffer-samples", type=int,
+                   default=100_000,
+                   help="in-memory batch buffer sample-count cap")
+    p.add_argument("--remote-store-retry-budget", type=int, default=8,
+                   help="send retries per flush interval, SHARED between "
+                        "the live flush and spool replay (full-jitter "
+                        "exponential backoff between attempts)")
+    p.add_argument("--spool-directory", default="",
+                   help="directory for disk spill of batches the store "
+                        "could not take (outage write-ahead spool); "
+                        "empty disables spill (overflow then drops, "
+                        "counted)")
+    p.add_argument("--spool-max-bytes", type=int, default=256 << 20,
+                   help="spool byte cap; past it the OLDEST segments are "
+                        "evicted (counted drops)")
+    p.add_argument("--spool-replay-per-interval", type=int, default=4,
+                   help="max spilled segments replayed per flush interval "
+                        "after the store recovers (bounded-rate catch-up)")
+    p.add_argument("--debuginfo-directories", default="/usr/lib/debug",
+                   help="comma-separated local directories searched for "
+                        "separate debuginfo files (reference "
+                        "--debuginfo-directories)")
+    p.add_argument("--debuginfo-strip",
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="upload only the sections needed for "
+                        "symbolization; --no-debuginfo-strip ships the "
+                        "exact binary unmodified (reference "
+                        "--debuginfo-strip)")
+    p.add_argument("--debuginfo-upload-cache-duration", type=float,
+                   default=300.0,
+                   help="seconds to cache server-side exists checks "
+                        "(reference --debuginfo-upload-cache-duration, "
+                        "5m)")
+    p.add_argument("--debuginfo-upload-timeout", type=float, default=120.0,
+                   help="per-request debuginfo upload timeout, seconds "
+                        "(reference --debuginfo-upload-timeout-duration, "
+                        "2m)")
+    p.add_argument("--debuginfo-upload-disable", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device of the aggregation: cuda (default) "
                         "or cpu")
@@ -405,6 +484,155 @@ def capture_stats(source, requested: str, capture: str, feeder) -> dict:
     return out
 
 
+def _parse_external_labels(text: str) -> dict[str, str]:
+    out = {}
+    for part in filter(None, text.split(",")):
+        if "=" not in part:
+            raise ValueError(f"bad external label {part!r} (want k=v)")
+        k, v = part.split("=", 1)
+        out[k] = v
+    return out
+
+
+def transport(args):
+    """The write path of parca_agent_tpu's CLI: (store, batch client,
+    profile writer). The store is a GRPCStoreClient with
+    --remote-store-address (grpc is imported then only), else a
+    NoopStoreClient; the batch client spills to --spool-directory; the
+    writer is RemoteProfileWriter -> MatchingProfileListener -> the batch
+    client, teed with the FileProfileWriter under
+    --local-store-directory."""
+    from parca_agent_tpu_torch.agent.batch import (
+        BatchWriteClient,
+        NoopStoreClient,
+    )
+    from parca_agent_tpu_torch.agent.listener import MatchingProfileListener
+    from parca_agent_tpu_torch.agent.writer import (
+        FileProfileWriter,
+        RemoteProfileWriter,
+        TeeProfileWriter,
+    )
+
+    if args.remote_store_address:
+        from parca_agent_tpu_torch.agent.grpc_client import GRPCStoreClient
+
+        token = args.remote_store_bearer_token
+        if args.remote_store_bearer_token_file:
+            with open(args.remote_store_bearer_token_file) as f:
+                token = f.read().strip()
+        store = GRPCStoreClient(
+            args.remote_store_address,
+            insecure=args.remote_store_insecure,
+            insecure_skip_verify=args.remote_store_insecure_skip_verify,
+            bearer_token=token)
+    else:
+        store = NoopStoreClient()
+    spool = None
+    if args.spool_directory:
+        from parca_agent_tpu_torch.agent.spool import SpoolDir
+
+        spool = SpoolDir(args.spool_directory,
+                         max_bytes=args.spool_max_bytes)
+    batch = BatchWriteClient(
+        store,
+        interval_s=args.remote_store_batch_write_interval,
+        max_buffer_bytes=args.remote_store_batch_buffer_bytes,
+        max_buffer_samples=args.remote_store_batch_buffer_samples,
+        retry_budget=args.remote_store_retry_budget,
+        spool=spool,
+        replay_per_interval=args.spool_replay_per_interval)
+    listener = MatchingProfileListener(next_writer=batch)
+    writer = RemoteProfileWriter(listener)
+    if args.local_store_directory:
+        writer = TeeProfileWriter(
+            FileProfileWriter(args.local_store_directory), writer)
+    return store, batch, writer
+
+
+def labels_manager(args):
+    """The label pipeline of parca_agent_tpu's CLI (the service discovery
+    provider, fed nothing until discovery is ported, then process,
+    cgroup, system and target labels, and --config-path's relabel rules,
+    yaml imported then only), when a store or a label flag asks for it:
+    --remote-store-address, --node, --metadata-external-labels or
+    --config-path. Otherwise None, and each profile keeps the label set
+    {__name__, pid}, so the local store's file names stay as they were.
+    Returns (manager, config reloader or None)."""
+    if not (args.remote_store_address or args.node
+            or args.metadata_external_labels or args.config_path):
+        return None, None
+    from parca_agent_tpu_torch.config import ConfigReloader, load_config_file
+    from parca_agent_tpu_torch.labels.manager import LabelsManager
+    from parca_agent_tpu_torch.metadata.providers import (
+        CgroupProvider,
+        ProcessProvider,
+        ServiceDiscoveryProvider,
+        SystemProvider,
+        TargetProvider,
+    )
+
+    manager = LabelsManager(
+        [ServiceDiscoveryProvider(), ProcessProvider(), CgroupProvider(),
+         SystemProvider(),
+         TargetProvider(node=args.node,
+                        external=_parse_external_labels(
+                            args.metadata_external_labels))],
+        relabel_configs=(load_config_file(args.config_path).relabel_configs
+                         if args.config_path else []),
+        profiling_duration_s=args.profiling_duration)
+    reloader = None
+    if args.config_path:
+        reloader = ConfigReloader(
+            args.config_path,
+            [lambda cfg: manager.apply_config(cfg.relabel_configs)])
+    return manager, reloader
+
+
+def debuginfo_manager(args, store):
+    """The debuginfo uploader of parca_agent_tpu's CLI, over the store's
+    channel: only with --remote-store-address and without
+    --debuginfo-upload-disable (without a store nobody consumes it)."""
+    if args.debuginfo_upload_disable or not args.remote_store_address:
+        return None
+    from parca_agent_tpu_torch.agent.debuginfo_client import (
+        GRPCDebuginfoClient,
+    )
+    from parca_agent_tpu_torch.debuginfo.find import Finder
+    from parca_agent_tpu_torch.debuginfo.manager import DebuginfoManager
+
+    debug_dirs = tuple(filter(None, (
+        d.strip() for d in args.debuginfo_directories.split(","))))
+    return DebuginfoManager(
+        client=GRPCDebuginfoClient(lambda: store.channel,
+                                   timeout_s=args.debuginfo_upload_timeout),
+        finder=Finder(debug_dirs=debug_dirs),
+        exists_ttl_s=args.debuginfo_upload_cache_duration,
+        strip=args.debuginfo_strip)
+
+
+def transport_metrics(batch, store) -> dict:
+    """The batch client's, the spool's and the store channel's counters
+    under the original's /metrics names."""
+    series, samples = batch.buffered()
+    segments, spool_bytes = batch.replay_backlog()
+    out = {"parca_agent_remote_write_batches_sent_total": batch.sent_batches,
+           "parca_agent_remote_write_errors_total": batch.send_errors,
+           "parca_agent_remote_write_buffered_series": series,
+           "parca_agent_remote_write_buffered_samples": samples,
+           "parca_agent_remote_write_buffer_bytes": batch.buffer_bytes(),
+           "parca_agent_spool_segments": segments,
+           "parca_agent_spool_bytes": spool_bytes,
+           "parca_agent_replay_lag_seconds": round(batch.replay_lag_s(), 3)}
+    for k, v in batch.spool_stats().items():
+        out[f"parca_agent_spool_{k}"] = v
+    for k, v in batch.stats.items():
+        out[f"parca_agent_remote_write_{k}"] = v
+    if hasattr(store, "stats"):
+        out["parca_agent_remote_store_channel_resets_total"] = \
+            store.stats.get("channel_resets", 0)
+    return out
+
+
 def startup_probe(device, timeout_s: float):
     """The device-health registry after the bring-up probe: a child
     process initializes ``device`` and launches the row hash kernel,
@@ -484,7 +712,6 @@ def _run(args) -> int:
         raise SystemExit("--streaming-window requires --fast-encode and a "
                          "dict aggregator")
 
-    from parca_agent_tpu_torch.agent.writer import FileProfileWriter
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator
@@ -641,8 +868,11 @@ def _run(args) -> int:
         aggregator = CPUAggregator()
     identity, perf_cache = identity_tracker(args, source, aggregator,
                                             quarantine)
-    writer = (FileProfileWriter(args.local_store_directory)
-              if args.local_store_directory else None)
+    # The transport, the label pipeline and the debuginfo uploader, as
+    # parca_agent_tpu's CLI builds them.
+    store, batch, writer = transport(args)
+    labels, reloader = labels_manager(args)
+    debuginfo = debuginfo_manager(args, store)
     print_mu = threading.Lock()
 
     def emit(rec: dict) -> None:
@@ -711,6 +941,7 @@ def _run(args) -> int:
                    device_health=health, quarantine=quarantine,
                    trace_recorder=recorder,
                    duration_s=args.profiling_duration, identity=identity,
+                   labels_manager=labels, debuginfo=debuginfo,
                    manage_gc=True)
     if args.fast_encode:
         if streaming:
@@ -762,8 +993,14 @@ def _run(args) -> int:
     # Supervision: a crashed window loop restarts with capped backoff,
     # up to its crash budget (a device hang is never restarted: it ends
     # the run); the encode worker is a probe its revive re-arms; the
-    # fleet merge actor and its heartbeat are not critical.
+    # config reloader, the fleet merge actor and its heartbeat are not
+    # critical. The batch client's flush loop is registered first, so it
+    # stops last: its final drain ships what the loop wrote on its way out.
     sup = Supervisor(probe_tick_s=0.2)
+    sup.add_actor("flush", run=batch.run, stop=batch.stop)
+    if reloader is not None:
+        sup.add_actor("reload", run=reloader.run, stop=reloader.stop,
+                      critical=False)
     sup.add_actor("profiler", run=lambda: loop.run(args.windows),
                   stop=loop.stop)
     if fleet_merger is not None:
@@ -794,6 +1031,7 @@ def _run(args) -> int:
         walks = walk_metrics(source)
         if walks:
             out["dwarf_walk"] = walks
+        out["transport"] = transport_metrics(batch, store)
         return out
 
     recorder.set_context(runtime_state)
@@ -825,7 +1063,8 @@ def _run(args) -> int:
     finally:
         if hung is None:
             _finish(args, sup, loop, statics_store, source, capture,
-                    feeder, fleet_merger, fleet_stop, print_runtime)
+                    feeder, fleet_merger, fleet_stop, print_runtime,
+                    debuginfo)
     if loop.crashed is not None:
         get_logger("cli").error("window loop crashed", exc=loop.crashed)
         return 1
@@ -841,16 +1080,19 @@ def runtime_summary(recorder, telemetry, runtime_state) -> dict:
 
 
 def _finish(args, sup, loop, statics_store, source, capture, feeder,
-            fleet_merger, fleet_stop, print_runtime) -> None:
-    """A clean (or crashed, but not hung) run's end: stop the actors,
-    flush the encode pipeline, print the exit lines (the runtime line
+            fleet_merger, fleet_stop, print_runtime, debuginfo) -> None:
+    """A clean (or crashed, but not hung) run's end: stop the actors (the
+    loop's clean exit has flushed its in-flight window by then, before
+    the batch client's final drain), surface a pipelined failure, wait
+    for the debuginfo uploads, print the exit lines (the runtime line
     first)."""
     try:
         sup.stop(timeout_s=args.profiling_duration
                  + (args.collective_timeout or 0.0) + 1.0)
-        # Flush the in-flight window (and surface a pipelined failure).
         loop.close()
     finally:
+        if debuginfo is not None:
+            debuginfo.close()
         print_runtime()
         if statics_store is not None:
             st = statics_store.stats

@@ -66,7 +66,13 @@ state (its maps, perf map, unwind tables, quarantine record and the
 dictionary's per-pid registry) is invalidated before the new process's
 samples resolve through it. With a debuginfo manager (debuginfo/), each
 window's object files go to ``ensure_uploaded`` after the window. The
-fast path ships unsymbolized profiles and refuses a symbolizer.
+fast path ships unsymbolized profiles and refuses a symbolizer. With a
+labels manager (labels/), each profile's label set is the manager's
+``label_set("parca_agent_cpu", pid)``, and a pid whose target the
+relabel rules drop is not written; without one it is {__name__, pid}.
+A clean exit of run() flushes the encode pipeline's in-flight window
+into the writer, so the batch client's final drain (stopped after the
+loop) ships the last window too.
 
 Each window records a trace in the flight recorder when one is given
 (runtime/trace.py: drain, close, the feeder's feed spans, fetch,
@@ -250,7 +256,7 @@ def window_objects(snapshot: WindowSnapshot) -> list[tuple[int, str, str]]:
 
 
 def labels_for(pid: int) -> dict[str, str]:
-    """The label set of a pid's profile (the CLI's)."""
+    """The label set of a pid's profile without a labels manager."""
     return {"__name__": "parca_agent_cpu", "pid": str(pid)}
 
 
@@ -270,7 +276,9 @@ class WindowLoop:
     window's record once its profiles are written. With ``identity`` (a
     ProcessIdentityTracker) each window's pids are observed before its
     body runs; with ``debuginfo`` (a DebuginfoManager) each window's
-    object files are handed to ``ensure_uploaded`` after it."""
+    object files are handed to ``ensure_uploaded`` after it; with
+    ``labels_manager`` (a LabelsManager) each profile is written under
+    its label set, and not at all when relabeling dropped its target."""
 
     pipeline = None
 
@@ -280,7 +288,7 @@ class WindowLoop:
                  device_timeout_s: float | None = 60.0,
                  device_health=None, quarantine=None, trace_recorder=None,
                  duration_s: float = 10.0, identity=None, debuginfo=None,
-                 manage_gc: bool = False):
+                 labels_manager=None, manage_gc: bool = False):
         self._source = source
         self._writer = profile_writer
         self._on_window = on_window
@@ -301,6 +309,11 @@ class WindowLoop:
         # before the close (fail-open by the tracker's own contract).
         self._identity = identity
         self._debuginfo = debuginfo
+        self._labels = labels_manager
+        # Writes come from this thread (inline windows) AND the encode
+        # pipeline's worker: one lock serializes the labels manager's
+        # caches and the written counter.
+        self._write_mu = threading.Lock()
         self._manage_gc_enabled = manage_gc
         self._duration = duration_s
         self._stop = threading.Event()
@@ -309,6 +322,28 @@ class WindowLoop:
 
     def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
         raise NotImplementedError
+
+    def _labels_for(self, pid: int) -> dict | None:
+        """Label set for a pid; None when relabeling dropped the target."""
+        if self._labels is not None:
+            return self._labels.label_set("parca_agent_cpu", pid)
+        return labels_for(pid)
+
+    def _write_one(self, pid: int, payload) -> bool:
+        """Labels lookup, write and count for one profile; False when
+        relabeling dropped the target. `payload` is a zero-arg callable,
+        so a dropped target never pays the serialization. The lock covers
+        the label lookup and the counter only: the writer runs outside
+        it (writers tolerate concurrent write())."""
+        with self._write_mu:
+            labels = self._labels_for(pid)
+        if labels is None:
+            return False
+        if self._writer is not None:
+            self._writer.write(labels, payload())
+        with self._write_mu:
+            self.metrics.profiles_written += 1
+        return True
 
     def _before_window(self) -> None:
         """Raise what must stop the loop before the next window."""
@@ -465,16 +500,15 @@ class AggregateLoop(WindowLoop):
             self.metrics.last_symbolize_duration_s = sp_sym.duration_s
             sym_ms = sp_sym.duration_s * 1e3
         with tr.span("ship"):
-            if self._writer is not None:
-                for prof in profiles:
-                    self._writer.write(labels_for(prof.pid),
-                                       build_pprof(prof, compress=False))
-        self.metrics.profiles_written += len(profiles)
+            written = sum(
+                self._write_one(prof.pid,
+                                lambda p=prof: build_pprof(p, compress=False))
+                for prof in profiles)
         tr.annotate(pids=len(profiles), path="scalar")
         if self._on_window is not None:
             record = {"window": window, "rows": len(snapshot),
                       "samples": snapshot.total_samples(),
-                      "profiles": len(profiles),
+                      "profiles": written,
                       "mass": sum(p.total() for p in profiles),
                       "aggregate_ms": t_agg * 1e3,
                       "window_ms": (time.perf_counter() - t0) * 1e3}
@@ -510,7 +544,8 @@ class CPUProfiler(WindowLoop):
                  encode_deadline_s: float | None = None,
                  quarantine=None, trace_recorder=None,
                  duration_s: float = 10.0, identity=None, debuginfo=None,
-                 symbolizer=None, manage_gc: bool = False):
+                 symbolizer=None, labels_manager=None,
+                 manage_gc: bool = False):
         if symbolizer is not None:
             # Profiles ship unsymbolized on this path (the server
             # symbolizes, as with the reference agent).
@@ -527,7 +562,8 @@ class CPUProfiler(WindowLoop):
                          device_health=device_health, quarantine=quarantine,
                          trace_recorder=trace_recorder,
                          duration_s=duration_s, identity=identity,
-                         debuginfo=debuginfo, manage_gc=manage_gc)
+                         debuginfo=debuginfo, labels_manager=labels_manager,
+                         manage_gc=manage_gc)
         self._aggregator = aggregator
         # The inline encode's soft deadline, and its abandoned encode.
         self._encode_deadline = encode_deadline_s or None
@@ -561,9 +597,6 @@ class CPUProfiler(WindowLoop):
                 self._encoder,
                 prebuild=(self._pipeline.request_prebuild
                           if self._pipeline is not None else None))
-        # Writes come from this thread (inline windows) AND the
-        # pipeline's worker: one lock serializes the written counter.
-        self._write_mu = threading.Lock()
         # Records of the windows handed to the worker, oldest first: the
         # worker ships them in order, one at a time.
         self._handed = collections.deque()
@@ -742,12 +775,9 @@ class CPUProfiler(WindowLoop):
             prof = scalar_profile(_PidTotal(pid, m, snapshot.period_ns,
                                             snapshot.time_ns,
                                             snapshot.window_ns))
-            if self._writer is not None:
-                self._writer.write(labels_for(pid),
-                                   build_pprof(prof, compress=False))
-            n += 1
-        with self._write_mu:
-            self.metrics.profiles_written += n
+            if self._write_one(pid,
+                               lambda p=prof: build_pprof(p, compress=False)):
+                n += 1
         self.metrics.scalar_windows_total += 1
         return n
 
@@ -799,11 +829,8 @@ class CPUProfiler(WindowLoop):
         """Ship [(pid, blob)] from the encoder through the writer."""
         n = 0
         for pid, blob in out:
-            if self._writer is not None:
-                self._writer.write(labels_for(pid), blob)
-            n += 1
-        with self._write_mu:
-            self.metrics.profiles_written += n
+            if self._write_one(pid, lambda b=blob: b):
+                n += 1
         return n
 
     def _ship_encoded(self, out, prep) -> None:

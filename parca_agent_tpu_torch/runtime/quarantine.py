@@ -3,9 +3,8 @@
 The port's copy of parca_agent_tpu's runtime/quarantine.py. On the
 ingest side the unit of failure must be ONE PID, not one window. Every
 ingest-side consumer of untrusted per-process input — the mapping-table
-builder, the streaming feeder (and, once ported, the unwind-table
-builder and the symbolizer) — reports
-per-pid faults here, and routes a faulty pid's samples down a
+builder, the streaming feeder, the unwind-table builder and the
+symbolizer — reports per-pid faults here, and routes a faulty pid's samples down a
 degradation ladder instead of dropping them:
 
     level 0  FULL        normal processing (symbolization, unwind, maps)

@@ -1,11 +1,15 @@
 """Deterministic fault injection for the ship path.
 
 The port's copy of parca_agent_tpu's utils/faults.py, whole. The port
-injects ``maps.parse``, ``elf.read``, ``feed.coalesce``, ``feed.carry``,
-``statics.snapshot``, ``trace.record``, ``incident.dump``,
-``device.telemetry``, ``device.probe``, ``device.dispatch``,
-``fleet.join``, ``fleet.collective`` and the actor sites
-``actor.profiler``, ``actor.encode`` and ``actor.feeder``; the registry
+injects ``maps.parse``, ``elf.read``, ``perfmap.parse``,
+``process.identity``, ``symbolize.kernel``, ``unwind.build``,
+``feed.coalesce``, ``feed.carry``, ``statics.snapshot``,
+``trace.record``, ``incident.dump``, ``device.telemetry``,
+``device.probe``, ``device.dispatch``, ``fleet.join``,
+``fleet.collective``, the ship path's ``grpc.write_raw``,
+``grpc.handshake``, ``spool.write``, ``batch.flush`` and
+``writer.write``, and the actor sites ``actor.profiler``,
+``actor.encode``, ``actor.feeder`` and ``actor.flush``; the registry
 below names every site of the original, as the chaos suite's contract.
 
 The always-on agent's hard scenarios — hours-long store outages, cert

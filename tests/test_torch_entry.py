@@ -60,7 +60,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "unwind", "unwind.table", "unwind.walker", "symbolize",
                 "symbolize.ksym", "symbolize.perfmap",
                 "symbolize.symbolizer", "process.identity", "debuginfo",
-                "debuginfo.find", "debuginfo.extract", "debuginfo.manager"):
+                "debuginfo.find", "debuginfo.extract", "debuginfo.manager",
+                "agent", "agent.writer", "agent.profilestore",
+                "agent.listener", "agent.spool", "agent.batch",
+                "agent.grpc_client", "agent.debuginfo_client", "labels",
+                "labels.relabel", "labels.manager", "metadata",
+                "metadata.providers", "config"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
