@@ -137,7 +137,7 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                0's sub-table fills, the sketch absorbs the rest, exact +
                absorbed mass equals the window's and every exact key its
                rows' count. The CLI with --aggregator sharded
-               --fast-encode (one shard on one card), 3 windows.
+               --fast-encode (one shard on one card), 2 windows.
   9. fleet     the fleet merge (parallel/, BASELINE config #5) on the
                card: 8 nodes, each the bench window's 2^20 rows (phase
                4's hashes, counts 1-9 a node) plus 65,536 node-private
@@ -265,6 +265,31 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                every upload finishes by build id, and K1 and the close
                kernel launch. The phase prints grpc, yaml and
                cryptography as this host has them, on a line of its own.
+ 14. shell     the agent shell (web.py, discovery/, the self-profiler):
+               started in a child process once phase 4's window is made
+               and collected after phase 13 (it is host-bound, and runs
+               beside phases 4-13), the CLI in that process,
+               --aggregator dict --fast-encode,
+               replaying 3 windows of every 8th row of phase 4's window
+               (2^17 rows of the bench's 50,000 pids; windows 2 and 3 the
+               first's stacks with its counts times 2 and 3), with
+               --enable-cgroup-discovery,
+               --enable-systemd-discovery, --log-level debug and
+               --http-address on a port picked here. Before the last
+               window the capture source waits until every window taken
+               has printed its line, then scrapes: /metrics (the strict
+               parser of tests/test_metrics_format.py; the loop's attempts
+               and profiles written equal to those lines'; the stage
+               histogram present), /, /healthy, /healthz (the discovery
+               actor present), /query of the windows' heaviest pid (its
+               profile's mass that pid's in window 2 or 3),
+               /debug/windows, /debug/trace/<seq> (and 404 for a seq not
+               in the ring), /debug/device, /debug/pprof/cmdline,
+               profile?seconds=1 (a pprof naming the window loop's thread)
+               and heap?seconds=1, /hotspots and /diff (503). Prints the
+               scrape ms, what discovery found on this host (groups by
+               provider, failed updates) and the phase's seconds; K1 and
+               the close kernel must launch.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -290,6 +315,10 @@ With --sketch-reference, a source
 with csrc/sketch_build.cu's pa_sketch_build is built, held against the
 cluster kernel and timed in turns with it at phase 9's stream.
 
+Every CLI run serves its HTTP surface on a free port of its own
+(--http-address 127.0.0.1:0; phase 14 picks its port), and phase 11's
+incident file must carry a self-profile of the agent.
+
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
 {...}}. Any failed phase raises and exits nonzero, with no result line.
 Without a CUDA device, or without the package beside this file, it exits
@@ -299,6 +328,7 @@ nonzero at once.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import re
 import subprocess
@@ -328,7 +358,7 @@ DRAINS = 10
 # Phase 5: timed runs of each dedup arm on each small window; windows of
 # each CLI run.
 ARM_REPS = 3
-CLI_WINDOWS = 3
+CLI_WINDOWS = 2
 # Phase 11: bench.py's id_cap at the bench window (`1 << (2*top -
 # 1).bit_length()`, bench.py:2394), the hang CLI's watchdog and the margin
 # its exit may take past it (interpreter start, the probe child, CUDA).
@@ -339,6 +369,9 @@ HANG_MARGIN_S = 90.0
 # bring-up probe child (~10 s each on the card host); phase 11 checks the
 # probe, alone and at the start of its CLI run.
 NO_PROBE = ("--device-probe-timeout", "0")
+# Every CLI run serves its HTTP surface on a port of its own: any free
+# one (phase 14 picks its port to scrape it).
+HTTP_ANY = ("--http-address", "127.0.0.1:0")
 
 
 def emit(phase: str, **fields) -> None:
@@ -2070,7 +2103,8 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
 
     # (d) The CLI entry on the card.
     with tempfile.TemporaryDirectory() as tmp:
-        rc = cli.run([*NO_PROBE, "--aggregator", "tpu", "--windows", "2",
+        rc = cli.run([*NO_PROBE, *HTTP_ANY, "--aggregator", "tpu",
+                      "--windows", "2",
                       "--profiling-duration", "0.1",
                       "--local-store-directory", tmp])
         files = sorted(Path(tmp).glob("*.pb.gz"))
@@ -2134,7 +2168,7 @@ def start_cli(store: Path, *flags, period: float = 0.1):
         [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
          "synthetic", "--windows", str(CLI_WINDOWS), "--profiling-duration",
          str(period), "--local-store-directory", str(store), *NO_PROBE,
-         *flags],
+         *HTTP_ANY, *flags],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     return proc, flags
@@ -3319,7 +3353,7 @@ def sharded_cli() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = cli.run([*NO_PROBE, "--aggregator", "sharded",
+            rc = cli.run([*NO_PROBE, *HTTP_ANY, "--aggregator", "sharded",
                           "--fast-encode", "--windows", str(CLI_WINDOWS),
                           "--profiling-duration", "0.5",
                           "--local-store-directory", tmp])
@@ -4246,7 +4280,7 @@ def live_cli(dev, label: str, flags: list, seconds: int) -> dict:
             close.reset_launches()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
-                rc = cli.run([*NO_PROBE, *flags,
+                rc = cli.run([*NO_PROBE, *HTTP_ANY, *flags,
                               "--windows", str(LIVE_WINDOWS),
                               "--profiling-duration", str(seconds),
                               "--local-store-directory", tmp])
@@ -4566,8 +4600,9 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         r = subprocess.run(
-            [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
-             "synthetic", "--windows", "3", "--profiling-duration", "0.1",
+            [sys.executable, "-m", "parca_agent_tpu_torch", *HTTP_ANY,
+             "--capture", "synthetic", "--windows", "3",
+             "--profiling-duration", "0.1",
              "--fast-encode", "--device-timeout", str(HANG_TIMEOUT_S),
              "--fault-inject", "device.dispatch:hang:after=0",
              "--trace-incident-dir", str(Path(tmp) / "incidents"),
@@ -4577,8 +4612,12 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
         wall = time.perf_counter() - t0
         lines = r.stdout.strip().splitlines()
         last = json.loads(lines[-1]) if lines else {}
-        incidents = sorted((Path(tmp) / "incidents").glob("*.json"))
-        kinds = [json.loads(f.read_text())["kind"] for f in incidents]
+        incidents = [json.loads(f.read_text()) for f in
+                     sorted((Path(tmp) / "incidents").glob("*.json"))]
+        kinds = [body["kind"] for body in incidents]
+        # Each incident bundles a self-profile of the agent.
+        self_profiled = [("self_profile_pprof_gz_b64" in body)
+                         for body in incidents]
     health = last.get("device_health", {})
     # The bring-up probe ran in that CLI before it touched the card: a
     # child that launched the row hash kernel, timed in its snapshot.
@@ -4587,14 +4626,16 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
             or health["stats"]["hangs_total"] != 1 \
             or health["stats"]["probes_ok"] != 1 \
             or not health.get("last_probe_s") \
-            or kinds != ["device_hang"]:
+            or kinds != ["device_hang"] or self_profiled != [True]:
         raise AssertionError(f"hang CLI: rc {r.returncode}, {wall:.1f} s, "
-                             f"{last}, incidents {kinds}: {r.stderr[-1500:]}")
+                             f"{last}, incidents {kinds}, self-profiled "
+                             f"{self_profiled}: {r.stderr[-1500:]}")
     emit("runtime_probe", s=health["last_probe_s"],
          probes=health["stats"], source="runtime_hang_cli")
     emit("runtime_hang_cli", rc=r.returncode, wall_s=wall,
          device_timeout_s=HANG_TIMEOUT_S, margin_s=HANG_MARGIN_S,
-         device_health=health, incidents=kinds)
+         device_health=health, incidents=kinds,
+         incidents_self_profiled=self_profiled)
     return launches
 
 
@@ -5118,7 +5159,8 @@ def start_sym_cli(store: Path, capture: str, *flags):
                        if p])
     argv = ["--capture", capture, "--aggregator", "dict", "--windows",
             str(SYM_CLI_WINDOWS), "--profiling-duration", "1",
-            "--local-store-directory", str(store), *NO_PROBE, *flags]
+            "--local-store-directory", str(store), *NO_PROBE, *HTTP_ANY,
+            *flags]
     proc = subprocess.Popen([sys.executable, "-m", "parca_agent_tpu_torch",
                              *argv], cwd=HERE, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -5600,7 +5642,8 @@ def transport_cli(dev, grpc, with_yaml: bool) -> dict:
             t0 = time.perf_counter()
             replay = burner_windows(burner.pid, Path(tmp))
             record_s = time.perf_counter() - t0
-            flags = [*NO_PROBE, "--capture", "replay", "--replay", *replay,
+            flags = [*NO_PROBE, *HTTP_ANY, "--capture", "replay",
+                     "--replay", *replay,
                      "--aggregator", "dict",
                      "--fast-encode", "--windows", str(TRANSPORT_CLI_WINDOWS),
                      "--profiling-duration", str(TRANSPORT_TICK_S),
@@ -5692,6 +5735,459 @@ def phase_transport(dev, blobs) -> dict:
             + rec["launches"].get("close_pack_delta", 0) < 1:
         raise AssertionError(f"the transport CLI launched "
                              f"{rec['launches']}")
+    return rec["launches"]
+
+
+# -- phase 14: the agent shell ------------------------------------------------
+
+SHELL_WINDOWS = 3
+SHELL_ROWS = 1 << 17        # a window's rows (the bench window's 2^20, cut)
+SHELL_PERIOD_S = 1.0
+SHELL_WAIT_S = 240.0        # bound of the hook's wait for the window lines
+
+_PROM_NAME = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_PROM_VALUE = re.compile(
+    r"^(?:[+-]?(?:\d+(?:\.\d*)?|\.\d+)(?:[eE][+-]?\d+)?|NaN|\+Inf|-Inf)$")
+_PROM_SAMPLE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+
+
+def _prom_labels(s: str) -> dict:
+    """The inside of a {...} label set, with its \\\\, \\" and \\n
+    escapes; raises on any syntax violation."""
+    labels: dict[str, str] = {}
+    i = 0
+    while i < len(s):
+        m = re.match(r'([a-zA-Z_][a-zA-Z0-9_]*)="', s[i:])
+        if not m or m.group(1) in labels:
+            raise AssertionError(f"bad label at {s[i:]!r}")
+        i += m.end()
+        val = []
+        while True:
+            if i >= len(s) or s[i] == "\n":
+                raise AssertionError(f"unterminated label value in {s!r}")
+            if s[i] == "\\":
+                if s[i + 1:i + 2] not in ('\\', '"', "n"):
+                    raise AssertionError(f"bad escape in {s!r}")
+                val.append({"\\": "\\", '"': '"', "n": "\n"}[s[i + 1]])
+                i += 2
+            elif s[i] == '"':
+                i += 1
+                break
+            else:
+                val.append(s[i])
+                i += 1
+        labels[m.group(1)] = "".join(val)
+        if i < len(s):
+            if s[i] != ",":
+                raise AssertionError(f"expected ',' at {s[i:]!r}")
+            i += 1
+    return labels
+
+
+def parse_prometheus_text(text: str) -> dict:
+    """The strict Prometheus text-format parser of
+    tests/test_metrics_format.py (which imports the JAX package, so it
+    is copied here): names, label syntax and escapes, a `# TYPE` line
+    before each family's samples, families contiguous, no duplicate
+    series, and each histogram's buckets sorted and cumulative with
+    le="+Inf" equal to _count and a _sum. Returns {family: {"type": t,
+    "samples": [(name, labels, value)]}}."""
+    if not text.endswith("\n"):
+        raise AssertionError("exposition must end with a newline")
+    fams: dict[str, dict] = {}
+    current = None
+    seen = set()
+    for n, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) >= 2 and parts[1] == "TYPE":
+                if len(parts) != 4 or not _PROM_NAME.match(parts[2]) \
+                        or parts[3] not in ("counter", "gauge", "histogram",
+                                            "summary", "untyped") \
+                        or parts[2] in fams:
+                    raise AssertionError(f"line {n}: bad TYPE {line!r}")
+                fams[parts[2]] = {"type": parts[3], "samples": []}
+                current = parts[2]
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if not m or not _PROM_VALUE.match(m.group(3)):
+            raise AssertionError(f"line {n}: bad sample {line!r}")
+        name = fam = m.group(1)
+        labels = _prom_labels(m.group(2)) if m.group(2) else {}
+        if fam not in fams:
+            for suffix in ("_bucket", "_sum", "_count"):
+                base = name.removesuffix(suffix)
+                if name.endswith(suffix) and base in fams \
+                        and fams[base]["type"] == "histogram":
+                    fam = base
+                    break
+        key = (name, tuple(sorted(labels.items())))
+        if fam != current or key in seen:
+            raise AssertionError(f"line {n}: {name} outside its family's "
+                                 "block, before its TYPE, or repeated")
+        seen.add(key)
+        fams[fam]["samples"].append((name, labels, float(m.group(3))))
+    for fam, data in fams.items():
+        if data["type"] != "histogram":
+            continue
+        series: dict = {}
+        for name, labels, value in data["samples"]:
+            s = series.setdefault(tuple(sorted(
+                (k, v) for k, v in labels.items() if k != "le")),
+                {"buckets": [], "sum": None, "count": None})
+            if name == fam + "_bucket":
+                s["buckets"].append((float(labels["le"].replace(
+                    "+Inf", "inf")), value))
+            elif name == fam + "_sum":
+                s["sum"] = value
+            elif name == fam + "_count":
+                s["count"] = value
+        for rest, s in series.items():
+            les = [le for le, _ in s["buckets"]]
+            counts = [c for _, c in s["buckets"]]
+            if not les or les != sorted(les) or les[-1] != float("inf") \
+                    or counts != sorted(counts) or s["sum"] is None \
+                    or counts[-1] != s["count"]:
+                raise AssertionError(f"{fam}{dict(rest)}: bad histogram")
+    return fams
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shell_windows(tmp: Path, pids: int, rows: int,
+                  base=None) -> tuple[list[str], int, list[int]]:
+    """SHELL_WINDOWS replay files of `rows` rows: every (len(base) //
+    rows)-th row of `base` (phase 4's bench window), or without it a
+    window of the bench spec at `pids` pids and `rows` rows (its samples
+    scaled with the rows). The first window's stacks in every window,
+    the w-th window's counts the first's times w (later windows are
+    steady ones, and a pid's mass tells its windows apart). Returns
+    their paths, their heaviest pid and its mass in each."""
+    import dataclasses
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.capture.formats import save_snapshot
+    from parca_agent_tpu_torch.capture.synthetic import (
+        SyntheticSpec,
+        generate,
+    )
+
+    if base is not None:
+        snap = window_rows(base, np.arange(rows) * (len(base) // rows))
+    else:
+        snap = generate(SyntheticSpec(
+            n_pids=pids, n_unique_stacks=rows, n_rows=rows,
+            total_samples=max(SAMPLES * rows // ROWS, rows + 1),
+            mean_depth=24, kernel_fraction=0.2, seed=42))
+    # The heaviest pid: its mass tells the windows apart.
+    uniq, inv = np.unique(snap.pids, return_inverse=True)
+    pid = int(uniq[np.bincount(inv, weights=snap.counts).argmax()])
+    paths, masses = [], []
+    for w in range(SHELL_WINDOWS):
+        win = snap if w == 0 else dataclasses.replace(
+            snap, counts=snap.counts * (w + 1),
+            time_ns=snap.time_ns + w * int(SHELL_PERIOD_S * 1e9))
+        paths.append(str(tmp / f"shell-{w}.snap"))
+        save_snapshot(win, paths[-1])
+        masses.append(int(win.counts[win.pids == pid].sum()))
+    return paths, pid, masses
+
+
+def http_get(url: str, timeout: float = 120.0):
+    """(status, body, headers, ms) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            body, status, headers = r.read(), r.status, r.headers
+    except urllib.error.HTTPError as e:
+        body, status, headers = e.read(), e.code, e.headers
+    return status, body, headers, (time.perf_counter() - t0) * 1e3
+
+
+def shell_cli(replay_windows, device_flags=()) -> dict:
+    """Phase 14's run (module docs): the port's CLI in this process,
+    replaying `replay_windows` (shell_windows' paths, pid and masses)
+    with discovery and the HTTP server on a port picked here, scraped
+    from a hook in the capture source's poll before the last window (the
+    loop waits there; the server answers from its own threads). Returns
+    the run's record, its launches included."""
+    import contextlib
+    import gzip
+    import io
+    import threading
+
+    from parca_agent_tpu_torch import __version__, cli
+    from parca_agent_tpu_torch.aggregator import close, probe
+    from parca_agent_tpu_torch.capture import replay as replay_mod
+    from parca_agent_tpu_torch.pprof.builder import parse_pprof
+
+    replay, query_pid, masses = replay_windows
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    out = io.StringIO()
+    scrapes: dict = {}
+    managers = []
+
+    def window_lines():
+        return [json.loads(ln) for ln in out.getvalue().splitlines()
+                if ln.startswith('{"window"')]
+
+    def query():
+        scrapes["/query"] = http_get(f"{url}/query?pid={query_pid}"
+                                     "&timeout=60")
+
+    def hook():
+        try:
+            scrape()
+        except Exception as e:  # noqa: BLE001 - reported after the run
+            scrapes["hook_error"] = repr(e)
+
+    def scrape():
+        # Every window taken so far has printed its line (the encode
+        # worker prints a pipelined one after its profiles are written),
+        # so the loop's counters must be the lines'.
+        deadline = time.monotonic() + SHELL_WAIT_S
+        while len(window_lines()) < SHELL_WINDOWS - 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("shell CLI: the window lines did not "
+                                     f"come in {SHELL_WAIT_S} s")
+            time.sleep(0.05)
+        scrapes["lines"] = window_lines()
+        # /query waits for pid query_pid's next profile: the last
+        # window's, which runs once this hook returns.
+        scrapes["query_thread"] = threading.Thread(target=query)
+        scrapes["query_thread"].start()
+        for path in ("/metrics", "/", "/healthy", "/healthz",
+                     "/debug/windows", "/debug/device",
+                     "/debug/trace/1000000", "/debug/pprof/cmdline",
+                     "/debug/pprof/profile?seconds=1",
+                     "/debug/pprof/heap?seconds=1", "/hotspots", "/diff"):
+            scrapes[path] = http_get(url + path)
+        traces = json.loads(scrapes["/debug/windows"][1])["traces"]
+        scrapes["seq"] = traces[-1]["seq"] if traces else None
+        scrapes["/debug/trace/<seq>"] = http_get(
+            f"{url}/debug/trace/{scrapes['seq']}")
+
+    class Scraped(replay_mod.ReplaySource):
+        def poll(self):
+            if self._pos == SHELL_WINDOWS - 1:
+                hook()
+            return super().poll()
+
+    real_replay, real_discovery = replay_mod.ReplaySource, \
+        cli.discovery_manager
+
+    def discovery_manager(args):
+        got = real_discovery(args)
+        managers.append(got[0])
+        return got
+
+    t_phase = time.perf_counter()
+    try:
+        replay_mod.ReplaySource = Scraped
+        cli.discovery_manager = discovery_manager
+        flags = [*NO_PROBE, *device_flags, "--capture", "replay",
+                 "--replay", *replay, "--aggregator", "dict",
+                 "--fast-encode", "--windows", str(SHELL_WINDOWS),
+                 "--profiling-duration", str(SHELL_PERIOD_S),
+                 "--http-address", f"127.0.0.1:{port}",
+                 "--enable-cgroup-discovery",
+                 "--enable-systemd-discovery", "--log-level", "debug"]
+        err = io.StringIO()
+        # Every count to 0 just before the path; read just after.
+        probe.reset_launches()
+        close.reset_launches()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.run(flags)
+        launches = {k: n for k, n in (
+            ("feed_accumulate", probe.LAUNCHES["feed_accumulate"]),
+            ("close_pack", close.LAUNCHES["close_pack"]),
+            ("close_pack_delta", close.LAUNCHES["close_pack_delta"]))
+            if n}
+        if "query_thread" in scrapes:
+            scrapes.pop("query_thread").join(timeout=120)
+    finally:
+        replay_mod.ReplaySource = real_replay
+        cli.discovery_manager = real_discovery
+    phase_s = time.perf_counter() - t_phase
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines()
+             if ln.startswith("{")]
+    windows = [ln for ln in lines if "window" in ln]
+    runtime = [ln["runtime"] for ln in lines if "runtime" in ln]
+    status = {k: v[0] for k, v in scrapes.items()
+              if isinstance(v, tuple)}
+    # Where the windows' time went: each window's line and the flight
+    # recorder's stage maxima (ms).
+    stages = {k: v["max_ms"] for k, v in runtime[-1]["trace"][
+        "stage_percentiles"].items()} if runtime else None
+    diag = {"windows": [{k: ln.get(k) for k in (
+        "window", "profiles", "aggregate_ms", "encode_path", "encode_ms",
+        "handoff_ms", "window_ms")} for ln in windows],
+        "stage_max_ms": stages,
+        "supervisor": runtime[-1]["supervisor"] if runtime else None}
+    want = {"/metrics": 200, "/": 200, "/healthy": 200, "/healthz": 200,
+            "/debug/windows": 200, "/debug/device": 200,
+            "/debug/trace/1000000": 404, "/debug/trace/<seq>": 200,
+            "/debug/pprof/cmdline": 200,
+            "/debug/pprof/profile?seconds=1": 200,
+            "/debug/pprof/heap?seconds=1": 200, "/hotspots": 503,
+            "/diff": 503, "/query": 200}
+    problems = [f"{k}: {status.get(k)} (want {v})" for k, v in want.items()
+                if status.get(k) != v]
+    if "hook_error" in scrapes:
+        problems.append(scrapes["hook_error"])
+    rec = {"rc": rc, "cli_s": phase_s, "windows": len(windows),
+           "launches": launches, "status": status, **diag}
+    if problems or rc != 0 or len(runtime) != 1:
+        raise AssertionError(f"shell CLI: rc {rc}, {problems}, {diag}, "
+                             f"{err.getvalue()[-3000:]}")
+    cli_runtime_clean("shell CLI", runtime)
+    # /metrics: strict, the loop's counters those of the lines printed by
+    # then, the stage histogram present.
+    fams = parse_prometheus_text(scrapes["/metrics"][1].decode())
+    seen_lines = scrapes["lines"]
+
+    def value(name):
+        return fams[name]["samples"][0][2]
+
+    rec["metrics"] = {
+        "families": len(fams), "bytes": len(scrapes["/metrics"][1]),
+        "attempts": value("parca_agent_profiler_attempts_total"),
+        "profiles_written":
+            value("parca_agent_profiler_profiles_written_total"),
+        "lines": len(seen_lines),
+        "line_profiles": sum(ln["profiles"] for ln in seen_lines)}
+    if rec["metrics"]["attempts"] != len(seen_lines) \
+            or rec["metrics"]["profiles_written"] \
+            != rec["metrics"]["line_profiles"] \
+            or fams.get("parca_agent_window_stage_duration_seconds",
+                        {}).get("type") != "histogram":
+        raise AssertionError(f"shell CLI: /metrics {rec['metrics']}")
+    page = scrapes["/"][1].decode()
+    healthz = json.loads(scrapes["/healthz"][1])
+    if f"parca-agent-tpu ({__version__}" not in page \
+            or "discovery" not in healthz["actors"] \
+            or not scrapes["seq"]:
+        raise AssertionError(f"shell CLI: status page {page[:200]!r}, "
+                             f"actors {sorted(healthz['actors'])}, seq "
+                             f"{scrapes['seq']}")
+    # /query: the next profile written for that pid after the hook (the
+    # second window's, if its ship was still going, else the third's):
+    # its labels, and that window's mass of the pid.
+    labels = json.loads(scrapes["/query"][2]["X-Profile-Labels"])["labels"]
+    got = sum(v[0] for _, v, _ in parse_pprof(
+        gzip.decompress(scrapes["/query"][1])).samples)
+    rec["query"] = {"pid": query_pid, "mass": got, "window_masses": masses}
+    if labels.get("pid") != str(query_pid) or got not in masses[1:]:
+        raise AssertionError(f"shell CLI: /query labels {labels}, "
+                             f"{rec['query']}")
+    prof = parse_pprof(scrapes["/debug/pprof/profile?seconds=1"][1])
+    threads = sorted({lbl["thread"] for _, _, lbl in prof.samples})
+    heap = parse_pprof(scrapes["/debug/pprof/heap?seconds=1"][1])
+    if "actor-profiler" not in threads or not heap.samples:
+        raise AssertionError(f"shell CLI: self-profile threads {threads}, "
+                             f"heap samples {len(heap.samples)}")
+    rec["ms"] = {k: round(scrapes[k][3], 3) for k in (
+        "/metrics", "/", "/healthz", "/query", "/debug/windows",
+        "/debug/device", "/debug/pprof/profile?seconds=1",
+        "/debug/pprof/heap?seconds=1")}
+    rec["self_profile"] = {"threads": threads, "samples": len(prof.samples),
+                           "bytes": len(scrapes[
+                               "/debug/pprof/profile?seconds=1"][1])}
+    groups = managers[0].groups() if managers else []
+    rec["discovery"] = {
+        "groups": {p: sum(g.source.startswith(p + "/") for g in groups)
+                   for p in ("cgroup", "systemd")},
+        "failed_updates": managers[0].failed_updates if managers else None,
+        "healthz": healthz["actors"]["discovery"]["state"],
+        "query_labels": sorted(labels)}
+    if len(windows) != SHELL_WINDOWS:
+        raise AssertionError(f"shell CLI: {len(windows)} window lines")
+    return rec
+
+
+def shell_child(tmp: str, device_flags: list) -> dict:
+    """Phase 14's child process: shell_windows from the rows start_shell
+    saved in `tmp`, then shell_cli. Returns its record."""
+    from parca_agent_tpu_torch.capture.formats import load_snapshot
+
+    t0 = time.perf_counter()
+    base = load_snapshot(str(Path(tmp) / "rows.snap"))
+    windows = shell_windows(Path(tmp), PIDS, len(base), base=base)
+    setup_s = time.perf_counter() - t0
+    return {**shell_cli(windows, device_flags), "windows_setup_s": setup_s}
+
+
+def start_shell(snap, device_flags=()):
+    """Start phase 14 in a child process beside the phases that follow
+    (its CLI is host-bound: the overlap keeps the run inside its time
+    limit), on every 8th row of phase 4's window `snap` (saved here for
+    the child), the CLI's device flags `device_flags` (none: the card).
+    Returns what phase_shell waits for."""
+    import tempfile
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.capture.formats import save_snapshot
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-shell-")
+    stride = len(snap) // SHELL_ROWS
+    save_snapshot(window_rows(snap, np.arange(SHELL_ROWS) * stride),
+                  str(Path(tmp) / "rows.snap"))
+    code = ("import json, sys, time\n"
+            "t0 = time.perf_counter()\n"
+            f"sys.path.insert(0, {str(HERE)!r})\n"
+            "import chip_smoke\n"
+            "rec = chip_smoke.shell_child(*map(json.loads, sys.argv[1:]))\n"
+            "rec['child_s'] = time.perf_counter() - t0\n"
+            "print(json.dumps(rec), flush=True)\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(tmp),
+         json.dumps(list(device_flags))], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    # A failed phase before phase_shell must not leave the child running.
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, tmp
+
+
+def phase_shell(started) -> dict:
+    """Phase 14 (module docs): waits for start_shell's child (killed past
+    900 s), emits its record. Returns the launches of its CLI run."""
+    import shutil
+
+    proc, tmp = started
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"shell child: rc {proc.returncode}: "
+                             f"{err[-4000:]}")
+    rec = json.loads(lines[-1])
+    rec.update(pids=PIDS, rows=SHELL_ROWS)
+    emit("shell", **rec)
+    if rec["launches"].get("feed_accumulate", 0) < 1 \
+            or rec["launches"].get("close_pack", 0) \
+            + rec["launches"].get("close_pack_delta", 0) < 1:
+        raise AssertionError(f"the shell CLI launched {rec['launches']}")
     return rec["launches"]
 
 
@@ -5809,6 +6305,8 @@ def main() -> int:
     rows = timed("kernels", phase_kernels, dev, ref)
     timed("close_kernels", phase_close_kernels, dev, close_refs)
     snap, want = timed("main_path_setup", window_setup)
+    # Phase 14 runs in a child beside phases 4-13 (start_shell).
+    shell = timed("shell_start", start_shell, snap)
     vec_rec = VecRecorder()
     launches, state, hashes, steady_blobs = timed(
         "main_path", phase_main_path, dev, snap, want, STEADY_WINDOWS, ref,
@@ -5834,6 +6332,7 @@ def main() -> int:
     launches_transport = timed("transport", phase_transport, dev,
                                steady_blobs)
     del steady_blobs
+    launches_shell = timed("shell", phase_shell, shell)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
     # bounded-memory dictionary (phase 6), the streaming window (phase 7),
@@ -5841,8 +6340,9 @@ def main() -> int:
     # CLI on the live machine (phase 10), the dictionary at bench.py's
     # option settings (phase 11), the scalar path's windows that phase
     # 12 symbolizes (the bench window on phase 7's dictionary, and the
-    # walked DWARF window) and the CLI that ships to a store (phase 13).
-    # `launches` is their sum.
+    # walked DWARF window), the CLI that ships to a store (phase 13) and
+    # the CLI that serves its HTTP surface (phase 14). `launches` is
+    # their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
@@ -5853,7 +6353,8 @@ def main() -> int:
                "live": launches_live,
                "runtime": launches_runtime,
                "symbolize": {k: n for k, n in launches_sym.items() if n},
-               "transport": launches_transport}
+               "transport": launches_transport,
+               "shell": launches_shell}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

@@ -17,10 +17,14 @@ spool when the store takes data again; teed to the local store under
 object files are also uploaded to the store's debuginfo service
 (debuginfo/, unless --debuginfo-upload-disable). With a store or a label
 flag (--node, --metadata-external-labels, --config-path) each profile's
-labels come from the label pipeline (labels/, metadata/: process,
-cgroup, system and target labels, then --config-path's relabel rules,
-hot-reloaded; a dropped target is not written); without, they are
-{__name__, pid}. grpc is imported only with --remote-store-address and
+labels come from the label pipeline (labels/, metadata/: service
+discovery, process, cgroup, system and target labels, then
+--config-path's relabel rules, hot-reloaded; a dropped target is not
+written); without, they are {__name__, pid}. The --enable-*-discovery
+flags run discovery/'s providers (systemd units, containers by cgroup,
+this node's pods), whose groups feed the service discovery labels each
+window, the first scrape before the first window; they build the label
+pipeline too. grpc is imported only with --remote-store-address and
 yaml only with --config-path. With --fast-encode (dictionary aggregators
 only) the per-pid pprof comes from the vectorized window encoder, on an
 encode worker thread unless --no-encode-pipeline is given
@@ -51,6 +55,13 @@ names are those of parca_agent_tpu's CLI. The aggregation runs on the CUDA card
 unless ``--device cpu`` is given; without a CUDA device the run stops
 with an error that names the missing device.
 
+The agent shell: the CLI logs in logfmt on stderr at --log-level
+(utils/log.py), with the build info (buildinfo.py) and the kernel-config
+and container checks (kconfig.py) at start, and serves web.py's HTTP
+surface at --http-address (/metrics, /healthz, /query, /debug/*, the
+self-profile of profiler/selfprofile.py), bound before the actors start
+and stopped on every exit.
+
 The runtime edges (runtime/): before this process creates a CUDA
 context (it only asks the device count), a throwaway child probes the
 card (CUDA init and one launch of the row hash kernel), killed at
@@ -62,12 +73,13 @@ encode pipeline's worker (a probe that revives it) and the fleet merge
 actor. Each window's device call runs under a watchdog that gives each
 of its waits on the card --device-timeout seconds (the host work between
 them is not timed): a hang ends the run with a bounded, non-zero exit,
-the trace flushed (an incident file under --trace-incident-dir) and the
-device-health snapshot as the last JSON line. The flight
-recorder (runtime/trace.py) and device telemetry
-(runtime/device_telemetry.py) are always on (both observe only), the
-quarantine registry (runtime/quarantine.py) unless
---quarantine-max-strikes is 0; every exit prints their state as one
+the trace flushed (an incident file under --trace-incident-dir, with a
+self-profile) and the device-health snapshot as the last JSON line. The
+flight recorder (runtime/trace.py) and device telemetry
+(runtime/device_telemetry.py) are on unless --no-window-trace or
+--no-device-telemetry (both observe only), the quarantine registry
+(runtime/quarantine.py) unless --quarantine-max-strikes is 0; every exit
+prints their state (each section present when it is on) as one
 {"runtime": ...} JSON line (with the process identity's counters, the
 faults fired at each armed chaos site, the batch client's, the spool's
 and the store channel's counters and, in DWARF mode, the walk
@@ -85,12 +97,19 @@ import sys
 import threading
 import time
 
+from parca_agent_tpu_torch import __version__
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="parca-agent-tpu-torch",
         description="sampling CPU profiler agent: window aggregation on a "
                     "CUDA device with PyTorch")
+    p.add_argument("--log-level", default="info",
+                   choices=["error", "warn", "info", "debug"])
+    p.add_argument("--http-address", default="127.0.0.1:7071",
+                   help="status/metrics/query listen address (port 0: any "
+                        "free port, logged at start)")
     p.add_argument("--capture", default="synthetic",
                    choices=["synthetic", "replay", "perf", "procfs"],
                    help="capture source: synthetic load, replay of saved "
@@ -212,6 +231,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write each window's per-pid profiles here as "
                         ".pb.gz")
     p.add_argument("--node", default="", help="node name label")
+    p.add_argument("--systemd-units", default="",
+                   help="comma-separated units to discover (empty = all)")
+    p.add_argument("--enable-systemd-discovery", action="store_true")
+    p.add_argument("--enable-cgroup-discovery", action="store_true")
+    p.add_argument("--enable-kubernetes-discovery", action="store_true",
+                   help="watch this node's pods via the in-cluster API and "
+                        "label samples with pod/container metadata "
+                        "(reference pkg/discovery/kubernetes.go)")
+    p.add_argument("--metadata-container-runtime-socket-path", default="",
+                   help="container runtime socket to resolve container "
+                        "pids through, overriding the well-known paths "
+                        "(reference flag of the same name)")
     p.add_argument("--config-path", default="",
                    help="YAML file with relabel_configs; hot-reloaded")
     p.add_argument("--metadata-external-labels", default="",
@@ -310,6 +341,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-seed", type=int, default=0,
                    help="seed for the fault injector's probability draws "
                         "(PARCA_FAULT_SEED env var)")
+    p.add_argument("--no-window-trace", action="store_true",
+                   help="disable the window flight recorder: per-window "
+                        "lifecycle traces on /debug/windows and "
+                        "/debug/trace/<seq>, per-stage latency histograms "
+                        "on /metrics, and the slow-window detector")
     p.add_argument("--trace-ring", type=int, default=512,
                    help="completed window traces kept in the flight "
                         "recorder's ring buffer")
@@ -329,6 +365,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="minimum seconds between slow-window incident "
                         "captures (rate limit; suppressed captures are "
                         "counted)")
+    p.add_argument("--no-device-telemetry", action="store_true",
+                   help="disable the device flight recorder: per-kernel "
+                        "launch histograms, transfer accounting and the "
+                        "window budget on /metrics and /debug/device")
     p.add_argument("--telemetry-ring", type=int, default=256,
                    help="kernel events and window-budget entries kept in "
                         "the device flight recorder's timeline rings")
@@ -366,6 +406,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "exact count from the card in one sample); 0 "
                         "disables. Applies when the encode pipeline is "
                         "off, or to a window it refused")
+    p.add_argument("--version", action="version",
+                   version=f"parca-agent-tpu-torch {__version__}")
     return p
 
 
@@ -437,6 +479,62 @@ def walk_metrics(source) -> dict:
                 round(ws.success / ws.total, 4)}
 
 
+def http_metrics(source, store, feeder, fleet_merger, binfo) -> dict:
+    """The extra /metrics families of parca_agent_tpu's CLI (also the
+    status page's capture line): the perf sampler's loss and dedup
+    counters, the build info, the store channel's resets, the streaming
+    feeder's counters, the fleet merger's state and the DWARF walk
+    counters."""
+    from parca_agent_tpu_torch.web import escape_label_value
+
+    out = {}
+    if hasattr(source, "lost_samples"):
+        out["parca_agent_capture_lost_samples_total"] = source.lost_samples
+    if hasattr(source, "truncated_drains"):
+        out["parca_agent_capture_truncated_drains_total"] = \
+            source.truncated_drains
+    if hasattr(source, "dedup_hits"):
+        out["parca_agent_capture_dedup_hits_total"] = source.dedup_hits
+        out["parca_agent_capture_dedup_overflow_total"] = \
+            source.dedup_overflow
+    if hasattr(source, "hash_carry"):
+        out["parca_agent_capture_hash_carry"] = int(source.hash_carry)
+    labels = ",".join(f'{k}="{escape_label_value(v)}"'
+                      for k, v in binfo.as_metrics().items())
+    out[f"parca_agent_build_info{{{labels}}}"] = 1
+    if hasattr(store, "stats"):
+        out["parca_agent_remote_store_channel_resets_total"] = \
+            store.stats.get("channel_resets", 0)
+    if feeder is not None:
+        out["parca_agent_streaming_disabled"] = int(feeder.disabled)
+        for k, v in feeder.stats.items():
+            if isinstance(v, (int, float)):
+                out[f"parca_agent_streaming_{k}"] = round(v, 4) \
+                    if isinstance(v, float) else v
+    if fleet_merger is not None:
+        # Degrade/rejoin accounting; a failed fleet reports that, not
+        # frozen last-good gauges; the staleness clocks expose a peer
+        # hang (age >> interval, or a long round in flight).
+        out["parca_agent_fleet_degraded"] = int(fleet_merger.degraded)
+        for k, v in fleet_merger.stats.items():
+            out[f"parca_agent_fleet_{k}"] = v
+        if fleet_merger.failed is not None:
+            out["parca_agent_fleet_failed"] = 1
+        else:
+            out["parca_agent_fleet_failed"] = 0
+            out.update({f"parca_agent_{k}": v
+                        for k, v in fleet_merger.fleet_stats.items()})
+            now = time.monotonic()
+            if fleet_merger.last_round_at is not None:
+                out["parca_agent_fleet_last_round_age_seconds"] = \
+                    round(now - fleet_merger.last_round_at, 3)
+            if fleet_merger.round_started_at is not None:
+                out["parca_agent_fleet_round_in_flight_seconds"] = \
+                    round(now - fleet_merger.round_started_at, 3)
+    out.update(walk_metrics(source))
+    return out
+
+
 def identity_tracker(args, source, aggregator, quarantine):
     """The generation-stamped process identity and the perf-map cache
     its invalidators share with the symbolizer: (None, None) with
@@ -496,7 +594,7 @@ def _parse_external_labels(text: str) -> dict[str, str]:
 
 def transport(args):
     """The write path of parca_agent_tpu's CLI: (store, batch client,
-    profile writer). The store is a GRPCStoreClient with
+    listener, profile writer). The store is a GRPCStoreClient with
     --remote-store-address (grpc is imported then only), else a
     NoopStoreClient; the batch client spills to --spool-directory; the
     writer is RemoteProfileWriter -> MatchingProfileListener -> the batch
@@ -546,33 +644,68 @@ def transport(args):
     if args.local_store_directory:
         writer = TeeProfileWriter(
             FileProfileWriter(args.local_store_directory), writer)
-    return store, batch, writer
+    return store, batch, listener, writer
 
 
-def labels_manager(args):
+def discovery_manager(args):
+    """The discovery manager of parca_agent_tpu's CLI and its providers
+    (systemd units, containers by cgroup, this node's pods with the
+    container runtime's socket as their pid fallback), one a
+    --enable-*-discovery flag. Returns (manager, providers)."""
+    from parca_agent_tpu_torch.discovery.manager import DiscoveryManager
+
+    discovery = DiscoveryManager()
+    providers = {}
+    if args.enable_systemd_discovery:
+        from parca_agent_tpu_torch.discovery.systemd import SystemdDiscoverer
+
+        units = tuple(filter(None, args.systemd_units.split(",")))
+        providers["systemd"] = SystemdDiscoverer(units=units)
+    if args.enable_cgroup_discovery:
+        from parca_agent_tpu_torch.discovery.cgroup import (
+            CgroupContainerDiscoverer,
+        )
+
+        providers["cgroup"] = CgroupContainerDiscoverer()
+    if args.enable_kubernetes_discovery:
+        from parca_agent_tpu_torch.discovery.cri import CRIResolver
+        from parca_agent_tpu_torch.discovery.kubernetes import PodDiscoverer
+
+        providers["kubernetes"] = PodDiscoverer(
+            node=args.node or None,
+            cri=CRIResolver(
+                socket_path=(args.metadata_container_runtime_socket_path
+                             or None)))
+    discovery.apply_config(providers)
+    return discovery, providers
+
+
+def labels_manager(args, sd_provider):
     """The label pipeline of parca_agent_tpu's CLI (the service discovery
-    provider, fed nothing until discovery is ported, then process,
-    cgroup, system and target labels, and --config-path's relabel rules,
-    yaml imported then only), when a store or a label flag asks for it:
-    --remote-store-address, --node, --metadata-external-labels or
-    --config-path. Otherwise None, and each profile keeps the label set
-    {__name__, pid}, so the local store's file names stay as they were.
-    Returns (manager, config reloader or None)."""
+    provider `sd_provider`, which discovery feeds each window, then
+    process, cgroup, system and target labels, and --config-path's
+    relabel rules, yaml imported then only), when a store, a label flag
+    or discovery asks for it: --remote-store-address, --node,
+    --metadata-external-labels, --config-path or a --enable-*-discovery
+    flag. Otherwise None, and each profile keeps the label set {__name__,
+    pid}, so the local store's file names stay as they were. Returns
+    (manager, config reloader or None)."""
     if not (args.remote_store_address or args.node
-            or args.metadata_external_labels or args.config_path):
+            or args.metadata_external_labels or args.config_path
+            or args.enable_systemd_discovery or args.enable_cgroup_discovery
+            or args.enable_kubernetes_discovery):
         return None, None
     from parca_agent_tpu_torch.config import ConfigReloader, load_config_file
     from parca_agent_tpu_torch.labels.manager import LabelsManager
     from parca_agent_tpu_torch.metadata.providers import (
         CgroupProvider,
         ProcessProvider,
-        ServiceDiscoveryProvider,
         SystemProvider,
         TargetProvider,
     )
 
     manager = LabelsManager(
-        [ServiceDiscoveryProvider(), ProcessProvider(), CgroupProvider(),
+        [sd_provider, ProcessProvider(), CgroupProvider(),
          SystemProvider(),
          TargetProvider(node=args.node,
                         external=_parse_external_labels(
@@ -667,10 +800,12 @@ def _uninstall_runtime() -> None:
     from parca_agent_tpu_torch.runtime import device_telemetry as dtel
     from parca_agent_tpu_torch.runtime import trace as trace_mod
     from parca_agent_tpu_torch.utils import faults
+    from parca_agent_tpu_torch.utils.log import reset_logging
 
     faults.install(None)
     trace_mod.install(None)
     dtel.install(None)
+    reset_logging()
 
 
 def run(argv=None, hard_exit: bool = False) -> int:
@@ -678,7 +813,10 @@ def run(argv=None, hard_exit: bool = False) -> int:
     ended by a device hang through os._exit once its output is flushed:
     interpreter teardown could block on the wedged CUDA stream that the
     abandoned call still holds."""
+    from parca_agent_tpu_torch.utils.log import setup_logging
+
     args = build_parser().parse_args(argv)
+    setup_logging(args.log_level)
     _install_faults(args)
     try:
         code = _run(args)
@@ -715,6 +853,7 @@ def _run(args) -> int:
     from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
     from parca_agent_tpu_torch.aggregator.dict import DictAggregator
     from parca_agent_tpu_torch.aggregator.tpu import TPUAggregator
+    from parca_agent_tpu_torch.buildinfo import collect as collect_buildinfo
     from parca_agent_tpu_torch.capture.formats import (
         WindowSnapshot,
         load_snapshot,
@@ -733,6 +872,10 @@ def _run(args) -> int:
     from parca_agent_tpu_torch.utils.log import get_logger
     from parca_agent_tpu_torch.utils.window_clock import windows_for
 
+    log = get_logger("cli")
+    binfo = collect_buildinfo()
+    log.info("starting parca-agent-tpu-torch", version=binfo.display(),
+             python=binfo.python)
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
@@ -769,10 +912,25 @@ def _run(args) -> int:
             # startup: this host still deserves its profiler. Continue
             # single-node; only the fleet-wide merge is forfeited until a
             # restart rejoins.
-            get_logger("cli").error(
-                "fleet join failed; continuing single-node",
-                coordinator=args.fleet_coordinator, error=repr(e))
+            log.error("fleet join failed; continuing single-node",
+                      coordinator=args.fleet_coordinator, error=repr(e))
             args.fleet_coordinator = ""
+
+    # The environment checks (reference main.go:174-191).
+    from parca_agent_tpu_torch.kconfig import (
+        check_profiling_enabled,
+        is_in_container,
+    )
+
+    ok, missing, advisory = check_profiling_enabled()
+    if not ok:
+        log.warn("kernel config missing required options", missing=missing)
+    if advisory:
+        log.warn("kernel config missing advisory (eBPF capture) options",
+                 missing=advisory)
+    if is_in_container():
+        log.info("running inside a container; host procfs must be mounted "
+                 "for whole-machine profiling")
 
     capture = args.capture
     if capture == "replay":
@@ -799,30 +957,32 @@ def _run(args) -> int:
         if args.streaming_window:
             # Drains teed mid-window bypass the boundary filter: the fed
             # mass would never match the filtered snapshot.
-            get_logger("cli").warn(
+            log.warn(
                 "--debug-process-names filters at the window boundary; "
                 "running one-shot (streaming disabled)")
             args.streaming_window = False
     streaming = args.streaming_window and hasattr(source, "on_drain") \
         and not getattr(source, "capture_stack", False)
     if args.streaming_window and not streaming:
-        get_logger("cli").warn("--streaming-window needs the perf capture "
-                               "source in FP mode; running one-shot",
-                               capture=capture,
-                               dwarf=getattr(source, "capture_stack", False))
+        log.warn("--streaming-window needs the perf capture source in FP "
+                 "mode; running one-shot", capture=capture,
+                 dwarf=getattr(source, "capture_stack", False))
     carry = streaming and not args.no_feed_carry
 
-    # The window flight recorder, device telemetry and the quarantine
-    # registry, installed before any window runs.
-    recorder = trace_mod.FlightRecorder(
-        ring=args.trace_ring, slow_multiple=args.trace_slow_multiple,
-        incident_dir=args.trace_incident_dir,
-        incident_interval_s=args.trace_incident_interval)
-    trace_mod.install(recorder)
-    telemetry = dtel_mod.DeviceTelemetry(
-        period_s=args.profiling_duration, ring=args.telemetry_ring,
-        incident_interval_s=args.trace_incident_interval, device=device)
-    dtel_mod.install(telemetry)
+    # The window flight recorder and device telemetry (unless opted out)
+    # and the quarantine registry, installed before any window runs.
+    recorder = telemetry = None
+    if not args.no_window_trace:
+        recorder = trace_mod.FlightRecorder(
+            ring=args.trace_ring, slow_multiple=args.trace_slow_multiple,
+            incident_dir=args.trace_incident_dir,
+            incident_interval_s=args.trace_incident_interval)
+        trace_mod.install(recorder)
+    if not args.no_device_telemetry:
+        telemetry = dtel_mod.DeviceTelemetry(
+            period_s=args.profiling_duration, ring=args.telemetry_ring,
+            incident_interval_s=args.trace_incident_interval, device=device)
+        dtel_mod.install(telemetry)
     quarantine = None
     if args.quarantine_max_strikes > 0:
         quarantine = QuarantineRegistry(
@@ -856,7 +1016,7 @@ def _run(args) -> int:
         n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
         n_shards = 1 << (n_dev.bit_length() - 1)
         if n_shards < n_dev:
-            get_logger("cli").warn(
+            log.warn(
                 "sharded aggregator uses a power-of-two shard count",
                 devices=n_dev, shards=n_shards)
         aggregator = ShardedDictAggregator(
@@ -868,11 +1028,21 @@ def _run(args) -> int:
         aggregator = CPUAggregator()
     identity, perf_cache = identity_tracker(args, source, aggregator,
                                             quarantine)
-    # The transport, the label pipeline and the debuginfo uploader, as
-    # parca_agent_tpu's CLI builds them.
-    store, batch, writer = transport(args)
-    labels, reloader = labels_manager(args)
+    # The transport, discovery, the label pipeline (discovery's groups
+    # reach it through the service discovery provider, each window) and
+    # the debuginfo uploader, as parca_agent_tpu's CLI builds them.
+    from parca_agent_tpu_torch.metadata.providers import (
+        ServiceDiscoveryProvider,
+    )
+
+    store, batch, listener, writer = transport(args)
+    discovery, providers = discovery_manager(args)
+    sd_provider = ServiceDiscoveryProvider()
+    labels, reloader = labels_manager(args, sd_provider)
     debuginfo = debuginfo_manager(args, store)
+
+    def on_iteration(_window: int) -> None:
+        sd_provider.update(discovery.groups())
     print_mu = threading.Lock()
 
     def emit(rec: dict) -> None:
@@ -942,7 +1112,7 @@ def _run(args) -> int:
                    trace_recorder=recorder,
                    duration_s=args.profiling_duration, identity=identity,
                    labels_manager=labels, debuginfo=debuginfo,
-                   manage_gc=True)
+                   manage_gc=True, on_iteration=on_iteration)
     if args.fast_encode:
         if streaming:
             from parca_agent_tpu_torch.profiler.streaming import (
@@ -1012,6 +1182,9 @@ def _run(args) -> int:
         pipe = loop.pipeline
         sup.add_probe("encode", check=lambda: not pipe.disabled,
                       revive=pipe.revive, critical=False)
+    if providers:
+        sup.add_probe("discovery", check=discovery.alive,
+                      revive=discovery.restart_dead, critical=False)
 
     def runtime_state() -> dict:
         """The runtime state of an incident file and of the summary."""
@@ -1034,14 +1207,44 @@ def _run(args) -> int:
         out["transport"] = transport_metrics(batch, store)
         return out
 
-    recorder.set_context(runtime_state)
+    if recorder is not None:
+        recorder.set_context(runtime_state)
 
     def print_runtime() -> None:
         print(json.dumps({"runtime": runtime_summary(
             recorder, telemetry, runtime_state)}), flush=True)
 
+    # The HTTP surface (web.py), bound here and stopped on every exit.
+    from parca_agent_tpu_torch.web import AgentHTTPServer
+
+    def extra_metrics() -> dict:
+        return http_metrics(source, store, feeder, fleet_merger, binfo)
+
+    host, _, port = args.http_address.rpartition(":")
+    try:
+        http = AgentHTTPServer(
+            host or "127.0.0.1", int(port), profilers=[loop],
+            batch_client=batch, listener=listener, version=binfo.display(),
+            extra_metrics=extra_metrics, capture_info=extra_metrics,
+            supervisor=sup, quarantine=quarantine, device_health=health,
+            statics_store=statics_store, recorder=recorder,
+            identity=identity, device_telemetry=telemetry)
+    except OSError as e:
+        log.error("cannot listen on --http-address",
+                  address=args.http_address, error=str(e))
+        loop.close()
+        return 2
+
     hung = None
+    discovery.run()
+    if providers:
+        # The first scrape labels the first window: seeded before it.
+        discovery.wait_for_update(0, timeout=2.0)
+        sd_provider.update(discovery.groups())
+    http.start()
     sup.start()
+    log.info("parca-agent-tpu-torch listening", address=args.http_address,
+             port=http.port, aggregator=args.aggregator, capture=capture)
     try:
         while not sup.finished("profiler"):
             time.sleep(0.05)
@@ -1051,9 +1254,8 @@ def _run(args) -> int:
             # The card is wedged: flush what the run knows and leave. The
             # abandoned call still holds the device, so nothing below
             # touches it (no close, no pipeline flush).
-            get_logger("cli").error("device hang ended the run",
-                                    error=str(hung))
-            if args.trace_incident_dir:
+            log.error("device hang ended the run", error=str(hung))
+            if args.trace_incident_dir and recorder is not None:
                 recorder.flush_incident("device_hang", "close",
                                         {"error": str(hung)})
             print_runtime()
@@ -1061,22 +1263,30 @@ def _run(args) -> int:
                   flush=True)
             raise _HangExit(1)
     finally:
-        if hung is None:
-            _finish(args, sup, loop, statics_store, source, capture,
-                    feeder, fleet_merger, fleet_stop, print_runtime,
-                    debuginfo)
+        try:
+            if hung is None:
+                _finish(args, sup, loop, statics_store, source, capture,
+                        feeder, fleet_merger, fleet_stop, print_runtime,
+                        debuginfo)
+        finally:
+            discovery.stop()
+            http.stop()
     if loop.crashed is not None:
-        get_logger("cli").error("window loop crashed", exc=loop.crashed)
+        log.error("window loop crashed", exc=loop.crashed)
         return 1
     return 0
 
 
 def runtime_summary(recorder, telemetry, runtime_state) -> dict:
-    """The {"runtime": ...} exit line's body."""
-    return {**runtime_state(),
-            "trace": {"stage_percentiles": recorder.percentiles(),
-                      "stats": dict(recorder.stats)},
-            "device_telemetry": telemetry.snapshot()}
+    """The {"runtime": ...} exit line's body (without the recorder's or
+    the telemetry's section when that one is off)."""
+    out = runtime_state()
+    if recorder is not None:
+        out["trace"] = {"stage_percentiles": recorder.percentiles(),
+                        "stats": dict(recorder.stats)}
+    if telemetry is not None:
+        out["device_telemetry"] = telemetry.snapshot()
+    return out
 
 
 def _finish(args, sup, loop, statics_store, source, capture, feeder,

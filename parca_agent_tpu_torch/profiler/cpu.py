@@ -133,11 +133,19 @@ class DeviceHang(BaseException):
 
 @dataclasses.dataclass
 class ProfilerMetrics:
-    """The counters of parca_agent_tpu's ProfilerMetrics that this loop
-    moves."""
+    """parca_agent_tpu's ProfilerMetrics (the reference's
+    pkg/profiler/cpu/metrics.go counters), moved where that package's
+    loop moves them, and the port's scalar-window count."""
 
     attempts_total: int = 0
+    # Windows whose poll or body raised (the supervisor restarts the
+    # loop; the error was the iteration's last_error).
+    errors_total: int = 0
     profiles_written: int = 0
+    samples_aggregated: int = 0
+    # The last window: poll to the end of its ticks, and its close span.
+    last_attempt_duration_s: float = 0.0
+    last_aggregate_duration_s: float = 0.0
     last_encode_duration_s: float = 0.0
     encode_backpressure_total: int = 0
     # Inline encodes abandoned at --encode-deadline, and the windows
@@ -147,6 +155,9 @@ class ProfilerMetrics:
     scalar_windows_total: int = 0
     # The last window's symbolize span (the path without --fast-encode).
     last_symbolize_duration_s: float = 0.0
+    # Abandoned device calls that returned afterwards, by how they ended.
+    device_abandoned_ok_total: int = 0
+    device_abandoned_err_total: int = 0
 
 
 class DeviceWatchdog:
@@ -158,12 +169,15 @@ class DeviceWatchdog:
     and its outcome goes to the device-health registry when one is
     given. ``call`` returns the call's value, raises its error, or raises
     DeviceHang when it was abandoned; the abandoned call's completion is
-    inspected once, at the next call, and until it returns every call
+    inspected once, at the next call (and counted in ``metrics``, a
+    ProfilerMetrics, when one is given), and until it returns every call
     raises DeviceHang without touching the device state."""
 
-    def __init__(self, timeout_s: float | None = 60.0, health=None):
+    def __init__(self, timeout_s: float | None = 60.0, health=None,
+                 metrics=None):
         self.timeout_s = timeout_s or None
         self._health = health
+        self._metrics = metrics
         self._inflight = None   # threading.Event of an abandoned call
         self._abandoned = None  # its result box
         self.stats = {"calls": 0, "errors": 0, "hangs": 0,
@@ -178,10 +192,14 @@ class DeviceWatchdog:
         box = self._abandoned or {}
         if "err" in box:
             self.stats["abandoned_err"] += 1
+            if self._metrics is not None:
+                self._metrics.device_abandoned_err_total += 1
             _log.warn("abandoned device call completed with an error",
                       error=repr(box["err"]))
         else:
             self.stats["abandoned_ok"] += 1
+            if self._metrics is not None:
+                self._metrics.device_abandoned_ok_total += 1
             _log.info("abandoned device call completed")
         self._inflight = None
         self._abandoned = None
@@ -273,14 +291,24 @@ class WindowLoop:
     what the window allocated (every _GC_REFREEZE windows a full
     collect and a refreeze); run() restores the default collector when
     it returns or raises. ``on_window(record)`` gets each
-    window's record once its profiles are written. With ``identity`` (a
+    window's record once its profiles are written; ``on_iteration(n)``
+    is called after each window's ticks with the number of windows taken
+    (the CLI feeds discovery's groups to the labels there). With
+    ``identity`` (a
     ProcessIdentityTracker) each window's pids are observed before its
     body runs; with ``debuginfo`` (a DebuginfoManager) each window's
     object files are handed to ``ensure_uploaded`` after it; with
     ``labels_manager`` (a LabelsManager) each profile is written under
     its label set, and not at all when relabeling dropped its target."""
 
+    # The loop's name on /metrics and the status page, and the parts the
+    # HTTP server reads (each loop sets those it has).
+    name = "cpu"
+    aggregator = None
     pipeline = None
+    encoder = None
+    feeder = None
+    symbolizer = None
 
     def __init__(self, source: CaptureSource, profile_writer=None,
                  on_window: Callable[[dict], None] | None = None,
@@ -288,16 +316,20 @@ class WindowLoop:
                  device_timeout_s: float | None = 60.0,
                  device_health=None, quarantine=None, trace_recorder=None,
                  duration_s: float = 10.0, identity=None, debuginfo=None,
-                 labels_manager=None, manage_gc: bool = False):
+                 labels_manager=None, manage_gc: bool = False,
+                 on_iteration: Callable[[int], None] | None = None):
         self._source = source
         self._writer = profile_writer
         self._on_window = on_window
+        self._on_iteration = on_iteration
         # Optional tee of each window's snapshot; its failures must not
         # fail the window.
         self._window_sink = window_sink
+        self.metrics = ProfilerMetrics()
         # The device watchdog (None or 0: unbounded) and the registry its
         # outcomes go to.
-        self.watchdog = DeviceWatchdog(device_timeout_s, device_health)
+        self.watchdog = DeviceWatchdog(device_timeout_s, device_health,
+                                       self.metrics)
         self._health = device_health
         # Ingest containment: the loop owns the window clock and ticks
         # the registry once an iteration.
@@ -318,7 +350,14 @@ class WindowLoop:
         self._duration = duration_s
         self._stop = threading.Event()
         self.crashed: BaseException | None = None
-        self.metrics = ProfilerMetrics()
+        # The last window's error (None once a window succeeds), and each
+        # written pid's last write error, for the status page.
+        self.last_error: Exception | None = None
+        self.process_last_errors: dict[int, Exception | None] = {}
+
+    @property
+    def duration_s(self) -> float:
+        return self._duration
 
     def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
         raise NotImplementedError
@@ -335,15 +374,19 @@ class WindowLoop:
         so a dropped target never pays the serialization. The lock covers
         the label lookup and the counter only: the writer runs outside
         it (writers tolerate concurrent write())."""
-        with self._write_mu:
-            labels = self._labels_for(pid)
-        if labels is None:
-            return False
-        if self._writer is not None:
-            self._writer.write(labels, payload())
-        with self._write_mu:
-            self.metrics.profiles_written += 1
-        return True
+        try:
+            with self._write_mu:
+                labels = self._labels_for(pid)
+            if labels is not None:
+                if self._writer is not None:
+                    self._writer.write(labels, payload())
+                with self._write_mu:
+                    self.metrics.profiles_written += 1
+            self.process_last_errors[pid] = None
+            return labels is not None
+        except Exception as e:
+            self.process_last_errors[pid] = e
+            raise
 
     def _before_window(self) -> None:
         """Raise what must stop the loop before the next window."""
@@ -370,6 +413,7 @@ class WindowLoop:
                 self._identity.observe_window(snapshot.pids)
             tr.annotate(time_ns=snapshot.time_ns,
                         samples=int(snapshot.total_samples()))
+            t_start = time.perf_counter()
             self._window(snapshot, self.metrics.attempts_total, tr)
             if self._debuginfo is not None:
                 self._debuginfo.ensure_uploaded(window_objects(snapshot))
@@ -379,8 +423,12 @@ class WindowLoop:
                 except Exception as e:  # noqa: BLE001 - tee must not fail us
                     _log.warn("window sink failed", error=repr(e))
         except BaseException as e:
+            if isinstance(e, Exception):
+                self.last_error = e
+                self.metrics.errors_total += 1
             tr.finish(error=repr(e)[:200])
             raise
+        self.last_error = None
         # Pipelined windows detached their trace (the worker completes it
         # after the ship); everything else finishes here.
         tr.finish()
@@ -389,9 +437,12 @@ class WindowLoop:
             self._quarantine.tick_window()
         if self._health is not None:
             self._health.tick_window()
+        self.metrics.last_attempt_duration_s = time.perf_counter() - t_start
         # Window-SLO accounting: this thread's busy wall for the window.
         dtel.tick_window(time.perf_counter() - t_iter0)
         self._manage_gc(self.metrics.attempts_total)
+        if self._on_iteration is not None:
+            self._on_iteration(self.metrics.attempts_total)
         return True
 
     # A gen-2 collection scans every tracked object, and the dictionary's
@@ -483,12 +534,22 @@ class AggregateLoop(WindowLoop):
         self._aggregator = aggregator
         self._symbolizer = symbolizer
 
+    @property
+    def aggregator(self):
+        return self._aggregator
+
+    @property
+    def symbolizer(self):
+        return self._symbolizer
+
     def _window(self, snapshot: WindowSnapshot, window: int, tr) -> None:
         t0 = time.perf_counter()
-        with tr.span("close"):
+        with tr.span("close") as sp_close:
             profiles = self.watchdog.call(
                 lambda: self._aggregator.aggregate(snapshot))
         t_agg = time.perf_counter() - t0
+        self.metrics.last_aggregate_duration_s = sp_close.duration_s
+        self.metrics.samples_aggregated += snapshot.total_samples()
         # The ladder first (level-1 pids lose local symbols, level-2 pids
         # collapse to scalar counts), then symbolize, which skips
         # laddered pids: a degraded profile is never symbolized again.
@@ -530,8 +591,6 @@ class CPUProfiler(WindowLoop):
     dispatch, settle, hash, coalesce, carry, close).
     """
 
-    name = "cpu"
-
     def __init__(self, source: CaptureSource, aggregator,
                  profile_writer=None, encode_pipeline: bool = True,
                  statics_cache_bytes: int = 256 << 20,
@@ -545,7 +604,8 @@ class CPUProfiler(WindowLoop):
                  quarantine=None, trace_recorder=None,
                  duration_s: float = 10.0, identity=None, debuginfo=None,
                  symbolizer=None, labels_manager=None,
-                 manage_gc: bool = False):
+                 manage_gc: bool = False,
+                 on_iteration: Callable[[int], None] | None = None):
         if symbolizer is not None:
             # Profiles ship unsymbolized on this path (the server
             # symbolizes, as with the reference agent).
@@ -563,7 +623,7 @@ class CPUProfiler(WindowLoop):
                          trace_recorder=trace_recorder,
                          duration_s=duration_s, identity=identity,
                          debuginfo=debuginfo, labels_manager=labels_manager,
-                         manage_gc=manage_gc)
+                         manage_gc=manage_gc, on_iteration=on_iteration)
         self._aggregator = aggregator
         # The inline encode's soft deadline, and its abandoned encode.
         self._encode_deadline = encode_deadline_s or None
@@ -602,12 +662,20 @@ class CPUProfiler(WindowLoop):
         self._handed = collections.deque()
 
     @property
+    def aggregator(self):
+        return self._aggregator
+
+    @property
     def encoder(self) -> WindowEncoder:
         return self._encoder
 
     @property
     def pipeline(self) -> EncodePipeline | None:
         return self._pipeline
+
+    @property
+    def feeder(self):
+        return self._feeder
 
     def _before_window(self) -> None:
         # The error of a pipelined encode that failed since the last
@@ -661,6 +729,8 @@ class CPUProfiler(WindowLoop):
             counts = self.watchdog.call(
                 lambda: self._window_counts(snapshot))
         agg_s = sp_close.duration_s
+        self.metrics.last_aggregate_duration_s = agg_s
+        self.metrics.samples_aggregated += snapshot.total_samples()
         self._record_close_spans(tr)
         record = {"window": window, "rows": len(snapshot),
                   "samples": snapshot.total_samples(),

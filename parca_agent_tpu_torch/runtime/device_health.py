@@ -48,6 +48,8 @@ STATE_PROBING = "probing"
 STATE_HEALTHY = "healthy"
 STATE_FAILED = "failed"
 STATE_WEDGED = "wedged"
+# Every state, in order: the one-hot of /metrics' parca_agent_device_state.
+STATES = (STATE_PROBING, STATE_HEALTHY, STATE_FAILED, STATE_WEDGED)
 
 # One small round trip through a hand kernel: CUDA init, the row hash's
 # build (or its cached library's load), one launch over 8 rows, a fetch.

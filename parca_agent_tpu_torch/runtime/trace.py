@@ -16,9 +16,10 @@ The port's copy of parca_agent_tpu's runtime/trace.py, whole:
     gate and an absolute floor) auto-captures an incident — the
     offending trace and the current supervisor/device/quarantine state —
     into a crash-only tmp+rename JSON file, rate-limited and counted.
-    The original also bundles a self-pprof of the agent; the port has no
-    self-profiler, so an incident carries one only when the caller
-    passes ``self_profile`` (else ``self_profile_error`` says why not).
+    The incident also bundles a self-pprof of the agent
+    (profiler/selfprofile.py, sampled for ``self_profile_s``, or the
+    caller's ``self_profile``; ``self_profile_error`` says why not when
+    that fails).
 
 Tracing is FAIL-OPEN by contract: every recorder entry point swallows
 its own errors (counted in ``stats["record_errors"]``), so a broken or
@@ -299,7 +300,8 @@ class FlightRecorder:
     runtime state for incident files (the CLI wires supervisor/device/
     quarantine snapshots via set_context after those exist);
     ``self_profile`` a zero-arg callable returning gzipped pprof bytes
-    (none by default: the port has no self-profiler yet).
+    (by default profiler/selfprofile.py's ``profile_self`` over
+    ``self_profile_s``).
     ``incident_dir`` empty disables incident files (slow windows are
     still detected and counted)."""
 
@@ -586,8 +588,9 @@ class FlightRecorder:
     def _self_profile_bytes(self) -> bytes:
         if self._self_profile is not None:
             return self._self_profile()
-        raise RuntimeError("no self-profiler in this package "
-                           "(profiler/selfprofile.py is not ported)")
+        from parca_agent_tpu_torch.profiler.selfprofile import profile_self
+
+        return profile_self(self._self_profile_s)
 
     def _prune_incidents(self) -> None:
         """Keep the newest max_incidents files: an agent stuck slow must

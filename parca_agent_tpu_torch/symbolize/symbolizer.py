@@ -35,6 +35,11 @@ class Symbolizer:
         self.last_errors: dict[int, Exception] = {}
         self._fn_ids: dict[int, dict[str, int]] = {}
 
+    @property
+    def perf(self) -> PerfMapCache | None:
+        """The perf-map cache (its stats are on /metrics)."""
+        return self._perf
+
     def symbolize(self, profiles: Iterable[PidProfile]) -> None:
         """Fill functions/loc_lines in place for each profile. Pids on
         the degradation ladder (runtime/quarantine.py) — whether placed

@@ -213,6 +213,7 @@ def test_actor_profiler_crash_is_restarted_by_the_cli(tmp_path):
                        "PYTHONPATH", "").split(os.pathsep) if p]))
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--windows", "2", "--fast-encode",
          "--profiling-duration", "0.1",
          "--fault-inject", "actor.profiler:crash:count=1",

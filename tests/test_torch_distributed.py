@@ -385,6 +385,7 @@ def test_a_world_of_one_merges_its_own_window_and_feeds_hotspots():
 
 def _cli(*flags, windows=2):
     return [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+            "--http-address", "127.0.0.1:0",
             "--windows", str(windows), "--profiling-duration", "0.2",
             *flags]
 

@@ -65,7 +65,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "agent.listener", "agent.spool", "agent.batch",
                 "agent.grpc_client", "agent.debuginfo_client", "labels",
                 "labels.relabel", "labels.manager", "metadata",
-                "metadata.providers", "config"):
+                "metadata.providers", "config", "web", "buildinfo",
+                "kconfig", "discovery", "discovery.manager",
+                "discovery.cgroup", "discovery.systemd", "discovery.cri",
+                "discovery.kubernetes", "profiler.selfprofile",
+                "runtime.admission"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"
@@ -88,6 +92,7 @@ def test_cli_on_cpu_writes_profiles(tmp_path):
     store = tmp_path / "store"
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--windows", "2",
          "--profiling-duration", "0.1",
          "--local-store-directory", str(store)],
@@ -109,6 +114,7 @@ def test_cli_on_cpu_with_the_one_shot_aggregator(tmp_path):
     store = tmp_path / "store"
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--aggregator", "tpu", "--windows", "2",
          "--profiling-duration", "0.1",
          "--local-store-directory", str(store)],
@@ -133,6 +139,7 @@ def test_cli_on_cpu_with_the_bounded_memory_dictionary(tmp_path):
     store = tmp_path / "store"
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--aggregator", "dict+cm",
          "--aggregator-capacity", "4096", "--windows", "3",
          "--profiling-duration", "0.1",
@@ -168,7 +175,8 @@ def _assert_cli_needs_cuda(tmp_path, aggregator: str):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     r = subprocess.run(
-        [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
+        [sys.executable, "-m", "parca_agent_tpu_torch",
+         "--http-address", "127.0.0.1:0", "--capture",
          "synthetic", "--aggregator", aggregator, "--windows", "1",
          "--local-store-directory", str(tmp_path / "store")],
         env=_env(), cwd=tmp_path, capture_output=True, text=True,

@@ -240,7 +240,8 @@ def test_pid_reuse_misattribution_shows_without_the_stamp_and_vanishes():
 
 
 def _cli(capsys, *flags) -> tuple[int, dict, list]:
-    code = cli.run(["--device", "cpu", "--capture", "synthetic",
+    code = cli.run(["--device", "cpu", "--http-address", "127.0.0.1:0",
+                    "--capture", "synthetic",
                     "--aggregator", "dict", "--aggregator-capacity",
                     "1048576", "--windows", "2", "--profiling-duration",
                     "0.05", *flags])

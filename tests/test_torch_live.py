@@ -426,6 +426,7 @@ def test_cli_streams_perf_windows(tmp_path):
     try:
         r = subprocess.run(
             [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+             "--http-address", "127.0.0.1:0",
              "--capture", "perf", "--aggregator", "dict", "--fast-encode",
              "--streaming-window", "--windows", "3",
              "--profiling-duration", "2", "--local-store-directory",

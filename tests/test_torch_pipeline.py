@@ -356,6 +356,7 @@ def _cli(tmp_path, *flags, device=("--device", "cpu")):
     store = tmp_path / "store"
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", *device,
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--windows", "2",
          "--profiling-duration", "0.1",
          "--local-store-directory", str(store), *flags],

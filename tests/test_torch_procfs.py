@@ -399,6 +399,7 @@ def test_cli_procfs_writes_profiles_with_mass(tmp_path):
     try:
         r = subprocess.run(
             [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+             "--http-address", "127.0.0.1:0",
              "--capture", "procfs", "--aggregator", "dict", "--fast-encode",
              "--windows", "2", "--profiling-duration", "1",
              "--local-store-directory", str(store)],
@@ -441,6 +442,7 @@ def test_cli_perf_degrades_to_procfs_only_when_refused(tmp_path, err):
     stops the run."""
     r = subprocess.run(
         [sys.executable, "-c", _REFUSE, str(err), "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "perf", "--aggregator", "dict", "--fast-encode",
          "--windows", "1", "--profiling-duration", "0.5",
          "--local-store-directory", str(tmp_path / "store")],

@@ -103,6 +103,7 @@ def store():
 def _run_cli(tmp_path, *flags, timeout=300):
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--windows", str(WINDOWS), *flags],
         env=_env(), cwd=tmp_path, capture_output=True, text=True,
         timeout=timeout)
@@ -229,6 +230,7 @@ def test_cli_runs_without_grpc_and_yaml(tmp_path):
         "sys.meta_path.insert(0, Blocker())\n"
         "from parca_agent_tpu_torch import cli\n"
         "rc = cli.run(['--device', 'cpu', '--windows', '2',\n"
+        "              '--http-address', '127.0.0.1:0',\n"
         "              '--profiling-duration', '0.1', '--fast-encode',\n"
         "              '--node', 'n1', '--local-store-directory', 'store'])\n"
         "assert not any(m.split('.')[0] in ('grpc', 'yaml')\n"

@@ -202,7 +202,15 @@ def test_trace_record_faults_are_swallowed_and_counted_alike(spec):
     assert counts[0] == counts[1] and counts[0]["record_errors"] > 0
 
 
-def test_incident_without_a_self_profiler_says_why(tmp_path):
+def test_incident_without_a_self_profiler_says_why(tmp_path, monkeypatch):
+    """When the self-profiler fails, the incident says why (the default
+    self-profile is profiler/selfprofile.py's profile_self)."""
+    from parca_agent_tpu_torch.profiler import selfprofile
+
+    def no_sampler(duration_s):
+        raise RuntimeError("no sampler here")
+
+    monkeypatch.setattr(selfprofile, "profile_self", no_sampler)
     rec = trace.FlightRecorder(incident_dir=str(tmp_path))
     tr = rec.begin()
     tr.add_span("close", 0.5)
@@ -211,8 +219,31 @@ def test_incident_without_a_self_profiler_says_why(tmp_path):
     body = json.loads(Path(path).read_text())
     assert body["kind"] == "device_hang" and body["detail"] == {"error": "x"}
     assert body["trace"]["seq"] == 1
-    assert "not ported" in body["self_profile_error"]
+    assert "no sampler here" in body["self_profile_error"]
+    assert "self_profile_pprof_gz_b64" not in body
     assert trace.FlightRecorder().flush_incident("k", "s", {}) is None
+
+
+def test_incident_carries_the_default_self_profile(tmp_path):
+    """Without a self_profile callable the recorder samples the process
+    itself for self_profile_s (profile_self), as the original does."""
+    import base64
+    import gzip
+
+    from parca_agent_tpu_torch.pprof.builder import parse_pprof
+
+    rec = trace.FlightRecorder(incident_dir=str(tmp_path),
+                               self_profile_s=0.05)
+    tr = rec.begin()
+    tr.add_span("close", 0.5)
+    tr.complete()
+    body = json.loads(Path(rec.flush_incident("device_hang", "close",
+                                              {})).read_text())
+    assert "self_profile_error" not in body
+    prof = parse_pprof(gzip.decompress(
+        base64.b64decode(body["self_profile_pprof_gz_b64"])))
+    assert prof.sample_types == [("samples", "count"),
+                                 ("cpu", "nanoseconds")]
 
 
 def test_module_observe_feeds_the_installed_recorder():
@@ -697,6 +728,7 @@ def test_cli_dispatch_hang_exits_bounded_with_the_health_snapshot(
     t0 = time.monotonic()
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--windows", "3",
          "--profiling-duration", "0.1", "--device-timeout", "2",
          "--fault-inject", "device.dispatch:hang:after=0",
@@ -721,6 +753,7 @@ def test_cli_dispatch_hang_exits_bounded_with_the_health_snapshot(
 def test_cli_runtime_summary_line(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--windows", "2", "--fast-encode",
          "--profiling-duration", "0.1",
          "--telemetry-ring", "32", "--trace-ring", "4",

@@ -619,6 +619,7 @@ def test_cli_sharded_on_cpu(tmp_path):
     store = tmp_path / "store"
     r = subprocess.run(
         [sys.executable, "-m", "parca_agent_tpu_torch", "--device", "cpu",
+         "--http-address", "127.0.0.1:0",
          "--capture", "synthetic", "--aggregator", "sharded", "--fast-encode",
          "--windows", "2", "--profiling-duration", "0.5",
          "--local-store-directory", str(store)],

@@ -542,7 +542,8 @@ def test_cli_second_run_adopts_the_snapshot(tmp_path, capsys):
     runs = []
     for k in range(2):
         store = tmp_path / f"profiles{k}"
-        assert cli.run(["--device", "cpu", "--fast-encode", "--windows", "1",
+        assert cli.run(["--device", "cpu", "--http-address", "127.0.0.1:0",
+                        "--fast-encode", "--windows", "1",
                         "--profiling-duration", "0.01",
                         "--statics-snapshot-path", snap_path,
                         "--statics-snapshot-interval", "1",
@@ -577,7 +578,8 @@ def test_cli_replay_adopts_at_the_windows_own_period(tmp_path, capsys):
     snap_path = str(tmp_path / "statics.snap")
     adopts = []
     for k in range(2):
-        assert cli.run(["--device", "cpu", "--fast-encode", "--capture",
+        assert cli.run(["--device", "cpu", "--http-address", "127.0.0.1:0",
+                        "--fast-encode", "--capture",
                         "replay", "--replay", window,
                         "--profiling-duration", "0.01",
                         "--statics-snapshot-path", snap_path,

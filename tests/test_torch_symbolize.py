@@ -400,7 +400,8 @@ def test_cli_without_fast_encode_names_kernel_frames(tmp_path, monkeypatch,
 
     monkeypatch.setattr(cli, "SyntheticSource", lambda n: Source())
     store = tmp_path / "store"
-    code = cli.run(["--device", "cpu", "--capture", "synthetic",
+    code = cli.run(["--device", "cpu", "--http-address", "127.0.0.1:0",
+                    "--capture", "synthetic",
                     "--aggregator", "cpu", "--windows", "2",
                     "--profiling-duration", "0.05",
                     "--local-store-directory", str(store)])

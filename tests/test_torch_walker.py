@@ -445,7 +445,8 @@ def test_cli_dwarf_mode_walks_and_runs_one_shot(capsys, caplog, fast):
                             stdout=subprocess.DEVNULL)
     try:
         flags = ["--fast-encode", "--streaming-window"] if fast else []
-        code = cli.run(["--device", "cpu", "--capture", "perf",
+        code = cli.run(["--device", "cpu", "--http-address", "127.0.0.1:0",
+                        "--capture", "perf",
                         "--dwarf-unwinding", "--dwarf-unwinding-comm-regex",
                         "fixture", "--dwarf-trust-fp-frames", "0",
                         "--aggregator", "dict", "--aggregator-capacity",
@@ -467,7 +468,7 @@ def test_cli_dwarf_mode_walks_and_runs_one_shot(capsys, caplog, fast):
     assert len(wins) == 2 and not any(w.get("streamed") for w in wins)
     assert all(("symbolize_ms" in w) != fast for w in wins)
     if fast:
-        assert "running one-shot" in caplog.text
+        assert "running one-shot" in out.err
     walks = next(ln["runtime"] for ln in lines if "runtime" in ln).get(
         "dwarf_walk")
     if walks is None:
