@@ -45,8 +45,21 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                window, then a steady window fed as 10 drains and closed,
                every window's pprof for every pid through one
                WindowEncoder (--fast-encode; the cold window pays the
-               statics build), the last window also through the encode
-               pipeline (its bytes equal to the inline encode's). Totals
+               statics build); the last steady window again through an
+               EncodePipeline (its bytes equal to the inline encode's),
+               then once more through an EncodePipeline carrying a
+               HotspotStore, a RegressionSentinel and a SinkRegistry
+               (pprof, AutoFDO and alerts into a temporary directory,
+               series) through its rollup, rollup_capture and
+               sink_capture hooks, as the CLI attaches them: every pid's
+               shipped bytes equal to the same window's without the
+               sinks; the store's top 50 the oracle's top 50 of
+               the window's exact (h1, h2) -> count, each count exact
+               (one window: its candidates are its heaviest stacks, cut
+               or not), and with a pid selector each exact count between
+               the answer's count and its count-min estimate (or the
+               oracle's where the cut is 0); the fold, query, sentinel,
+               AutoFDO and series costs printed. Totals
                and per-pid masses must equal the numpy CPUAggregator's on
                the same snapshot, and every 64th pid's sorted stack counts;
                every live pid has one blob, every 64th
@@ -67,7 +80,9 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                host cost of its wrapper and the table's probe-step
                histogram; the CLI entry, and the CLI with --fast-encode
                (dict and dict+cm, through the encode pipeline) against the
-               CLI without it, window by window; and each dedup arm's
+               CLI without it, window by window (these four CLIs, like
+               phase 11's hang CLI, start before the window's set-up and
+               run beside it); and each dedup arm's
                device time,
                and the row hash against its plain version, timed, on two
                windows below the aggregator's location warning threshold.
@@ -136,8 +151,21 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                four to shard 0 at 1/8 of the window (capacity 2^18): shard
                0's sub-table fills, the sketch absorbs the rest, exact +
                absorbed mass equals the window's and every exact key its
-               rows' count. The CLI with --aggregator sharded
-               --fast-encode (one shard on one card), 2 windows.
+               rows' count. Admission on the sharded path, a path of its
+               own: the skew drain's 2^17 rows and 6,250 pids in 64 pod
+               cgroups of Zipf-skewed mass on a seeded fake filesystem,
+               an AdmissionController's shard_of installed with
+               set_shard_router on a fresh ShardedDictAggregator
+               (capacity 2^21), 10 drains and a close (B7-feed and
+               B7-close launched): every row and key in its tenant's
+               home shard, the close's and every pid's mass the
+               oracle's; at a quota of the median tenant's mass exactly
+               the tenants over it on the ladder, and an overloaded
+               window shedding the heaviest tenants first; route_h2's ms
+               a drain and the rows a shard; route_h2 with admission's
+               router on the bench window's 10 drains (50,000 pids), the
+               resolver's cache cold and warm. The CLI with --aggregator
+               sharded --fast-encode (one shard on one card), 2 windows.
   9. fleet     the fleet merge (parallel/, BASELINE config #5) on the
                card: 8 nodes, each the bench window's 2^20 rows (phase
                4's hashes, counts 1-9 a node) plus 65,536 node-private
@@ -155,7 +183,10 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                the cluster kernel's 2^20, so its sketch merge takes B6's
                global kernel; the _dist merges against the one-process
                merges of that node, two FleetWindowMerger rounds against
-               numpy). B6 (the cluster kernel at the stream, in turns
+               numpy, a HotspotStore attached to them: each round's
+               fleet_fold gets B8's groups of node 0's rows, counted as
+               a path of their own, and the fleet-scope answer's top 50
+               is their exact top 50). B6 (the cluster kernel at the stream, in turns
                with the global one; the global kernel at NCCL's node) and
                B8 against their plain versions, timed (B8 from the
                unsorted rows), with their bounds and library yardsticks;
@@ -198,7 +229,8 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                the D2H bytes to those each close pack's plan makes (its
                lanes, block ids, sideband and counters), the identity
                naming this card. Then the CLI with an injected
-               device.dispatch hang: it must exit non-zero within
+               device.dispatch hang (started before the window's set-up,
+               collected here): it must exit non-zero within
                --device-timeout plus a margin, the health snapshot on its
                last line (with the bring-up probe it ran first, a child
                that launches the row hash kernel, timed and passed), the
@@ -272,12 +304,18 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                --aggregator dict --fast-encode,
                replaying 3 windows of every 8th row of phase 4's window
                (2^17 rows of the bench's 50,000 pids; windows 2 and 3 the
-               first's stacks with its counts times 2 and 3), with
+               first's, but for 16 user stacks whose leaf is in one
+               binary, 5,000 and 10,000 samples heavier), with
                --enable-cgroup-discovery,
-               --enable-systemd-discovery, --log-level debug and
-               --http-address on a port picked here. Before the last
-               window the capture source waits until every window taken
-               has printed its line, then scrapes: /metrics (the strict
+               --enable-systemd-discovery, --log-level debug,
+               --hotspots, --regression (its interval the window's 1 s,
+               a baseline of 1 rollup), --sink
+               pprof,autofdo,series,alerts, tenant quotas and
+               --http-address on a port picked here. Before each window
+               the capture source waits until the encode worker has
+               folded the windows taken (so every window is folded);
+               before the last it waits until every window taken has
+               printed its line, then scrapes: /metrics (the strict
                parser of tests/test_metrics_format.py; the loop's attempts
                and profiles written equal to those lines'; the stage
                histogram present), /, /healthy, /healthz (the discovery
@@ -286,10 +324,17 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                /debug/windows, /debug/trace/<seq> (and 404 for a seq not
                in the ring), /debug/device, /debug/pprof/cmdline,
                profile?seconds=1 (a pprof naming the window loop's thread)
-               and heap?seconds=1, /hotspots and /diff (503). Prints the
-               scrape ms, what discovery found on this host (groups by
-               provider, failed updates) and the phase's seconds; K1 and
-               the close kernel must launch.
+               and heap?seconds=1, /hotspots and /diff (200; /metrics
+               carries the hotspot, regression, admission and sink
+               families). Once the source is exhausted and the last
+               window folded: /diff and the alerts file hold regressed or
+               new_hotspot verdicts on the shifted stacks, every verdict
+               of that one build; /hotspots' top 50 holds to the windows'
+               summed exact counts; the AutoFDO directory holds
+               profdata. Prints the scrape ms, the folds' seconds, what
+               discovery found on this host (groups by provider, failed
+               updates) and the phase's seconds; K1 and the close kernel
+               must launch.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -1498,7 +1543,8 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
                     ref=None, vec_rec=None):
     """The dict main path on `dev` over `snap`, every window encoded by
     one WindowEncoder (--fast-encode), the last one also through the
-    encode pipeline; returns its kernels' launch counts, the
+    encode pipeline, then through one carrying the analytics
+    (main_path_analytics); returns its kernels' launch counts, the
     dictionary's exported state after its last window, the window's
     hashes and the last window's [(pid, pprof bytes)] as the pipeline
     shipped them (phase 13 ships them to a store). Raises on any disagreement with the numpy oracle or with
@@ -1629,6 +1675,9 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
          ship_ms=pipe.stats["last_ship_s"] * 1e3, pids=len(shipped),
          bytes=sum(len(b) for _, b in shipped),
          encoder_stats=dict(enc.stats))
+    # And once more through a pipeline carrying the analytics.
+    main_path_analytics(agg, enc, counts, shipped, snap.time_ns + steady,
+                        *args[1:], want_mass)
     del blobs
     if min(launches_per_feed) < 1:
         raise AssertionError(f"a feed launched no probe kernel: "
@@ -1649,6 +1698,189 @@ def phase_main_path(dev, snap, want, steady: int = STEADY_WINDOWS,
              drain_packed(snap, hashes, int(bounds[0]), int(bounds[1])),
              "main_path_drain_k1", ref)
     return launches, agg.export_state(), hashes, shipped
+
+
+HOTSPOT_K = 50
+
+
+def hotspot_oracle(agg, counts):
+    """The window's exact (h1 << 32 | h2) -> count: the ids' counts
+    summed by their 64-bit content hash."""
+    import numpy as np
+
+    ids = np.flatnonzero(counts)
+    h1, h2 = agg.id_hashes(int(ids.max()) + 1)
+    key = (h1[ids].astype(np.uint64) << np.uint64(32)) \
+        | h2[ids].astype(np.uint64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    mass = np.bincount(inv, weights=counts[ids].astype(np.float64))
+    return uniq, mass.astype(np.int64)
+
+
+def check_hotspots(label: str, answer: dict, uniq, mass,
+                   exact_top: bool = False) -> dict:
+    """Hold a /hotspots answer to the exact counts `uniq` -> `mass`
+    (docs/hotspots.md's contract): with cut 0 its top K is the oracle's
+    top K, each count exact; otherwise each stack's exact count lies
+    between the answer's count and its count-min estimate. With
+    `exact_top` (an answer from one summary of distinct stacks, whose
+    candidates are the stream's heaviest) its top K is the oracle's
+    whatever the cut."""
+    import numpy as np
+
+    entries = answer["entries"]
+    keys = np.array([int(e["stack"], 16) for e in entries], np.uint64)
+    pos = np.searchsorted(uniq, keys)
+    want_n = min(HOTSPOT_K, len(uniq))
+    complete = exact_top or answer["cut"] == 0
+    if len(entries) > want_n or (complete and len(entries) < want_n) \
+            or (pos >= len(uniq)).any() or (uniq[pos] != keys).any():
+        raise AssertionError(f"{label}: {len(entries)} entries, or a stack "
+                             "the window does not hold")
+    exact = mass[pos]
+    got = np.array([e["count"] for e in entries], np.int64)
+    est = np.array([e["estimate"] for e in entries], np.int64)
+    if complete:
+        top = np.sort(mass)[::-1][:HOTSPOT_K]
+        if not (np.array_equal(got, exact) and np.array_equal(got, top)):
+            raise AssertionError(f"{label}: the top {HOTSPOT_K} differs "
+                                 "from the oracle's")
+    elif ((got > exact) | (exact > est)).any():
+        raise AssertionError(f"{label}: an exact count outside [count, "
+                             "estimate]")
+    return {"cut": answer["cut"], "exact": answer["exact"],
+            "top_count": int(got[0]) if len(got) else 0,
+            "oracle_top_count": int(mass.max()),
+            "max_estimate_over": int((est - exact).max()) if len(got) else 0}
+
+
+def main_path_analytics(agg, enc, counts, blobs, time_ns: int,
+                        window_ns: int, period_ns: int, want_mass):
+    """Phase 4's analytics (module docs): the last steady window's
+    `counts` through an EncodePipeline carrying a HotspotStore, a
+    RegressionSentinel and a SinkRegistry (pprof, AutoFDO and alerts
+    into a temporary directory, series), attached through the
+    pipeline's rollup, rollup_capture and sink_capture hooks as the CLI
+    attaches them. Every pid's shipped bytes must equal `blobs`, the
+    same window's bytes without the sinks; the store's top K is held to
+    the window's exact counts. The analytics launch no kernel: the
+    window's K1 and B2 launches are the dict path's."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.profiler.encode_pipeline import EncodePipeline
+    from parca_agent_tpu_torch.runtime.hotspots import (
+        HotspotStore,
+        RegistryView,
+    )
+    from parca_agent_tpu_torch.runtime.regression import RegressionSentinel
+    from parca_agent_tpu_torch.sinks import (
+        AlertsSink,
+        AutoFDOSink,
+        PprofSink,
+        SeriesSink,
+        SinkRegistry,
+    )
+
+    args = (time_ns, window_ns, period_ns)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-analytics-")
+    store = HotspotStore()
+    sentinel = RegressionSentinel()
+    afdo = AutoFDOSink(os.path.join(tmp, "afdo"), flush_windows=1)
+    series = SeriesSink()
+    registry = SinkRegistry([PprofSink(), afdo, series,
+                             AlertsSink(os.path.join(tmp, "alerts.jsonl"),
+                                        sentinel=sentinel)])
+    sentinel.bind_staleness(afdo.mark_stale)
+    shipped = []
+    registry.bind(ship=lambda out: shipped.extend(
+        (pid, bytes(b)) for pid, b in out))
+
+    def capture(prep):
+        return RegistryView(agg)
+
+    def rollup(prep, ctx):
+        try:
+            store.fold_from_aggregator(ctx, prep.idx, prep.vals,
+                                       prep.time_ns, prep.duration_ns)
+        finally:
+            sentinel.fold_from_prepared(ctx, prep)
+
+    pipe = EncodePipeline(enc, ship=registry.emit_window, rollup=rollup,
+                          rollup_capture=capture, sink_capture=capture)
+    t0 = time.perf_counter()
+    if pipe.submit(counts, *args) is None:
+        raise AssertionError("the encode pipeline refused the window")
+    handoff_ms = (time.perf_counter() - t0) * 1e3
+    if not pipe.close(600):
+        raise AssertionError("the encode pipeline did not flush")
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    registry.close()
+    bad = {k: pipe.stats[k] for k in (
+        "backpressure_fallbacks", "encoder_exceptions", "windows_lost",
+        "ship_errors", "rollup_errors", "sink_capture_errors")
+        if pipe.stats[k]}
+    if bad or pipe.stats["windows_pipelined"] != 1 \
+            or pipe.stats["windows_rolled"] != 1:
+        raise AssertionError(f"encode pipeline stats: {pipe.stats}")
+    if shipped != blobs:
+        raise AssertionError("the pipeline's bytes with the sinks != the "
+                             "same window's without them")
+
+    uniq, mass = hotspot_oracle(agg, counts)
+    heavy = max(want_mass, key=want_mass.get)
+    t0 = time.perf_counter()
+    answer = store.query(k=HOTSPOT_K)
+    query_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    by_pid = store.query(k=HOTSPOT_K, selector={"pid": str(heavy)})
+    query_pid_ms = (time.perf_counter() - t0) * 1e3
+    # One window's summary: its candidates are the window's heaviest.
+    checked = check_hotspots("analytics hotspots", answer, uniq, mass,
+                             exact_top=True)
+    mine = agg._id_pid[:len(counts)] == heavy
+    checked_pid = check_hotspots(
+        "analytics hotspots pid", by_pid,
+        *hotspot_oracle(agg, np.where(mine, counts, 0)))
+    sm = sentinel.metrics()
+    if store.stats["windows_folded"] != 1 or store.stats["fold_errors"] \
+            or sm["windows_folded"] != 1 or sm["fold_errors"]:
+        raise AssertionError(f"analytics folds: {store.stats}, {sm}")
+    files = sorted(os.listdir(os.path.join(tmp, "afdo")))
+    afdo_bytes = sum(os.path.getsize(os.path.join(tmp, "afdo", f))
+                     for f in files)
+    if not any(f.endswith(".afdo.txt") for f in files):
+        raise AssertionError(f"no AutoFDO profdata: {files}")
+    sinks = registry.metrics()
+    if any(st.get("errors") for k, st in sinks.items() if k != "_registry"):
+        raise AssertionError(f"sink errors: {sinks}")
+    row = {"handoff_ms": handoff_ms, "submit_to_ship_ms": pipe_ms,
+           "encode_ms": pipe.stats["last_encode_s"] * 1e3,
+           "ship_ms": pipe.stats["last_ship_s"] * 1e3,
+           "rollup_ms": pipe.stats["last_rollup_s"] * 1e3,
+           "pids": len(shipped), "bytes": sum(len(b) for _, b in shipped),
+           "hotspots": {"fold_ms": store.stats["last_fold_s"] * 1e3,
+                        "query_ms": query_ms, "query_pid_ms": query_pid_ms,
+                        "rows": int(np.count_nonzero(counts)),
+                        "stacks": int(len(uniq)),
+                        "top": checked, "pid": heavy, "top_pid": checked_pid},
+           "regression": {"fold_ms": sm["last_fold_s"] * 1e3,
+                          "groups": sm["groups"],
+                          "rows_dropped": sm["rows_dropped"],
+                          "windows_folded": sm["windows_folded"]},
+           "autofdo": {"files": len(files), "bytes": afdo_bytes,
+                       "samples": sinks["autofdo"]["samples"],
+                       "emit_ms": sinks["autofdo"]["last_emit_s"] * 1e3},
+           "series": {"records": len(series.series()),
+                      "emit_ms": sinks["series"]["last_emit_s"] * 1e3},
+           "sink_emit_ms": {k: st["last_emit_s"] * 1e3
+                            for k, st in sinks.items() if k != "_registry"}}
+    emit("main_path_analytics", **row)
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def drain_packed(snap, hashes, lo: int, hi: int):
@@ -1927,7 +2159,7 @@ def dedup_arms(dev, spec, rh_impls: dict, reps: int = None) -> dict:
     return row
 
 
-def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
+def phase_one_shot(dev, snap, want, fast_encode, rh_refs=None) -> dict:
     """The one-shot aggregator (--aggregator tpu) on `dev` over the same
     window: (b) aggregate() with the hash arm once, checked against the
     oracle with its kernel launches counted; (c) the sort arm's outputs
@@ -1935,7 +2167,8 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     plain versions at the window's shapes, timed (the row hash in turns
     with the reference builds `rh_refs`, label -> fn, at this window and
     at (e)'s two), with the row hash stage's host cost; (d) the CLI
-    entry; (e) the dedup arms on two windows below the location warning
+    entry, and fast_encode_cli's runs (`fast_encode`, started by
+    start_background); (e) the dedup arms on two windows below the location warning
     threshold. Returns the kernel rows of row_hash and loc_table."""
     import tempfile
 
@@ -2116,7 +2349,7 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
             raise AssertionError("CLI --aggregator tpu wrote an empty "
                                  "profile")
     emit("one_shot_cli", rc=rc, profiles_written=len(files))
-    fast_encode_cli()
+    fast_encode_cli(fast_encode)
 
     # (e) The two dedup arms below LOC_WARN_THRESHOLD, where the one-shot
     # path is meant to run: the CLI's synthetic window, and the bench's
@@ -2154,38 +2387,69 @@ def phase_one_shot(dev, snap, want, rh_refs=None) -> dict:
     }
 
 
-def start_cli(store: Path, *flags, period: float = 0.1):
-    """`python -m parca_agent_tpu_torch` on the card over the CLI's
-    synthetic windows, one every `period` seconds, into `store`, started
-    (finish_cli waits for it)."""
+class Collected:
+    """A started process, drained from its start by a thread (a full pipe
+    never stalls it) and killed past `timeout_s` or at this script's
+    exit; result() waits for (returncode, stdout, stderr, wall seconds
+    from its start to its exit)."""
+
+    def __init__(self, argv: list, env: dict, timeout_s: float):
+        import threading
+
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=HERE, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        proc = self.proc
+        atexit.register(lambda: proc.poll() is None and proc.kill())
+        self._out = None
+        self._thread = threading.Thread(target=self._drain,
+                                        args=(timeout_s,), daemon=True)
+        self._thread.start()
+
+    def _drain(self, timeout_s: float) -> None:
+        try:
+            out, err = self.proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, err = self.proc.communicate()
+        self._out = (self.proc.returncode, out, err,
+                     time.perf_counter() - self._t0)
+
+    def result(self) -> tuple:
+        self._thread.join()
+        return self._out
+
+
+def cli_env() -> dict:
+    """The environment of a CLI child: this checkout first on its path."""
     import os
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
-         "synthetic", "--windows", str(CLI_WINDOWS), "--profiling-duration",
-         str(period), "--local-store-directory", str(store), *NO_PROBE,
-         *HTTP_ANY, *flags],
-        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
-    return proc, flags
+    return env
+
+
+def start_cli(store: Path, *flags, period: float = 0.1):
+    """`python -m parca_agent_tpu_torch` on the card over the CLI's
+    synthetic windows, one every `period` seconds, into `store`, started
+    (finish_cli waits for it; killed past 600 s)."""
+    argv = [sys.executable, "-m", "parca_agent_tpu_torch", "--capture",
+            "synthetic", "--windows", str(CLI_WINDOWS), "--profiling-duration",
+            str(period), "--local-store-directory", str(store), *NO_PROBE,
+            *HTTP_ANY, *flags]
+    return Collected(argv, cli_env(), 600), flags
 
 
 def finish_cli(started) -> list:
-    """The started CLI's JSON lines by window, once it exits (killed past
-    600 s); raises unless it exits 0 with one line a window."""
-    proc, flags = started
-    try:
-        out, err = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI {' '.join(flags)}: rc {proc.returncode}: "
+    """The started CLI's JSON lines by window, once it exits; raises
+    unless it exits 0 with one line a window."""
+    run, flags = started
+    rc, out, err, _ = run.result()
+    if rc != 0:
+        raise AssertionError(f"CLI {' '.join(flags)}: rc {rc}: "
                              f"{err[-2000:]}")
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     runtime = [ln["runtime"] for ln in lines if "runtime" in ln]
@@ -2208,37 +2472,49 @@ def cli_runtime_clean(label: str, runtime: list) -> None:
 
 
 
-def fast_encode_cli() -> None:
+FAST_ENCODE_ARMS = (("dict", ("--aggregator", "dict")),
+                    ("dict+cm", ("--aggregator", "dict+cm",
+                                 "--aggregator-capacity", str(1 << 15))))
+
+
+def start_fast_encode_cli():
+    """fast_encode_cli's four runs, started (start_background)."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-fast-encode-"))
+    # A window a second: the worker ships each window before the next
+    # closes.
+    return tmp, {name: (start_cli(tmp / name / "fast", *flags,
+                                  "--fast-encode", period=1.0),
+                        start_cli(tmp / name / "scalar", *flags))
+                 for name, flags in FAST_ENCODE_ARMS}
+
+
+def fast_encode_cli(started) -> None:
     """The CLI with --fast-encode (through the encode pipeline) on the
     card, --aggregator dict and dict+cm (a capacity the windows overflow):
     every stored profile parses, the store holds each window's mass, and
     each window's mass and profile count equal the same CLI's without
-    --fast-encode. The four runs overlap."""
-    import tempfile
+    --fast-encode. The four runs overlap (start_fast_encode_cli)."""
+    import shutil
 
     from parca_agent_tpu_torch.pprof.builder import parse_pprof
 
     out = {}
-    arms = (("dict", ("--aggregator", "dict")),
-            ("dict+cm", ("--aggregator", "dict+cm", "--aggregator-capacity",
-                         str(1 << 15))))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        # A window a second: the worker ships each window before the next
-        # closes.
-        started = {name: (start_cli(Path(tmp) / name / "fast", *flags,
-                                    "--fast-encode", period=1.0),
-                          start_cli(Path(tmp) / name / "scalar", *flags))
-                   for name, flags in arms}
+    tmp, started = started
+    try:
         runs = {name: [finish_cli(x) for x in pair]
                 for name, pair in started.items()}
-        runs_s = time.perf_counter() - t0
+        runs_s = max(run.result()[3] for pair in started.values()
+                     for run, _ in pair)
         stores = {}
-        for name, _ in arms:
-            files = sorted((Path(tmp) / name / "fast").glob("*.pb.gz"))
+        for name, _ in FAST_ENCODE_ARMS:
+            files = sorted((tmp / name / "fast").glob("*.pb.gz"))
             stores[name] = (len(files), sum(
                 v[0] for f in files
                 for _, v, _ in parse_pprof(f.read_bytes()).samples))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for name, (fast, scalar) in runs.items():
         n_files, mass = stores[name]
         if "pipeline" not in {ln["encode_path"] for ln in fast}:
@@ -3337,6 +3613,169 @@ def sharded_skew(dev) -> dict:
     return row
 
 
+ADMISSION_PODS = 64
+
+
+def admission_fs(pids, seed: int = 8):
+    """A seeded fake filesystem putting `pids` in ADMISSION_PODS pod
+    cgroups, the pods drawn with Zipf-skewed weights (so are their
+    masses)."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.utils.vfs import FakeFS
+
+    upids = np.unique(np.asarray(pids, np.int64))
+    weight = 1.0 / np.arange(1, ADMISSION_PODS + 1) ** 1.1
+    pod = np.random.default_rng(seed).choice(
+        ADMISSION_PODS, size=len(upids), p=weight / weight.sum())
+    return FakeFS({
+        f"/proc/{p}/cgroup":
+        b"0::/kubepods/burstable/pod%08x-0000-1111-2222-%012d/c\n"
+        % (0xC0DE0000 + k, k)
+        for p, k in zip(upids.tolist(), pod.tolist())})
+
+
+def sharded_admission(dev, snap, want) -> tuple:
+    """Admission on the sharded path (module docs): the skew drain's pids
+    (2^17 rows, 6,250 pids) in 64 pod cgroups of Zipf-skewed mass, an
+    AdmissionController's shard_of installed with set_shard_router on a
+    fresh ShardedDictAggregator (capacity 2^21, 8 shards), fed in DRAINS
+    drains and closed, its launches counted from 0. Every row must sit in
+    its tenant's home shard, the close's mass and every pid's be the
+    oracle's; at a quota of the median tenant's mass, the tenants over
+    it (and only they) go on the ladder, and an overloaded window sheds
+    the heaviest tenants first. Prints route_h2's ms a drain and the rows
+    a shard. Returns the launches."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator import close, sharded
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.runtime.admission import (
+        AdmissionController,
+        OverloadPolicy,
+        TenantResolver,
+    )
+    from parca_agent_tpu_torch.runtime.quarantine import LEVEL_FULL
+
+    resolver = TenantResolver(fs=admission_fs(snap.pids))
+    # The tenants' masses, and a quota at the median tenant's.
+    upids, inv = np.unique(snap.pids.astype(np.int64), return_inverse=True)
+    pid_mass = np.bincount(inv, weights=snap.counts.astype(np.float64))
+    tenant_mass: dict = {}
+    for p, m in zip(upids.tolist(), pid_mass.tolist()):
+        t = resolver.resolve(p)
+        tenant_mass[t] = tenant_mass.get(t, 0) + int(m)
+    quota = int(np.median(list(tenant_mass.values())))
+    adm = AdmissionController(
+        resolver, quota_samples=quota, burst_windows=1, degrade_after=1,
+        escalate_after=2, overload=OverloadPolicy(
+            close_latency_s=1.0, shed_after=1, recover_after=2),
+        window_s=10.0)
+    agg = recorded_sharded(capacity=CAP, n_shards=SHARDS, overflow="sketch",
+                           device=dev)
+    agg.set_shard_router(lambda pid: adm.shard_of(pid, agg._n_shards))
+    raw = DictAggregator.hash_rows(agg, snap)   # the unrouted triple
+    t0 = time.perf_counter()
+    hashes = agg.hash_rows(snap)
+    hash_route_ms = (time.perf_counter() - t0) * 1e3
+    bounds = np.linspace(0, len(snap), DRAINS + 1).astype(int)
+    route_ms = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        t0 = time.perf_counter()
+        routed = sharded.route_h2(raw[1][lo:hi], snap.pids[lo:hi],
+                                  agg._shard_of_pid, SHARDS)
+        route_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(routed, hashes[1][lo:hi]):
+            raise AssertionError("admission: route_h2 a drain != the "
+                                 "window's routing")
+    home = {p: adm.shard_of(p, SHARDS) for p in upids.tolist()}
+    row_home = np.array([home[p] for p in upids.tolist()])[inv]
+    if not np.array_equal(hashes[1] % SHARDS, row_home):
+        raise AssertionError("admission: a row is not in its tenant's home "
+                             "shard")
+    # Every count to 0 just before the path; read just after its close.
+    sharded.reset_launches()
+    close.reset_launches()
+    t0 = time.perf_counter()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        agg.feed(snap, hashes, lo=int(lo), hi=int(hi))
+    counts = agg.close_window(copy=True)
+    window_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"sharded_feed": sharded.LAUNCHES["sharded_feed"],
+                "close_pack_sharded": close.LAUNCHES["close_pack_sharded"]}
+    if launches["sharded_feed"] != DRAINS \
+            or launches["close_pack_sharded"] < 1:
+        raise AssertionError(f"admission window launches {launches}")
+    want_by_pid = {p.pid: p for p in want}
+    check_counts("admission window", agg, snap, counts,
+                 {p.pid: p.total() for p in want},
+                 lambda pid: want_by_pid[pid].values.tolist())
+    ids = np.flatnonzero(counts)
+    id_home = np.array([home[int(p)] for p in agg._id_pid[ids]])
+    if not np.array_equal(agg.id_hashes()[1][ids] % SHARDS, id_home):
+        raise AssertionError("admission: a key is not in its tenant's home "
+                             "shard")
+    # The quota arithmetic: one window accounted and ticked.
+    adm.account_window(snap.pids, snap.counts)
+    adm.tick_window(close_latency_s=0.0)
+    over = {t for t, m in tenant_mass.items() if m > quota}
+    laddered = {t for t, st in adm._tenants.items() if st.level > LEVEL_FULL}
+    if laddered != over or not over:
+        raise AssertionError(f"admission: {len(laddered)} tenants on the "
+                             f"ladder, {len(over)} over the quota")
+    # An overloaded window: the governor sheds the heaviest first.
+    adm.account_window(snap.pids, snap.counts)
+    adm.tick_window(close_latency_s=5.0)
+    shed = {t for t, st in adm._tenants.items() if st.shed_level > 0}
+    lighter = [m for t, m in tenant_mass.items() if t not in shed]
+    if not shed or min(tenant_mass[t] for t in shed) < max(lighter,
+                                                           default=0):
+        raise AssertionError(f"admission: the shed {sorted(shed)} are not "
+                             "the heaviest tenants")
+    row = {"rows": len(snap), "pids": len(upids),
+           "tenants": len(tenant_mass), "quota_samples": quota,
+           "over_quota": len(over), "shed": len(shed),
+           "heaviest_tenant_share": max(tenant_mass.values())
+           / snap.total_samples(),
+           "hash_and_route_ms": hash_route_ms, "route_h2_ms": route_ms,
+           "rows_per_shard": np.bincount(hashes[1] % SHARDS,
+                                         minlength=SHARDS).tolist(),
+           "window_ms": window_ms, "launches": launches,
+           "admission_stats": dict(adm.stats),
+           "resolver": dict(resolver.stats)}
+    emit("sharded_admission", **row)
+    return launches
+
+
+def admission_route_cost(snap, h2) -> None:
+    """route_h2 with admission's shard_of on the bench window's 10
+    drains (50,000 pids; `h2` its rows' second hash): each drain's ms
+    with the resolver's cache cold and warm."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator import sharded
+    from parca_agent_tpu_torch.runtime.admission import (
+        AdmissionController,
+        TenantResolver,
+    )
+
+    adm = AdmissionController(TenantResolver(fs=admission_fs(snap.pids)),
+                              quota_samples=1)
+    bounds = np.linspace(0, len(snap), DRAINS + 1).astype(int)
+    out = {}
+    for label in ("cold", "warm"):
+        ms, n = [], []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            t0 = time.perf_counter()
+            sharded.route_h2(h2[lo:hi], snap.pids[lo:hi],
+                             lambda pid: adm.shard_of(pid, SHARDS), SHARDS)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            n.append(int(len(np.unique(snap.pids[lo:hi]))))
+        out[label] = {"ms": ms, "ms_sum": sum(ms), "pids_a_drain": n}
+    emit("sharded_admission_route_cost", rows=len(snap),
+         pids=int(len(np.unique(snap.pids))), **out)
+
+
 def sharded_cli() -> None:
     """The CLI entry on the card, --aggregator sharded --fast-encode (one
     shard on one card), 3 synthetic windows in this process: every window
@@ -3459,6 +3898,11 @@ def phase_sharded(dev, snap, want, hashes, b7_ref=None) -> tuple:
     # The closed window's accumulator (the flip put it in the spare).
     closed = sharded_close_kernel(dev, agg._acc_spare, 4096)
     sharded_skew(dev)
+    skew_snap, skew_want = window_setup(SKEW_ROWS, SKEW_PIDS,
+                                        label="sharded_admission_setup")
+    launches_admission = sharded_admission(dev, skew_snap, skew_want)
+    del skew_snap, skew_want
+    admission_route_cost(snap, hashes[1])
     sharded_cli()
     w8 = closed["widths"][8]
     source = "parca_agent_tpu_torch/csrc/"
@@ -3476,7 +3920,7 @@ def phase_sharded(dev, snap, want, hashes, b7_ref=None) -> tuple:
             "replaces": "parca_agent_tpu/aggregator/sharded.py:137",
             "max_abs_err": 0, "ms": w8["ms"], "plain_ms": w8["plain_ms"],
             "bound_ms": w8["bound_ms"], "bound_by": w8["bound_by"],
-            "library_ms": None}}, launches
+            "library_ms": None}}, launches, launches_admission
 
 
 # -- phase 9 -----------------------------------------------------------------
@@ -3816,7 +4260,8 @@ def fleet_dist(dev, h1, h2, c) -> dict:
     import numpy as np
     import torch.distributed as dist
 
-    from parca_agent_tpu_torch.parallel import distributed
+    from parca_agent_tpu_torch.parallel import distributed, fleet
+    from parca_agent_tpu_torch.runtime.hotspots import HotspotStore
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -3839,13 +4284,37 @@ def fleet_dist(dev, h1, h2, c) -> dict:
         out["merges_ms"] = (time.perf_counter() - t0) * 1e3
         merger = distributed.FleetWindowMerger(interval_s=0.0,
                                                collective_timeout_s=60)
+        # The fleet scope's hotspot store rides the rounds, as the CLI's
+        # attach_hotspots wires it; each round's groups are recorded.
+        store = HotspotStore()
+        merger.attach_hotspots(store)
+        folds, fold_ms = [], []
+        real_fold = store.fleet_fold
+
+        def fleet_fold(u1, u2, uc, time_ns=None):
+            folds.append((np.array(u1), np.array(u2), np.array(uc)))
+            t0 = time.perf_counter()
+            real_fold(u1, u2, uc, time_ns)
+            fold_ms.append((time.perf_counter() - t0) * 1e3)
+
+        store.fleet_fold = fleet_fold
+        # The rounds' B8 launches, counted from 0: the fleet_hotspots
+        # path's, not the fleet path's (its counts are restored after).
+        saved = dict(fleet.LAUNCHES)
+        fleet.reset_launches()
         merger.submit_window(lambda: (h1[0], h2[0]), c[0])
         merger.merge_round()
         out["rounds"] = [dict(merger.fleet_stats)]
         merger.merge_round()
         out["rounds"].append(dict(merger.fleet_stats))
+        out["hotspots_launches"] = {k: n for k, n in fleet.LAUNCHES.items()
+                                    if n}
+        fleet.LAUNCHES.update(saved)
         out["merger_stats"] = dict(merger.stats)
         out["degraded"] = merger.degraded
+        out["hotspot_folds"] = folds
+        out["hotspot_fold_ms"] = fold_ms
+        out["hotspot_answer"] = store.query(k=HOTSPOT_K, scope="fleet")
     finally:
         dist.destroy_process_group()
     out["node0_total"] = int(np.asarray(c[0], np.int64).sum())
@@ -3968,6 +4437,22 @@ def phase_fleet(dev, snap, hashes, sketch_ref=None, fleet_ref=None) -> tuple:
     if dist_out["rounds"] != want_rounds or dist_out["degraded"]:
         raise AssertionError(f"fleet: the merger's rounds "
                              f"{dist_out['rounds']} != {want_rounds}")
+    # The fleet scope: each round's fleet_fold got B8's groups (node 0's
+    # exact merge, then none), and the fleet answer's top K holds to it.
+    o1n, o2n, osn = exact_oracle(d1, d2, dc)
+    folds = dist_out.pop("hotspot_folds")
+    if len(folds) != 2 or len(folds[1][0]) \
+            or not all(np.array_equal(a, b) for a, b in zip(
+                folds[0], (o1n, o2n, osn))):
+        raise AssertionError("fleet: a round's fleet_fold did not get "
+                             "B8's groups")
+    if dist_out["hotspots_launches"].get("fleet_group", 0) < 1:
+        raise AssertionError("fleet: the rounds launched "
+                             f"{dist_out['hotspots_launches']}")
+    key = (o1n.astype(np.uint64) << np.uint64(32)) | o2n.astype(np.uint64)
+    dist_out["hotspot_answer"] = check_hotspots(
+        "fleet hotspots", dist_out["hotspot_answer"], key, osn,
+        exact_top=True)
     for name, n in launches.items():
         if n < 1 and name != "fleet_group_split":
             raise AssertionError(f"fleet: {name} never launched")
@@ -4003,7 +4488,7 @@ def phase_fleet(dev, snap, hashes, sketch_ref=None, fleet_ref=None) -> tuple:
             "replaces": replaces, "max_abs_err": 0, "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
-    return rows, launches
+    return rows, launches, dist_out["hotspots_launches"]
 
 
 # -- phase 10 ----------------------------------------------------------------
@@ -4422,10 +4907,36 @@ def runtime_windows(snap):
     return [("full", snap, len(snap)), ("hot", hot, n), ("hot", hot, n)]
 
 
-def phase_runtime(dev, snap, want, state, hashes) -> dict:
-    """Phase 11 (module docs). Returns the phase's launches."""
-    import os
+def start_hang_cli():
+    """Phase 11's CLI with an injected device.dispatch hang, started
+    (start_background): (its run, its temporary directory)."""
     import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-hang-"))
+    argv = [sys.executable, "-m", "parca_agent_tpu_torch", *HTTP_ANY,
+            "--capture", "synthetic", "--windows", "3",
+            "--profiling-duration", "0.1",
+            "--fast-encode", "--device-timeout", str(HANG_TIMEOUT_S),
+            "--fault-inject", "device.dispatch:hang:after=0",
+            "--trace-incident-dir", str(tmp / "incidents"),
+            "--local-store-directory", str(tmp / "store")]
+    return Collected(argv, cli_env(), HANG_TIMEOUT_S + HANG_MARGIN_S + 60), \
+        tmp
+
+
+def start_background() -> dict:
+    """The subprocess CLIs of phases 5 and 11 (fast_encode_cli's four
+    runs, the hang CLI), started beside the host work of the window's
+    set-up and phase 4 (each is its own process over the CLI's synthetic
+    windows; their phases collect and check them)."""
+    return {"fast_encode": start_fast_encode_cli(),
+            "hang": start_hang_cli()}
+
+
+def phase_runtime(dev, snap, want, state, hashes, hang) -> dict:
+    """Phase 11 (module docs), with the hang CLI `hang` (start_hang_cli).
+    Returns the phase's launches."""
+    import shutil
 
     import numpy as np
     import torch
@@ -4592,47 +5103,36 @@ def phase_runtime(dev, snap, want, state, hashes) -> dict:
          stats=tel["stats"],
          note="execute is the host's launch time, not the kernel's")
 
-    # The CLI with an injected device.dispatch hang: a bounded exit.
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(HERE)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                       if p])
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "parca_agent_tpu_torch", *HTTP_ANY,
-             "--capture", "synthetic", "--windows", "3",
-             "--profiling-duration", "0.1",
-             "--fast-encode", "--device-timeout", str(HANG_TIMEOUT_S),
-             "--fault-inject", "device.dispatch:hang:after=0",
-             "--trace-incident-dir", str(Path(tmp) / "incidents"),
-             "--local-store-directory", str(Path(tmp) / "store")],
-            cwd=HERE, env=env, capture_output=True, text=True,
-            timeout=HANG_TIMEOUT_S + HANG_MARGIN_S + 60)
-        wall = time.perf_counter() - t0
-        lines = r.stdout.strip().splitlines()
+    # The CLI with an injected device.dispatch hang (start_hang_cli): a
+    # bounded exit.
+    run, tmp = hang
+    try:
+        rc, stdout, stderr, wall = run.result()
+        lines = stdout.strip().splitlines()
         last = json.loads(lines[-1]) if lines else {}
         incidents = [json.loads(f.read_text()) for f in
-                     sorted((Path(tmp) / "incidents").glob("*.json"))]
-        kinds = [body["kind"] for body in incidents]
-        # Each incident bundles a self-profile of the agent.
-        self_profiled = [("self_profile_pprof_gz_b64" in body)
-                         for body in incidents]
+                     sorted((tmp / "incidents").glob("*.json"))]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kinds = [body["kind"] for body in incidents]
+    # Each incident bundles a self-profile of the agent.
+    self_profiled = [("self_profile_pprof_gz_b64" in body)
+                     for body in incidents]
     health = last.get("device_health", {})
     # The bring-up probe ran in that CLI before it touched the card: a
     # child that launched the row hash kernel, timed in its snapshot.
-    if r.returncode == 0 or wall > HANG_TIMEOUT_S + HANG_MARGIN_S \
+    if rc == 0 or wall > HANG_TIMEOUT_S + HANG_MARGIN_S \
             or health.get("state") != "wedged" \
             or health["stats"]["hangs_total"] != 1 \
             or health["stats"]["probes_ok"] != 1 \
             or not health.get("last_probe_s") \
             or kinds != ["device_hang"] or self_profiled != [True]:
-        raise AssertionError(f"hang CLI: rc {r.returncode}, {wall:.1f} s, "
+        raise AssertionError(f"hang CLI: rc {rc}, {wall:.1f} s, "
                              f"{last}, incidents {kinds}, self-profiled "
-                             f"{self_profiled}: {r.stderr[-1500:]}")
+                             f"{self_profiled}: {stderr[-1500:]}")
     emit("runtime_probe", s=health["last_probe_s"],
          probes=health["stats"], source="runtime_hang_cli")
-    emit("runtime_hang_cli", rc=r.returncode, wall_s=wall,
+    emit("runtime_hang_cli", rc=rc, wall_s=wall,
          device_timeout_s=HANG_TIMEOUT_S, margin_s=HANG_MARGIN_S,
          device_health=health, incidents=kinds,
          incidents_self_profiled=self_profiled)
@@ -5744,6 +6244,21 @@ SHELL_WINDOWS = 3
 SHELL_ROWS = 1 << 17        # a window's rows (the bench window's 2^20, cut)
 SHELL_PERIOD_S = 1.0
 SHELL_WAIT_S = 240.0        # bound of the hook's wait for the window lines
+# The shift a later window carries: 16 stacks whose leaf is in the
+# synthetic layout's first shared object (one binary), SHELL_HOT_BOOST
+# samples more each a window.
+SHELL_HOT_ROWS = 16
+SHELL_HOT_BOOST = 5_000
+SHIFT_LO = 0x0000_7F00_0000_0000
+SHIFT_HI = SHIFT_LO + (1 << 24)
+SHELL_QUOTA_SAMPLES = 100_000
+SHELL_QUOTA_PIDS = 10_000
+SHELL_FAMILIES = ("parca_agent_hotspot_windows_folded_total",
+                  "parca_agent_regression_windows_folded_total",
+                  "parca_agent_regression_verdicts_total",
+                  "parca_agent_admission_over_quota_windows_total",
+                  "parca_agent_tenant_window_samples",
+                  "parca_agent_sink_windows_total")
 
 _PROM_NAME = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _PROM_VALUE = re.compile(
@@ -5863,15 +6378,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def shell_windows(tmp: Path, pids: int, rows: int,
-                  base=None) -> tuple[list[str], int, list[int]]:
+def shell_windows(tmp: Path, pids: int, rows: int, base=None) -> tuple:
     """SHELL_WINDOWS replay files of `rows` rows: every (len(base) //
     rows)-th row of `base` (phase 4's bench window), or without it a
     window of the bench spec at `pids` pids and `rows` rows (its samples
-    scaled with the rows). The first window's stacks in every window,
-    the w-th window's counts the first's times w (later windows are
-    steady ones, and a pid's mass tells its windows apart). Returns
-    their paths, their heaviest pid and its mass in each."""
+    scaled with the rows). The first window's stacks and counts in every
+    window, but for the shift: window w's SHELL_HOT_ROWS hot stacks (user
+    stacks whose leaf is in one binary, the heaviest pid's first) carry
+    w * SHELL_HOT_BOOST samples more (later windows are steady ones, and
+    the regression sentinel judges window 1 against window 0's
+    baseline). Returns their paths, the heaviest pid holding a hot stack
+    (its mass tells its windows apart), its mass in each, the hot
+    stacks' 64-bit content hashes ("0x%016x") and the windows' summed
+    exact counts by content hash (sorted keys, counts)."""
     import dataclasses
 
     import numpy as np
@@ -5889,18 +6408,43 @@ def shell_windows(tmp: Path, pids: int, rows: int,
             n_pids=pids, n_unique_stacks=rows, n_rows=rows,
             total_samples=max(SAMPLES * rows // ROWS, rows + 1),
             mean_depth=24, kernel_fraction=0.2, seed=42))
-    # The heaviest pid: its mass tells the windows apart.
+    from parca_agent_tpu_torch.ops.hashing import row_hash_np
+
+    # The hot stacks' candidates: user stacks whose leaf is in the one
+    # binary. The queried pid: the heaviest pid holding one of them (its
+    # mass tells the windows apart).
+    leaf = snap.stacks[:, 0]
+    cand = np.flatnonzero((snap.kernel_len == 0) & (leaf >= SHIFT_LO)
+                          & (leaf < SHIFT_HI))
     uniq, inv = np.unique(snap.pids, return_inverse=True)
-    pid = int(uniq[np.bincount(inv, weights=snap.counts).argmax()])
+    mass = np.bincount(inv, weights=snap.counts)
+    holders = np.isin(uniq, snap.pids[cand])
+    pid = int(uniq[np.flatnonzero(holders)[mass[holders].argmax()]])
+    hot = np.concatenate([cand[snap.pids[cand] == pid],
+                          cand[snap.pids[cand] != pid]])[:SHELL_HOT_ROWS]
+    if len(hot) < SHELL_HOT_ROWS:
+        raise AssertionError(f"shell windows: {len(hot)} hot rows")
+    h1, h2 = row_hash_np(snap.stacks, snap.pids, snap.user_len,
+                         snap.kernel_len, n_hashes=2)
+    key = (h1.astype(np.uint64) << np.uint64(32)) | h2.astype(np.uint64)
+    hot_stacks = sorted(f"0x{int(k):016x}" for k in key[hot])
+    # The windows' exact (h1 << 32 | h2) -> count, summed over them.
+    total = snap.counts.astype(np.int64) * SHELL_WINDOWS
+    total[hot] += SHELL_HOT_BOOST * sum(range(SHELL_WINDOWS))
+    uniq, kinv = np.unique(key, return_inverse=True)
+    oracle = uniq, np.bincount(kinv, weights=total.astype(np.float64)
+                               ).astype(np.int64)
     paths, masses = [], []
     for w in range(SHELL_WINDOWS):
+        counts = snap.counts.copy()
+        counts[hot] += w * SHELL_HOT_BOOST
         win = snap if w == 0 else dataclasses.replace(
-            snap, counts=snap.counts * (w + 1),
+            snap, counts=counts,
             time_ns=snap.time_ns + w * int(SHELL_PERIOD_S * 1e9))
         paths.append(str(tmp / f"shell-{w}.snap"))
         save_snapshot(win, paths[-1])
         masses.append(int(win.counts[win.pids == pid].sum()))
-    return paths, pid, masses
+    return paths, pid, masses, hot_stacks, oracle
 
 
 def http_get(url: str, timeout: float = 120.0):
@@ -5917,13 +6461,15 @@ def http_get(url: str, timeout: float = 120.0):
     return status, body, headers, (time.perf_counter() - t0) * 1e3
 
 
-def shell_cli(replay_windows, device_flags=()) -> dict:
+def shell_cli(replay_windows, device_flags, workdir: Path) -> dict:
     """Phase 14's run (module docs): the port's CLI in this process,
-    replaying `replay_windows` (shell_windows' paths, pid and masses)
-    with discovery and the HTTP server on a port picked here, scraped
-    from a hook in the capture source's poll before the last window (the
-    loop waits there; the server answers from its own threads). Returns
-    the run's record, its launches included."""
+    replaying `replay_windows` (shell_windows' paths, pid, masses and
+    hot stacks) with discovery, the analytics (their files under
+    `workdir`) and the HTTP server on a port picked here, scraped from a
+    hook in the capture source's poll before the last window and from
+    another once the source is exhausted (the loop waits there; the
+    server answers from its own threads). Returns the run's record, its
+    launches included."""
     import contextlib
     import gzip
     import io
@@ -5934,7 +6480,7 @@ def shell_cli(replay_windows, device_flags=()) -> dict:
     from parca_agent_tpu_torch.capture import replay as replay_mod
     from parca_agent_tpu_torch.pprof.builder import parse_pprof
 
-    replay, query_pid, masses = replay_windows
+    replay, query_pid, masses, hot_stacks, oracle = replay_windows
     port = free_port()
     url = f"http://127.0.0.1:{port}"
     out = io.StringIO()
@@ -5981,10 +6527,43 @@ def shell_cli(replay_windows, device_flags=()) -> dict:
         scrapes["/debug/trace/<seq>"] = http_get(
             f"{url}/debug/trace/{scrapes['seq']}")
 
+    def folded(n: int) -> dict:
+        # The encode worker has folded n windows (each window's rollup
+        # runs after its ship): the next one is then handed to an idle
+        # worker, so every window is folded and judged (a window the
+        # worker refuses is encoded inline, and not rolled up).
+        deadline = time.monotonic() + SHELL_WAIT_S
+        while True:
+            fams = parse_prometheus_text(
+                http_get(url + "/metrics")[1].decode())
+            got = fams["parca_agent_regression_windows_folded_total"][
+                "samples"][0][2]
+            if got >= n:
+                return fams
+            if time.monotonic() > deadline:
+                raise AssertionError(f"shell CLI: {got} windows folded "
+                                     f"in {SHELL_WAIT_S} s, want {n}")
+            time.sleep(0.05)
+
+    def judged():
+        # Once the source is exhausted: the last window's fold (the
+        # sentinel judges window 1 there) has run on the worker.
+        scrapes["final_metrics"] = folded(SHELL_WINDOWS)
+        for path in ("/diff", "/hotspots?k=50"):
+            scrapes["final " + path] = http_get(url + path)
+
     class Scraped(replay_mod.ReplaySource):
         def poll(self):
-            if self._pos == SHELL_WINDOWS - 1:
-                hook()
+            try:
+                if 1 <= self._pos < SHELL_WINDOWS:
+                    folded(self._pos)
+                if self._pos == SHELL_WINDOWS - 1:
+                    hook()
+                if self._pos == SHELL_WINDOWS and "judged" not in scrapes:
+                    scrapes["judged"] = True
+                    judged()
+            except Exception as e:  # noqa: BLE001 - reported after the run
+                scrapes.setdefault("hook_error", repr(e))
             return super().poll()
 
     real_replay, real_discovery = replay_mod.ReplaySource, \
@@ -6001,11 +6580,19 @@ def shell_cli(replay_windows, device_flags=()) -> dict:
         cli.discovery_manager = discovery_manager
         flags = [*NO_PROBE, *device_flags, "--capture", "replay",
                  "--replay", *replay, "--aggregator", "dict",
-                 "--fast-encode", "--windows", str(SHELL_WINDOWS),
+                 # One poll past the last window: the final scrape.
+                 "--fast-encode", "--windows", str(SHELL_WINDOWS + 1),
                  "--profiling-duration", str(SHELL_PERIOD_S),
                  "--http-address", f"127.0.0.1:{port}",
                  "--enable-cgroup-discovery",
-                 "--enable-systemd-discovery", "--log-level", "debug"]
+                 "--enable-systemd-discovery", "--log-level", "debug",
+                 "--hotspots", "--regression", "--regression-interval",
+                 str(SHELL_PERIOD_S), "--regression-baseline-windows", "1",
+                 "--sink", "pprof,autofdo,series,alerts", "--autofdo-dir",
+                 str(workdir / "afdo"), "--alerts-path",
+                 str(workdir / "alerts.jsonl"), "--tenant-quota-samples",
+                 str(SHELL_QUOTA_SAMPLES), "--tenant-quota-pids",
+                 str(SHELL_QUOTA_PIDS)]
         err = io.StringIO()
         # Every count to 0 just before the path; read just after.
         probe.reset_launches()
@@ -6044,8 +6631,9 @@ def shell_cli(replay_windows, device_flags=()) -> dict:
             "/debug/trace/1000000": 404, "/debug/trace/<seq>": 200,
             "/debug/pprof/cmdline": 200,
             "/debug/pprof/profile?seconds=1": 200,
-            "/debug/pprof/heap?seconds=1": 200, "/hotspots": 503,
-            "/diff": 503, "/query": 200}
+            "/debug/pprof/heap?seconds=1": 200, "/hotspots": 200,
+            "/diff": 200, "/query": 200, "final /diff": 200,
+            "final /hotspots?k=50": 200}
     problems = [f"{k}: {status.get(k)} (want {v})" for k, v in want.items()
                 if status.get(k) != v]
     if "hook_error" in scrapes:
@@ -6117,7 +6705,86 @@ def shell_cli(replay_windows, device_flags=()) -> dict:
         "query_labels": sorted(labels)}
     if len(windows) != SHELL_WINDOWS:
         raise AssertionError(f"shell CLI: {len(windows)} window lines")
+    rec["analytics"] = shell_analytics(scrapes, fams, workdir, hot_stacks,
+                                       oracle)
     return rec
+
+
+def shell_analytics(scrapes: dict, fams: dict, workdir: Path,
+                    hot_stacks: list, oracle) -> dict:
+    """Phase 14's analytics checks: /metrics carries the analytics'
+    families; once every window is judged, /diff and the alerts file
+    hold a regressed or new_hotspot verdict on the shifted stacks, every
+    verdict of the one shifted build; /hotspots' heaviest stacks hold to
+    the windows' exact counts (check_hotspots), in count order; the
+    AutoFDO directory holds profdata. Returns what it measured."""
+    missing = [f for f in SHELL_FAMILIES if f not in fams]
+    if missing:
+        raise AssertionError(f"shell CLI: /metrics lacks {missing}")
+    diff = json.loads(scrapes["final /diff"][1])
+    alerts_path = workdir / "alerts.jsonl"
+    alerts = ([json.loads(ln) for ln in alerts_path.read_text().splitlines()]
+              if alerts_path.exists() else [])
+
+    def judged(verdicts, where):
+        shifts = [v for v in verdicts
+                  if v["kind"] in ("regressed", "new_hotspot")]
+        builds = {v["build"] for v in verdicts}
+        if not shifts or len(builds) != 1 \
+                or builds & {"kernel", "unmapped"} \
+                or any(v["stack"] not in hot_stacks for v in shifts):
+            raise AssertionError(f"shell CLI: {where} verdicts {verdicts}")
+        return {"verdicts": len(verdicts), "shifts": len(shifts),
+                "kinds": sorted({v["kind"] for v in verdicts}),
+                "build": builds.pop()}
+
+    seen = judged(diff["verdicts"], "/diff")
+    written = judged(alerts, "alerts file")
+    key = [(v["kind"], v["build"], v["stack"]) for v in diff["verdicts"]]
+    if sorted(key) != sorted((v["kind"], v["build"], v["stack"])
+                             for v in alerts):
+        raise AssertionError("shell CLI: the alerts file != /diff's verdicts")
+    hot = json.loads(scrapes["final /hotspots?k=50"][1])
+    counts = [e["count"] for e in hot["entries"]]
+    if counts != sorted(counts, reverse=True) or hot["windows"] \
+            != SHELL_WINDOWS:
+        raise AssertionError(f"shell CLI: /hotspots {counts}, "
+                             f"{hot['windows']} windows")
+    top = check_hotspots("shell /hotspots", hot, *oracle)
+    afdo = sorted((workdir / "afdo").glob("*.afdo.txt"))
+    if not afdo:
+        raise AssertionError("shell CLI: no AutoFDO profdata")
+    final = scrapes["final_metrics"]
+
+    def value(name):
+        return final[name]["samples"][0][2]
+
+    return {"diff": seen, "alerts": written,
+            "hotspots": {"windows": hot["windows"], "level": hot["level"],
+                         "top": top, "shifted_in_top": sum(
+                             e["stack"] in hot_stacks
+                             for e in hot["entries"])},
+            "ms": {k: round(scrapes[k][3], 3) for k in (
+                "/hotspots", "/diff", "final /diff",
+                "final /hotspots?k=50")},
+            "hotspot_fold_s": value("parca_agent_hotspot_last_fold_seconds"),
+            "regression_fold_s": value(
+                "parca_agent_regression_last_fold_seconds"),
+            "over_quota_windows": value(
+                "parca_agent_admission_over_quota_windows_total"),
+            # The capture source waits for each fold (folded), so a busy
+            # worker never refuses a window here: a refused window is
+            # encoded inline, and neither rolled up nor judged.
+            "encode_backpressure": value(
+                "parca_agent_profiler_encode_backpressure_total"),
+            "sink_windows_skipped": value(
+                "parca_agent_sink_windows_skipped_total"),
+            "regression_windows_skipped": value(
+                "parca_agent_regression_windows_skipped_total"),
+            "hotspot_windows_folded": value(
+                "parca_agent_hotspot_windows_folded_total"),
+            "autofdo": {"files": len(afdo),
+                        "bytes": sum(f.stat().st_size for f in afdo)}}
 
 
 def shell_child(tmp: str, device_flags: list) -> dict:
@@ -6129,7 +6796,8 @@ def shell_child(tmp: str, device_flags: list) -> dict:
     base = load_snapshot(str(Path(tmp) / "rows.snap"))
     windows = shell_windows(Path(tmp), PIDS, len(base), base=base)
     setup_s = time.perf_counter() - t0
-    return {**shell_cli(windows, device_flags), "windows_setup_s": setup_s}
+    return {**shell_cli(windows, device_flags, Path(tmp)),
+            "windows_setup_s": setup_s}
 
 
 def start_shell(snap, device_flags=()):
@@ -6304,6 +6972,9 @@ def main() -> int:
 
     rows = timed("kernels", phase_kernels, dev, ref)
     timed("close_kernels", phase_close_kernels, dev, close_refs)
+    # Phases 5's and 11's subprocess CLIs run beside the host work that
+    # follows (start_background).
+    background = timed("background_start", start_background)
     snap, want = timed("main_path_setup", window_setup)
     # Phase 14 runs in a child beside phases 4-13 (start_shell).
     shell = timed("shell_start", start_shell, snap)
@@ -6311,21 +6982,22 @@ def main() -> int:
     launches, state, hashes, steady_blobs = timed(
         "main_path", phase_main_path, dev, snap, want, STEADY_WINDOWS, ref,
         vec_rec)
-    rows.update(timed("one_shot", phase_one_shot, dev, snap, want, rh_refs))
+    rows.update(timed("one_shot", phase_one_shot, dev, snap, want,
+                      background["fast_encode"], rh_refs))
     bounded, launches_cm = timed("bounded", phase_bounded, dev, snap, hashes,
                                  state, close_refs)
     rows.update(bounded)
     launches_stream, dict_agg = timed("streaming", phase_streaming, dev,
                                       snap, want)
-    sharded_rows, launches_sharded = timed("sharded", phase_sharded, dev,
-                                           snap, want, hashes, b7_ref)
+    sharded_rows, launches_sharded, launches_admission = timed(
+        "sharded", phase_sharded, dev, snap, want, hashes, b7_ref)
     rows.update(sharded_rows)
-    fleet_rows, launches_fleet = timed("fleet", phase_fleet, dev, snap,
-                                       hashes, sketch_ref, fleet_ref)
+    fleet_rows, launches_fleet, launches_fleet_hotspots = timed(
+        "fleet", phase_fleet, dev, snap, hashes, sketch_ref, fleet_ref)
     rows.update(fleet_rows)
     launches_live = timed("live", phase_live, dev, snap, hashes, vec_rec)
     launches_runtime = timed("runtime", phase_runtime, dev, snap, want,
-                             state, hashes)
+                             state, hashes, background["hang"])
     del state
     launches_sym = timed("symbolize", phase_symbolize, dev, snap, dict_agg)
     del dict_agg
@@ -6341,15 +7013,19 @@ def main() -> int:
     # option settings (phase 11), the scalar path's windows that phase
     # 12 symbolizes (the bench window on phase 7's dictionary, and the
     # walked DWARF window), the CLI that ships to a store (phase 13) and
-    # the CLI that serves its HTTP surface (phase 14). `launches` is
-    # their sum.
+    # the CLI that serves its HTTP surface (phase 14), and the
+    # analytics' paths: phase 8's admission window, phase 9's merger
+    # rounds feeding the fleet hotspot store.
+    # `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
                             for k in ("row_hash", "loc_table")},
                "dict_cm": launches_cm,
                "streaming": launches_stream,
                "sharded": launches_sharded,
+               "admission": launches_admission,
                "fleet": launches_fleet,
+               "fleet_hotspots": launches_fleet_hotspots,
                "live": launches_live,
                "runtime": launches_runtime,
                "symbolize": {k: n for k, n in launches_sym.items() if n},

@@ -517,6 +517,16 @@ class DictAggregator:
 
     # -- registry identity (statics snapshot support) ------------------------
 
+    def id_hashes(self, n: int | None = None):
+        """Per-id content hashes (h1, h2) for ids [0, n): the identity
+        every cross-node consumer keys on (fleet merge, hotspot rollups).
+        ``n`` defaults to the published watermark; callers off the
+        mutating thread must pass ids they observed at or below a
+        _published they read earlier."""
+        if n is None:
+            n = self._published
+        return self._id_h1[:n], self._id_h2[:n]
+
     def footprint_bytes(self) -> dict:
         """Per-lane host-memory accounting: every lane must go flat (or
         sit at its construction-time cap) once a stationary workload is

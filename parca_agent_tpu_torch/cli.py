@@ -62,6 +62,19 @@ surface at --http-address (/metrics, /healthz, /query, /debug/*, the
 self-profile of profiler/selfprofile.py), bound before the actors start
 and stopped on every exit.
 
+The analytics, under parca_agent_tpu's flags: --hotspots keeps hotspot
+rollups on the encode worker (runtime/hotspots.py; fed by the fleet
+merge's rounds too) and serves /hotspots; --regression judges each
+(build id, tenant)'s rollups against baselines (runtime/regression.py)
+and serves /diff; --sink fans each window out to AutoFDO profdata, the
+series families and the verdicts' JSONL beside the pprof ship (sinks/);
+--tenant-quota-samples/--tenant-quota-pids turn on multi-tenant
+admission (runtime/admission.py): per-tenant quotas and the overload
+governor on the loop's window clock, the tenant as a profile label, and
+each tenant's rows in one home shard of --aggregator sharded. Each needs
+--fast-encode where the original's does; without it the CLI warns and
+runs without that part, as the original does.
+
 The runtime edges (runtime/): before this process creates a CUDA
 context (it only asks the device count), a throwaway child probes the
 card (CUDA init and one launch of the row hash kernel), killed at
@@ -227,6 +240,125 @@ def build_parser() -> argparse.ArgumentParser:
                    help="snapshots older than this many seconds are STALE "
                         "at adoption (the processes they describe are "
                         "likely gone); 0 = no age bar")
+    p.add_argument("--hotspots", action="store_true",
+                   help="maintain hotspot rollups (docs/hotspots.md): "
+                        "each shipped window is folded into mergeable "
+                        "count-min + top-K summaries on the encode "
+                        "worker, rolled up per-window -> 1 min -> 1 h in "
+                        "bounded memory, and served from /hotspots "
+                        "('top-K hottest stacks matching this label "
+                        "selector over this time range'). Requires "
+                        "--fast-encode with the encode pipeline; with a "
+                        "fleet configured, merge rounds also feed a "
+                        "fleet-wide scope")
+    p.add_argument("--hotspot-top-k", type=int, default=50,
+                   help="default K served per /hotspots query (callers "
+                        "may ask for less or up to the candidate bound)")
+    p.add_argument("--hotspot-candidates", type=int, default=512,
+                   help="exact top-candidate entries kept per summary — "
+                        "the exactness headroom above K; absent stacks "
+                        "fall back to the count-min estimate")
+    p.add_argument("--hotspot-cm-depth", type=int, default=4,
+                   help="count-min rows per rollup summary")
+    p.add_argument("--hotspot-cm-width", type=int, default=1 << 12,
+                   help="count-min buckets per row (power of two); the "
+                        "point-query overestimate bound is e/width of "
+                        "the summary's total mass")
+    p.add_argument("--hotspot-rollup-intervals", default="60,3600",
+                   help="comma-separated rollup bucket spans in seconds "
+                        "(finest to coarsest) above the per-window level")
+    p.add_argument("--hotspot-level-bytes", type=int, default=32 << 20,
+                   help="byte cap per rollup level ring; past it the "
+                        "OLDEST summaries are evicted (counted)")
+    p.add_argument("--hotspot-stale-after", type=float, default=60.0,
+                   help="seconds without a completed fleet merge round "
+                        "before fleet-scope answers are flagged stale")
+    p.add_argument("--regression", action="store_true",
+                   help="run the regression sentinel "
+                        "(docs/regression.md): every shipped window is "
+                        "attributed by (leaf build-id, tenant) and "
+                        "folded into 1-minute rollups that are diffed "
+                        "against frozen content-addressed baselines — "
+                        "new_hotspot/regressed/improved/drifted "
+                        "verdicts on /diff, JSONL alert records via "
+                        "--sink alerts, and AutoFDO profdata staleness "
+                        "marks on drift. Needs --hotspots (the "
+                        "sentinel rides the same worker-thread fold "
+                        "clock and serves range diffs from the rollup "
+                        "levels)")
+    p.add_argument("--regression-interval", type=float, default=60.0,
+                   help="rollup bucket span in seconds — the judgment "
+                        "cadence (a shift is detectable within two "
+                        "intervals)")
+    p.add_argument("--regression-baseline-windows", type=int, default=5,
+                   help="sealed rollups frozen into a group's baseline "
+                        "before judgment starts")
+    p.add_argument("--regression-path", default="",
+                   help="crash-only baseline persistence file "
+                        "(tmp+rename, CRC-framed, content-digest-"
+                        "checked; adopted at startup so a restart "
+                        "resumes judging instead of relearning). "
+                        "Empty = in-memory only")
+    p.add_argument("--regression-sigma", type=float, default=4.0,
+                   help="noise-floor multiplier a shift must clear "
+                        "(the floor is learned per key from rollup-to-"
+                        "rollup variance)")
+    p.add_argument("--regression-min-count", type=int, default=16,
+                   help="absolute per-rollup sample-count floor below "
+                        "which no verdict fires")
+    p.add_argument("--regression-min-ratio", type=float, default=1.5,
+                   help="relative shift (current/baseline) a "
+                        "regressed/improved verdict must clear")
+    p.add_argument("--regression-drift-threshold", type=float,
+                   default=0.5,
+                   help="EWMA-smoothed distribution distance past "
+                        "which a build's profile is judged drifted and "
+                        "its AutoFDO profdata marked stale")
+    p.add_argument("--regression-max-groups", type=int, default=256,
+                   help="bounded (build-id, tenant) judgment groups; "
+                        "rows past the cap are counted, not judged")
+    p.add_argument("--regression-max-keys", type=int, default=4096,
+                   help="exact stack keys tracked per group; past it "
+                        "the count-min backstop carries the mass")
+    p.add_argument("--alerts-path", default="",
+                   help="JSONL verdict record file for the alerts sink "
+                        "(crash-only appends, .1 rotation). Required "
+                        "when --sink includes alerts")
+    p.add_argument("--sink", default="pprof",
+                   help="comma-separated output backends for shipped "
+                        "windows (docs/sinks.md): pprof (the store ship "
+                        "path; always required), autofdo (per-binary "
+                        "LLVM profdata-text PGO profiles keyed by "
+                        "build-id, --autofdo-* flags), series (scalar "
+                        "OTLP-style per-label-set sample-count series "
+                        "on /metrics), alerts (crash-only JSONL "
+                        "regression verdict records, needs "
+                        "--regression and --alerts-path). Secondary "
+                        "sinks are fail-open: their failures are "
+                        "counted and can never delay or drop the "
+                        "pprof ship. Secondaries need --fast-encode")
+    p.add_argument("--autofdo-dir", default="",
+                   help="directory for the AutoFDO sink's per-binary "
+                        "profdata-text profiles (<build-id>.afdo.txt, "
+                        "crash-only tmp+rename rewrites; adopted on "
+                        "restart so counts accumulate without replay). "
+                        "Required when --sink includes autofdo")
+    p.add_argument("--autofdo-flush-windows", type=int, default=6,
+                   help="shipped windows between AutoFDO profile "
+                        "rewrites (the PGO freshness/IO trade; each "
+                        "flush atomically rewrites only dirty binaries)")
+    p.add_argument("--autofdo-max-binaries", type=int, default=256,
+                   help="bounded-memory cap on per-build-id AutoFDO "
+                        "accumulators; samples past it are dropped and "
+                        "counted")
+    p.add_argument("--autofdo-max-offsets", type=int, default=65536,
+                   help="distinct leaf offsets kept per binary; samples "
+                        "at new offsets past it are dropped and counted "
+                        "(hot offsets were admitted first)")
+    p.add_argument("--series-max-sets", type=int, default=4096,
+                   help="label sets kept by the series sink; past it "
+                        "the least-recently-updated series is evicted "
+                        "(counted)")
     p.add_argument("--local-store-directory", default="",
                    help="write each window's per-pid profiles here as "
                         ".pb.gz")
@@ -385,6 +517,58 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-pid ingest processing deadline in seconds; "
                         "a pid whose maps/ELF processing exceeds it is "
                         "charged an input fault (0 = no deadline)")
+    p.add_argument("--tenant-quota-samples", type=int, default=0,
+                   help="multi-tenant admission (docs/robustness.md "
+                        "\"multi-tenant admission\"): per-tenant sample "
+                        "budget per window (token bucket banking "
+                        "--tenant-burst-windows of burst); a tenant "
+                        "sustaining usage past it rides the degradation "
+                        "ladder (full -> addresses-only -> scalar) "
+                        "without dropping samples and without touching "
+                        "in-quota tenants. Tenants are resolved from "
+                        "/proc/<pid>/cgroup. 0 (with "
+                        "--tenant-quota-pids 0) disables admission")
+    p.add_argument("--tenant-quota-pids", type=int, default=0,
+                   help="per-tenant distinct-pid budget per window "
+                        "(same token-bucket/ladder semantics; the churn "
+                        "axis of the quota). 0 disables the pid quota")
+    p.add_argument("--tenant-burst-windows", type=int, default=3,
+                   help="windows of quota a quiet tenant may bank (the "
+                        "token buckets' burst cap)")
+    p.add_argument("--tenant-top-n", type=int, default=10,
+                   help="tenants exported individually on /metrics "
+                        "(top-N by window mass + every degraded tenant "
+                        "+ one 'other' rollup — bounded cardinality)")
+    p.add_argument("--overload-close-latency", type=float, default=0.0,
+                   help="overload governor: window close latency "
+                        "(seconds) past which the agent counts as over "
+                        "budget; sustained overload sheds fidelity from "
+                        "the heaviest tenants first (0 disables this "
+                        "signal)")
+    p.add_argument("--overload-registry-rows", type=int, default=0,
+                   help="overload governor: dict-registry unique-stack "
+                        "rows past which the agent counts as over "
+                        "budget (0 disables this signal)")
+    p.add_argument("--overload-backlog", type=int, default=0,
+                   help="overload governor: encode-pipeline "
+                        "backpressure fallbacks per window past which "
+                        "the agent counts as over budget (0 disables "
+                        "this signal)")
+    p.add_argument("--overload-shed-after", type=int, default=3,
+                   help="consecutive over-budget windows before the "
+                        "governor sheds one ladder step from the "
+                        "heaviest tenants")
+    p.add_argument("--overload-recover-after", type=int, default=6,
+                   help="consecutive in-budget windows before the "
+                        "governor releases one shed step")
+    p.add_argument("--fork-storm-new-pids", type=int, default=0,
+                   help="fork/exec-storm admission: never-seen pids "
+                        "appearing in one window past which the "
+                        "governor sheds one ladder rung from the "
+                        "heaviest tenants (discovery-burst containment "
+                        "— per-new-pid maps/unwind/registry work is "
+                        "paid before any quota sees a sample; requires "
+                        "tenant quotas to be active; 0 disables)")
     p.add_argument("--device-probe-timeout", type=float, default=60.0,
                    help="hard deadline of the bring-up probe, a child "
                         "process that initializes CUDA and launches one "
@@ -535,12 +719,13 @@ def http_metrics(source, store, feeder, fleet_merger, binfo) -> dict:
     return out
 
 
-def identity_tracker(args, source, aggregator, quarantine):
+def identity_tracker(args, source, aggregator, quarantine,
+                     tenant_resolver=None):
     """The generation-stamped process identity and the perf-map cache
     its invalidators share with the symbolizer: (None, None) with
     --no-pid-generation or PARCA_NO_PID_GENERATION=1. A recycled pid
-    evicts its perf map, maps, unwind tables, quarantine record and the
-    dictionary's per-pid registry."""
+    evicts its perf map, maps, unwind tables, quarantine record, cached
+    tenant and the dictionary's per-pid registry."""
     if args.no_pid_generation \
             or os.environ.get("PARCA_NO_PID_GENERATION", "") == "1":
         return None, None
@@ -560,6 +745,8 @@ def identity_tracker(args, source, aggregator, quarantine):
         identity.add_invalidator("unwind", unwind_cache.evict)
     if quarantine is not None:
         identity.add_invalidator("quarantine", quarantine.forget_pid)
+    if tenant_resolver is not None:
+        identity.add_invalidator("tenant", tenant_resolver.forget)
     if hasattr(aggregator, "invalidate_pid"):
         identity.add_invalidator("aggregator", aggregator.invalidate_pid)
     return identity, perf_cache
@@ -680,20 +867,23 @@ def discovery_manager(args):
     return discovery, providers
 
 
-def labels_manager(args, sd_provider):
+def labels_manager(args, sd_provider, tenant_resolver=None):
     """The label pipeline of parca_agent_tpu's CLI (the service discovery
     provider `sd_provider`, which discovery feeds each window, then
     process, cgroup, system and target labels, and --config-path's
     relabel rules, yaml imported then only), when a store, a label flag
     or discovery asks for it: --remote-store-address, --node,
-    --metadata-external-labels, --config-path or a --enable-*-discovery
-    flag. Otherwise None, and each profile keeps the label set {__name__,
-    pid}, so the local store's file names stay as they were. Returns
-    (manager, config reloader or None)."""
+    --metadata-external-labels, --config-path, a --enable-*-discovery
+    flag or tenant admission (whose TenantProvider then labels each
+    profile with its tenant, as the original's does). Otherwise None, and
+    each profile keeps the label set {__name__, pid}, so the local
+    store's file names stay as they were. Returns (manager, config
+    reloader or None)."""
     if not (args.remote_store_address or args.node
             or args.metadata_external_labels or args.config_path
             or args.enable_systemd_discovery or args.enable_cgroup_discovery
-            or args.enable_kubernetes_discovery):
+            or args.enable_kubernetes_discovery
+            or tenant_resolver is not None):
         return None, None
     from parca_agent_tpu_torch.config import ConfigReloader, load_config_file
     from parca_agent_tpu_torch.labels.manager import LabelsManager
@@ -704,12 +894,19 @@ def labels_manager(args, sd_provider):
         TargetProvider,
     )
 
+    providers = [sd_provider, ProcessProvider(), CgroupProvider(),
+                 SystemProvider(),
+                 TargetProvider(node=args.node,
+                                external=_parse_external_labels(
+                                    args.metadata_external_labels))]
+    if tenant_resolver is not None:
+        from parca_agent_tpu_torch.metadata.providers import TenantProvider
+
+        # The admission layer's tenant identity as a profile label, so
+        # the read path can slice by exactly what the quotas enforce.
+        providers.insert(3, TenantProvider(resolver=tenant_resolver))
     manager = LabelsManager(
-        [sd_provider, ProcessProvider(), CgroupProvider(),
-         SystemProvider(),
-         TargetProvider(node=args.node,
-                        external=_parse_external_labels(
-                            args.metadata_external_labels))],
+        providers,
         relabel_configs=(load_config_file(args.config_path).relabel_configs
                          if args.config_path else []),
         profiling_duration_s=args.profiling_duration)
@@ -842,6 +1039,17 @@ class _HangExit(Exception):
 def _run(args) -> int:
     if args.profiling_duration <= 0:
         raise SystemExit("--profiling-duration must be > 0")
+    try:
+        rollup_min = min(float(x) for x in
+                         args.hotspot_rollup_intervals.split(",")
+                         if x.strip())
+    except ValueError:
+        rollup_min = None  # the hotspot block rejects it with context
+    rollup_short = [
+        (flag, v) for flag, v in (
+            ("--regression-interval", args.regression_interval),
+            ("--hotspot-rollup-intervals", rollup_min))
+        if v is not None and 0 < v < args.profiling_duration]
     if args.fast_encode and args.aggregator not in ("dict", "dict+cm",
                                                     "sharded"):
         raise SystemExit(
@@ -876,6 +1084,10 @@ def _run(args) -> int:
     binfo = collect_buildinfo()
     log.info("starting parca-agent-tpu-torch", version=binfo.display(),
              python=binfo.python)
+    for flag, v in rollup_short:
+        log.warn("rollup interval is shorter than one window; buckets "
+                 "can seal at most once per window close", flag=flag,
+                 interval_s=v, window_s=args.profiling_duration)
     try:
         device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
@@ -1026,8 +1238,79 @@ def _run(args) -> int:
         aggregator = TPUAggregator(device=device)
     else:
         aggregator = CPUAggregator()
+    # -- multi-tenant admission (docs/robustness.md) -------------------------
+    # Per-tenant (cgroup-derived) window quotas riding the quarantine
+    # ladder, the global overload governor, and tenant-keyed pid->shard
+    # routing for the sharded aggregator. Constructed before labels so
+    # the TenantProvider can stamp the same identity onto every profile
+    # (the /query + /hotspots `tenant=` selector slices by it).
+    admission = None
+    tenant_resolver = None
+    if args.tenant_quota_samples > 0 or args.tenant_quota_pids > 0:
+        from parca_agent_tpu_torch.runtime.admission import (
+            AdmissionController,
+            OverloadPolicy,
+            TenantResolver,
+        )
+
+        for flag, v in (("--tenant-quota-samples",
+                         args.tenant_quota_samples),
+                        ("--tenant-quota-pids", args.tenant_quota_pids),
+                        ("--overload-registry-rows",
+                         args.overload_registry_rows),
+                        ("--overload-backlog", args.overload_backlog)):
+            if v < 0:
+                raise SystemExit(f"{flag} must be >= 0")
+        for flag, v in (("--tenant-burst-windows",
+                         args.tenant_burst_windows),
+                        ("--tenant-top-n", args.tenant_top_n),
+                        ("--overload-shed-after",
+                         args.overload_shed_after),
+                        ("--overload-recover-after",
+                         args.overload_recover_after)):
+            if v < 1:
+                raise SystemExit(f"{flag} must be >= 1")
+        if args.overload_close_latency < 0:
+            raise SystemExit("--overload-close-latency must be >= 0")
+        if args.fork_storm_new_pids < 0:
+            raise SystemExit("--fork-storm-new-pids must be >= 0")
+        tenant_resolver = TenantResolver()
+        admission = AdmissionController(
+            tenant_resolver,
+            quota_samples=args.tenant_quota_samples,
+            quota_pids=args.tenant_quota_pids,
+            burst_windows=args.tenant_burst_windows,
+            storm_new_pids=args.fork_storm_new_pids,
+            overload=OverloadPolicy(
+                close_latency_s=args.overload_close_latency,
+                registry_rows=args.overload_registry_rows,
+                backlog=args.overload_backlog,
+                shed_after=args.overload_shed_after,
+                recover_after=args.overload_recover_after),
+            top_n=args.tenant_top_n,
+            window_s=args.profiling_duration)
+        if hasattr(aggregator, "set_shard_router"):
+            # Tenant-keyed home shards: one tenant's registry growth
+            # parallelizes across chips by tenant instead of spraying
+            # every sub-table (aggregator/sharded.py route_h2).
+            aggregator.set_shard_router(
+                lambda pid: admission.shard_of(pid,
+                                               aggregator._n_shards))
+        log.info("multi-tenant admission active",
+                 quota_samples=args.tenant_quota_samples,
+                 quota_pids=args.tenant_quota_pids)
+        if args.fast_encode:
+            # Same enforcement shape as the quarantine ladder on this
+            # path: fast-encode output is addresses-only for every pid
+            # by design, so the ladder's level-1 rung is the baseline
+            # and the scalar collapse applies on the scalar/symbolized
+            # path only (runtime/admission.py module docs).
+            log.info("fast-encode ships addresses-only by design; "
+                     "admission enforces quotas via accounting/"
+                     "routing/governor there, scalar collapse on the "
+                     "scalar path")
     identity, perf_cache = identity_tracker(args, source, aggregator,
-                                            quarantine)
+                                            quarantine, tenant_resolver)
     # The transport, discovery, the label pipeline (discovery's groups
     # reach it through the service discovery provider, each window) and
     # the debuginfo uploader, as parca_agent_tpu's CLI builds them.
@@ -1038,7 +1321,7 @@ def _run(args) -> int:
     store, batch, listener, writer = transport(args)
     discovery, providers = discovery_manager(args)
     sd_provider = ServiceDiscoveryProvider()
-    labels, reloader = labels_manager(args, sd_provider)
+    labels, reloader = labels_manager(args, sd_provider, tenant_resolver)
     debuginfo = debuginfo_manager(args, store)
 
     def on_iteration(_window: int) -> None:
@@ -1104,6 +1387,151 @@ def _run(args) -> int:
                 args.statics_snapshot_path,
                 max_age_s=args.statics_snapshot_max_age or None)
 
+    # -- hotspot rollups (docs/hotspots.md) ----------------------------------
+    # The read path: window summaries fold on the encode worker, rollup
+    # rings answer /hotspots, and (when a fleet is up) merge rounds feed
+    # the fleet scope through the merger's degrade-safe collectives.
+    hotspot_store = None
+    if args.hotspots:
+        if not (args.fast_encode and not args.no_encode_pipeline):
+            log.warn("--hotspots needs --fast-encode with the encode "
+                     "pipeline; hotspot rollups disabled")
+        else:
+            from parca_agent_tpu_torch.ops.sketch import CountMinSpec
+            from parca_agent_tpu_torch.runtime.hotspots import (
+                HotspotSpec,
+                HotspotStore,
+            )
+
+            try:
+                spans = tuple(
+                    float(s) for s in
+                    filter(None, args.hotspot_rollup_intervals.split(",")))
+                if any(not (s > 0) for s in spans):  # rejects NaN too
+                    raise ValueError
+            except ValueError:
+                raise SystemExit("bad --hotspot-rollup-intervals "
+                                 f"{args.hotspot_rollup_intervals!r} "
+                                 "(comma-separated positive seconds)")
+            try:
+                hotspot_store = HotspotStore(
+                    spec=HotspotSpec(
+                        k=args.hotspot_top_k,
+                        candidates=max(args.hotspot_candidates,
+                                       args.hotspot_top_k),
+                        cm=CountMinSpec(depth=args.hotspot_cm_depth,
+                                        width=args.hotspot_cm_width)),
+                    window_s=args.profiling_duration,
+                    rollup_spans_s=spans,
+                    level_bytes=args.hotspot_level_bytes,
+                    stale_after_s=args.hotspot_stale_after)
+            except ValueError as e:
+                # The spec dataclasses validate (k >= 1, candidates >=
+                # k, power-of-two width...): an operator typo should be
+                # a readable startup error, not a traceback.
+                raise SystemExit(f"bad --hotspot-* flags: {e}")
+            if fleet_merger is not None:
+                fleet_merger.attach_hotspots(hotspot_store)
+
+    # -- regression sentinel (docs/regression.md) ----------------------------
+    # The judgment layer over the rollup hierarchy: per-(build-id,
+    # tenant) 1-minute rollups diffed against frozen content-addressed
+    # baselines on the encode worker, verdicts on /diff and (via the
+    # alerts sink) as crash-only JSONL, AutoFDO staleness marks on
+    # drift.
+    regression_sentinel = None
+    if args.regression:
+        if hotspot_store is None:
+            log.warn("--regression needs --hotspots (the sentinel rides "
+                     "the rollup fold clock); regression sentinel "
+                     "disabled")
+        else:
+            from parca_agent_tpu_torch.ops.sketch import (
+                CountMinSpec as _RegCMSpec,
+            )
+            from parca_agent_tpu_torch.runtime.regression import (
+                RegressionSentinel,
+                RegressionSpec,
+            )
+
+            try:
+                regression_sentinel = RegressionSentinel(
+                    spec=RegressionSpec(
+                        interval_s=args.regression_interval,
+                        baseline_rollups=args.regression_baseline_windows,
+                        k_sigma=args.regression_sigma,
+                        min_count=args.regression_min_count,
+                        min_ratio=args.regression_min_ratio,
+                        drift_threshold=args.regression_drift_threshold,
+                        max_groups=args.regression_max_groups,
+                        max_keys=args.regression_max_keys,
+                        cm=_RegCMSpec(depth=args.hotspot_cm_depth,
+                                      width=args.hotspot_cm_width)),
+                    path=args.regression_path or None)
+            except ValueError as e:
+                # The spec validates (interval > 0, sigma > 0, power-of-
+                # two sketch width...): an operator typo should be a
+                # readable startup error, not a traceback.
+                raise SystemExit(f"bad --regression-* flags: {e}")
+
+    # -- output-backend sinks (docs/sinks.md) --------------------------------
+    # --sink pprof,autofdo,series: each shipped window fans out to every
+    # configured backend; pprof is the primary ship path (byte-identical
+    # to the pre-sink writer route) and the secondaries are fail-open.
+    sink_names = [s.strip() for s in args.sink.split(",") if s.strip()]
+    unknown = [s for s in sink_names if s not in ("pprof", "autofdo",
+                                                  "series", "alerts")]
+    if unknown:
+        raise SystemExit(f"unknown --sink backend(s) {unknown!r} "
+                         "(want pprof, autofdo, series, alerts)")
+    if "pprof" not in sink_names:
+        raise SystemExit("--sink must include pprof: it is the agent's "
+                         "ship path (secondaries ride beside it)")
+    secondary_names = [s for s in dict.fromkeys(sink_names)
+                       if s != "pprof"]
+    if secondary_names and not args.fast_encode:
+        log.warn("--sink autofdo/series need --fast-encode (sinks read "
+                 "prepared windows); secondary sinks disabled")
+        secondary_names = []
+    sink_registry = None
+    autofdo_sink = None
+    if secondary_names:
+        from parca_agent_tpu_torch.sinks import (
+            AlertsSink,
+            AutoFDOSink,
+            PprofSink,
+            SeriesSink,
+            SinkRegistry,
+        )
+
+        sink_list = [PprofSink()]
+        if "autofdo" in secondary_names:
+            if not args.autofdo_dir:
+                raise SystemExit("--sink autofdo needs --autofdo-dir")
+            if args.autofdo_flush_windows < 1:
+                raise SystemExit("--autofdo-flush-windows must be >= 1")
+            autofdo_sink = AutoFDOSink(
+                args.autofdo_dir,
+                flush_windows=args.autofdo_flush_windows,
+                max_binaries=args.autofdo_max_binaries,
+                max_offsets=args.autofdo_max_offsets)
+            sink_list.append(autofdo_sink)
+        if "series" in secondary_names:
+            sink_list.append(SeriesSink(max_sets=args.series_max_sets))
+        if "alerts" in secondary_names:
+            if not args.alerts_path:
+                raise SystemExit("--sink alerts needs --alerts-path")
+            if regression_sentinel is None:
+                raise SystemExit("--sink alerts needs --regression "
+                                 "(with --hotspots): the alerts sink "
+                                 "drains the sentinel's verdicts")
+            sink_list.append(AlertsSink(args.alerts_path,
+                                        sentinel=regression_sentinel))
+        sink_registry = SinkRegistry(sink_list)
+    if regression_sentinel is not None and autofdo_sink is not None:
+        # Close the PGO loop: a drifted build's profdata gets a crash-
+        # only .stale marker so downstream consumers refresh.
+        regression_sentinel.bind_staleness(autofdo_sink.mark_stale)
     feeder = None
     # The loop's runtime edges, the same on both write paths.
     runtime = dict(window_sink=window_sink,
@@ -1112,7 +1540,8 @@ def _run(args) -> int:
                    trace_recorder=recorder,
                    duration_s=args.profiling_duration, identity=identity,
                    labels_manager=labels, debuginfo=debuginfo,
-                   manage_gc=True, on_iteration=on_iteration)
+                   manage_gc=True, on_iteration=on_iteration,
+                   admission=admission)
     if args.fast_encode:
         if streaming:
             from parca_agent_tpu_torch.profiler.streaming import (
@@ -1134,7 +1563,9 @@ def _run(args) -> int:
                                1, args.statics_snapshot_interval),
                            streaming_feeder=feeder,
                            encode_deadline_s=args.encode_deadline,
-                           **runtime)
+                           hotspot_store=hotspot_store,
+                           sinks=sink_registry,
+                           regression=regression_sentinel, **runtime)
         if statics_store is not None:
             # Adopt the previous run's snapshot before anything touches
             # the aggregator or the encoder (registries install only into
@@ -1155,7 +1586,7 @@ def _run(args) -> int:
         symbolizer = Symbolizer(
             ksym=KsymCache(),
             perf=perf_cache if perf_cache is not None else PerfMapCache(),
-            quarantine=quarantine)
+            quarantine=quarantine, admission=admission)
         loop = AggregateLoop(source, aggregator, symbolizer=symbolizer,
                              profile_writer=writer, on_window=emit,
                              **runtime)
@@ -1192,6 +1623,8 @@ def _run(args) -> int:
                "device": health.snapshot(), "watchdog": loop.watchdog.stats}
         if quarantine is not None:
             out["quarantine"] = quarantine.snapshot()
+        if admission is not None:
+            out["admission"] = admission.snapshot()
         if feeder is not None:
             out["feeder"] = {k: feeder.stats[k] for k in (
                 "feed_errors", "feed_hangs", "drain_map_errors",
@@ -1228,7 +1661,9 @@ def _run(args) -> int:
             extra_metrics=extra_metrics, capture_info=extra_metrics,
             supervisor=sup, quarantine=quarantine, device_health=health,
             statics_store=statics_store, recorder=recorder,
-            identity=identity, device_telemetry=telemetry)
+            identity=identity, device_telemetry=telemetry,
+            hotspots=hotspot_store, sinks=sink_registry,
+            admission=admission, regression=regression_sentinel)
     except OSError as e:
         log.error("cannot listen on --http-address",
                   address=args.http_address, error=str(e))

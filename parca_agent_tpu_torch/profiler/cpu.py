@@ -82,8 +82,20 @@ pipeline's worker), and each iteration ticks the quarantine registry,
 the device-health registry and device telemetry's window budget
 (runtime/device_telemetry.py).
 
-Left out of this port (parca_agent_tpu has them): admission, sinks,
-hotspots and the regression sentinel.
+The analytics ride both loops as in the original. With ``admission``
+(runtime/admission.py) each window's usage is charged to its tenants
+before the close and the controller ticks after it, beside the
+quarantine registry; the loop without --fast-encode rides each profile
+down the larger of both ladders. On the fast path, a ``hotspot_store``
+(runtime/hotspots.py) and a ``regression`` sentinel
+(runtime/regression.py) fold each shipped window on the encode
+pipeline's worker, through a registry view taken on this thread at the
+hand-off (the sentinel in the ``finally`` arm, so a failed hotspot fold
+never costs the window's judgment); without the pipeline they are not
+fed, with a warning. ``sinks`` (a sinks.SinkRegistry) replaces the
+pprof ship: its primary is the same write path, its secondaries
+(AutoFDO, series, alerts) read the prepared window and can never fail
+the ship; a window that ships scalar profiles is counted as skipped.
 """
 
 from __future__ import annotations
@@ -317,7 +329,8 @@ class WindowLoop:
                  device_health=None, quarantine=None, trace_recorder=None,
                  duration_s: float = 10.0, identity=None, debuginfo=None,
                  labels_manager=None, manage_gc: bool = False,
-                 on_iteration: Callable[[int], None] | None = None):
+                 on_iteration: Callable[[int], None] | None = None,
+                 admission=None):
         self._source = source
         self._writer = profile_writer
         self._on_window = on_window
@@ -334,6 +347,11 @@ class WindowLoop:
         # Ingest containment: the loop owns the window clock and ticks
         # the registry once an iteration.
         self._quarantine = quarantine
+        # Multi-tenant admission: each window's usage is charged before
+        # the close and the controller ticks after it, on the loop's
+        # window clock (both entry points are fail-open by the
+        # controller's own contract).
+        self._admission = admission
         # The window flight recorder (runtime/trace.py); tracing is
         # fail-open, so no call to it needs a guard.
         self._recorder = trace_recorder
@@ -367,6 +385,13 @@ class WindowLoop:
         if self._labels is not None:
             return self._labels.label_set("parca_agent_cpu", pid)
         return labels_for(pid)
+
+    def _locked_labels_for(self, pid: int) -> dict | None:
+        """Label lookup under the write lock, the serialization
+        _write_one uses, so the rollup fold and the sinks (encode worker)
+        never race the labels manager's caches."""
+        with self._write_mu:
+            return self._labels_for(pid)
 
     def _write_one(self, pid: int, payload) -> bool:
         """Labels lookup, write and count for one profile; False when
@@ -411,6 +436,12 @@ class WindowLoop:
                 # invalidated before the new process's samples resolve
                 # through it.
                 self._identity.observe_window(snapshot.pids)
+            if self._admission is not None:
+                # Before the close: the ladder levels this window's
+                # profiles ride were set by the last tick (admission
+                # reacts one window behind, as quarantine cooldowns do).
+                self._admission.account_window(snapshot.pids,
+                                               snapshot.counts)
             tr.annotate(time_ns=snapshot.time_ns,
                         samples=int(snapshot.total_samples()))
             t_start = time.perf_counter()
@@ -435,6 +466,15 @@ class WindowLoop:
         if self._quarantine is not None:
             # Quarantine time is window time.
             self._quarantine.tick_window()
+        if self._admission is not None:
+            # The governor judges this window's close latency, registry
+            # rows and encode backpressure.
+            self._admission.tick_window(
+                close_latency_s=self.metrics.last_aggregate_duration_s,
+                registry_rows=int(
+                    getattr(self.aggregator, "_next_id", 0) or 0),
+                backlog=(self.pipeline.stats["backpressure_fallbacks"]
+                         if self.pipeline is not None else 0))
         if self._health is not None:
             self._health.tick_window()
         self.metrics.last_attempt_duration_s = time.perf_counter() - t_start
@@ -553,7 +593,8 @@ class AggregateLoop(WindowLoop):
         # The ladder first (level-1 pids lose local symbols, level-2 pids
         # collapse to scalar counts), then symbolize, which skips
         # laddered pids: a degraded profile is never symbolized again.
-        profiles = apply_ladder(profiles, self._quarantine)
+        profiles = apply_ladder(profiles, self._quarantine,
+                                self._admission)
         sym_ms = None
         if self._symbolizer is not None:
             with tr.span("symbolize") as sp_sym:
@@ -605,7 +646,9 @@ class CPUProfiler(WindowLoop):
                  duration_s: float = 10.0, identity=None, debuginfo=None,
                  symbolizer=None, labels_manager=None,
                  manage_gc: bool = False,
-                 on_iteration: Callable[[int], None] | None = None):
+                 on_iteration: Callable[[int], None] | None = None,
+                 admission=None, hotspot_store=None, sinks=None,
+                 regression=None):
         if symbolizer is not None:
             # Profiles ship unsymbolized on this path (the server
             # symbolizes, as with the reference agent).
@@ -623,7 +666,8 @@ class CPUProfiler(WindowLoop):
                          trace_recorder=trace_recorder,
                          duration_s=duration_s, identity=identity,
                          debuginfo=debuginfo, labels_manager=labels_manager,
-                         manage_gc=manage_gc, on_iteration=on_iteration)
+                         manage_gc=manage_gc, on_iteration=on_iteration,
+                         admission=admission)
         self._aggregator = aggregator
         # The inline encode's soft deadline, and its abandoned encode.
         self._encode_deadline = encode_deadline_s or None
@@ -644,10 +688,40 @@ class CPUProfiler(WindowLoop):
                 _log.warn("statics snapshotting needs the encode "
                           "pipeline; snapshots disabled (adoption still "
                           "works)")
+        # The analytics read the labels through the write lock; the
+        # sinks' primary is this loop's own write path.
+        self._hotspots = hotspot_store
+        self._regression = regression
+        for rider in (hotspot_store, regression):
+            if rider is not None and labels_manager is not None \
+                    and rider.labels_for is None:
+                rider.labels_for = self._locked_labels_for
+        self._sinks = sinks
+        self._sinks_closed = False
+        self._primary_written = 0
+        if sinks is not None:
+            sinks.bind(ship=self._ship_primary,
+                       labels_for=(self._locked_labels_for
+                                   if labels_manager is not None else None))
+            # The inline path's prep stash only when a secondary reads it.
+            self._encoder.track_prep = sinks.has_secondary
+        rolls = hotspot_store is not None or regression is not None
         self._pipeline = (EncodePipeline(
             self._encoder, ship=self._ship_encoded, snapshot=snapshot,
-            snapshot_every=statics_snapshot_every if snapshot else 0)
+            snapshot_every=statics_snapshot_every if snapshot else 0,
+            rollup=self._rollup_window if rolls else None,
+            rollup_capture=self._rollup_capture if rolls else None,
+            # The sinks read the same registry view the rollups do.
+            sink_capture=(self._rollup_capture if sinks is not None
+                          and sinks.has_secondary else None))
                           if encode_pipeline else None)
+        if not encode_pipeline:
+            if hotspot_store is not None:
+                _log.warn("hotspot rollups need the encode pipeline; "
+                          "windows will not be folded")
+            if regression is not None:
+                _log.warn("the regression sentinel needs the encode "
+                          "pipeline; windows will not be judged")
         self._feeder = streaming_feeder
         if streaming_feeder is not None:
             # Statics amortization: the feeder prebuilds static sections
@@ -694,6 +768,11 @@ class CPUProfiler(WindowLoop):
             if not ok:
                 raise RuntimeError("encode pipeline did not flush its last "
                                    f"window in {FLUSH_TIMEOUT_S} s")
+        if self._sinks is not None and not self._sinks_closed:
+            # After the pipeline drained, once: the AutoFDO accumulator's
+            # final flush persists the partial interval.
+            self._sinks_closed = True
+            self._sinks.close()
 
     def _raise_pipeline_error(self) -> None:
         p = self._pipeline
@@ -760,8 +839,14 @@ class CPUProfiler(WindowLoop):
             return
         tr.add_span("encode", self.metrics.last_encode_duration_s)
         tr.annotate(path="inline")
-        with tr.span("ship"):
-            n = self._write_encoded(out)
+        try:
+            with tr.span("ship"):
+                n = self._write_encoded(out)
+        finally:
+            # The secondaries run even when the pprof write raised: a
+            # store outage must not starve them.
+            if self._sinks is not None:
+                self._emit_sinks_inline(out, snapshot)
         record.update(path="inline",
                       encode_ms=self.metrics.last_encode_duration_s * 1e3)
         self._finish(record, n)
@@ -833,6 +918,9 @@ class CPUProfiler(WindowLoop):
     def _write_scalar(self, counts, snapshot: WindowSnapshot) -> int:
         """Ship each pid's scalar profile: one sample holding the pid's
         exact mass in this window's counts."""
+        if self._sinks is not None:
+            # No prepared window on this path: counted, never seen.
+            self._sinks.count_skipped()
         counts = np.asarray(counts)
         id_pid = np.asarray(self._aggregator._id_pid[:len(counts)],
                             np.int64)
@@ -903,12 +991,75 @@ class CPUProfiler(WindowLoop):
                 n += 1
         return n
 
+    def _ship_primary(self, out) -> None:
+        """The sink registry's primary ship: the write path itself."""
+        self._primary_written = self._write_encoded(out)
+
     def _ship_encoded(self, out, prep) -> None:
-        """EncodePipeline ship hook (worker thread)."""
+        """EncodePipeline ship hook (worker thread): with sinks, the
+        registry runs the primary pprof ship (the same write path, the
+        same bytes) and fans the window out to the secondaries, whose
+        failures are counted there and never reach the pipeline's ship
+        guard."""
         record, timed = self._handed.popleft()
         enc_s = self._pipeline.stats["last_encode_s"]
         self.metrics.last_encode_duration_s = enc_s
-        n = self._write_encoded(out)
+        if self._sinks is not None:
+            self._primary_written = 0
+            self._sinks.emit_window(out, prep)
+            n = self._primary_written
+        else:
+            n = self._write_encoded(out)
         timed.wait(FLUSH_TIMEOUT_S)
         record["encode_ms"] = enc_s * 1e3
         self._finish(record, n)
+
+    def _rollup_capture(self, prep):
+        """EncodePipeline rollup-capture hook (this thread, at the
+        hand-off): the per-id mirror references the fold will read,
+        taken before the next window's first feed can rotate or compact
+        them. A failure here is counted by the pipeline's guard."""
+        from parca_agent_tpu_torch.runtime.hotspots import RegistryView
+
+        return RegistryView(self._aggregator)
+
+    def _rollup_window(self, prep, ctx) -> None:
+        """EncodePipeline rollup hook (worker thread): fold the shipped
+        window's live (id, count) rows into the hotspot store through
+        the hand-off's registry view, then hand the same view to the
+        regression sentinel. The sentinel rides in the finally arm (its
+        fold never raises), so a hotspot fold failure, which propagates
+        to the pipeline's rollup_errors counter, cannot starve the
+        window's judgment."""
+        try:
+            if self._hotspots is not None:
+                self._hotspots.fold_from_aggregator(
+                    ctx, prep.idx, prep.vals, prep.time_ns,
+                    prep.duration_ns)
+        finally:
+            if self._regression is not None:
+                self._regression.fold_from_prepared(ctx, prep)
+
+    def _emit_sinks_inline(self, out, snapshot: WindowSnapshot) -> None:
+        """The secondaries of an inline-encoded window (this thread: no
+        pipeline, or the hand-off was refused). The pprof bytes already
+        shipped; the secondaries read the same prepared rows through a
+        registry view taken here, the thread that rotates. Fail-open: a
+        sink bug costs the sinks one window, never the iteration."""
+        try:
+            if not self._sinks.has_secondary:
+                return
+            prep = getattr(self._encoder, "last_prep", None)
+            if prep is None or prep.time_ns != snapshot.time_ns:
+                # The encoder did not stash this window: skip rather
+                # than misattribute.
+                self._sinks.count_skipped()
+                return
+            from parca_agent_tpu_torch.runtime.hotspots import RegistryView
+
+            prep.sink_ctx = RegistryView(self._aggregator)
+            self._sinks.emit_secondary(out, prep)
+        except Exception as e:  # noqa: BLE001 - sinks are best-effort
+            self._sinks.count_capture_error()
+            _log.warn("inline sink fan-out failed; window skipped for "
+                      "secondary sinks", error=repr(e))

@@ -1,5 +1,5 @@
 """Cadence-invariant window-clock conversions (the port's own copy of
-parca_agent_tpu/runtime/window_clock.py, the part its CLI needs).
+parca_agent_tpu/runtime/window_clock.py).
 
 Window-count knobs (such as the dictionary's cold-stack rotation age)
 were tuned at the reference agent's 10-second profiling duration. They
@@ -29,3 +29,11 @@ def windows_for(n, window_s: float) -> int:
     (``windows_for(n, 10.0) == n`` for integer ``n``)."""
     w = check_window_s(window_s)
     return max(1, round(float(n) * REFERENCE_WINDOW_S / w))
+
+
+def per_window(rate, window_s: float) -> float:
+    """A per-reference-window budget ``rate`` as a per-``window_s``
+    budget (same per-second rate). Exact identity at the reference
+    cadence."""
+    w = check_window_s(window_s)
+    return float(rate) * w / REFERENCE_WINDOW_S

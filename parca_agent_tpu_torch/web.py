@@ -15,13 +15,16 @@ Built on http.server (stdlib).
 profiler/cpu.py (their metrics, ``aggregator``, ``pipeline``,
 ``encoder``, ``feeder``, ``symbolizer`` and ``duration_s``), the batch
 client, the supervisor, the quarantine and device-health registries,
-the statics store, the flight recorder, device telemetry and the
-process identity. The device-state gauge is one-hot over this package's
-states (runtime/device_health.py STATES: no degraded state, so no
-cooldown or shadow series). The hotspot rollups, the regression
-sentinel, the admission controller, the output sinks and the soak are
-not in this package: their families are absent, and `/hotspots` and
-`/diff` answer 503 as the original's do when those stores are off.
+the statics store, the flight recorder, device telemetry, the process
+identity and the analytics: the hotspot rollups (runtime/hotspots.py),
+the admission controller (runtime/admission.py), the regression
+sentinel (runtime/regression.py) and the output sinks (sinks/). The
+device-state gauge is one-hot over this package's states
+(runtime/device_health.py STATES: no degraded state, so no cooldown or
+shadow series). `/hotspots` serves the rollups' top K and `/diff` the
+sentinel's verdicts or a range diff over the rollups; each answers 503
+when its store is off. The soak is not in this package: its families
+are absent.
 """
 
 from __future__ import annotations
@@ -363,7 +366,8 @@ def render_metrics(profilers, batch_client=None, extra: dict | None = None,
                    supervisor=None, quarantine=None,
                    device_health=None, statics_store=None,
                    recorder=None, identity=None,
-                   device_telemetry=None) -> str:
+                   device_telemetry=None, hotspots=None, sinks=None,
+                   admission=None, regression=None) -> str:
     """Prometheus text exposition of the agent's metric contract: every
     family carries a ``# TYPE`` line and label values are escaped (the
     strict parser of tests/test_metrics_format.py holds the output)."""
@@ -458,6 +462,67 @@ def render_metrics(profilers, batch_client=None, extra: dict | None = None,
             emit(name if name.endswith("_total") else name + "_total", v)
     if device_telemetry is not None:
         _emit_device_telemetry(buf, emit, device_telemetry)
+    if hotspots is not None:
+        # Hotspot rollup observability (docs/hotspots.md): per-level
+        # ring population/footprint/evictions for BOTH scopes, fold and
+        # query counters, and the fleet-round health the degrade path
+        # promises operators (ok/degraded rounds, staleness, age).
+        m = hotspots.metrics()
+        for lv in m["levels"]:
+            lab = {"level": lv["name"], "scope": lv["scope"]}
+            emit("parca_agent_hotspot_level_summaries", lv["summaries"],
+                 lab)
+            emit("parca_agent_hotspot_level_bytes", lv["bytes"], lab)
+            emit("parca_agent_hotspot_level_evictions_total",
+                 lv["evictions"], lab)
+        emit("parca_agent_hotspot_windows_folded_total",
+             m["windows_folded"])
+        emit("parca_agent_hotspot_fold_errors_total", m["fold_errors"])
+        emit("parca_agent_hotspot_last_fold_seconds",
+             round(m["last_fold_s"], 6))
+        emit("parca_agent_hotspot_queries_total", m["queries_total"])
+        emit("parca_agent_hotspot_query_errors_total", m["query_errors"])
+        emit("parca_agent_hotspot_context_entries", m["context_entries"])
+        emit("parca_agent_hotspot_fleet_rounds_ok_total",
+             m["fleet_rounds_ok"])
+        emit("parca_agent_hotspot_fleet_rounds_degraded_total",
+             m["fleet_rounds_degraded"])
+        emit("parca_agent_hotspot_fleet_stale", int(m["stale"]))
+        if "fleet_age_s" in m:
+            emit("parca_agent_hotspot_fleet_age_seconds", m["fleet_age_s"])
+    if admission is not None:
+        # Multi-tenant admission (docs/robustness.md "multi-tenant
+        # admission"): per-tenant usage/ladder gauges at BOUNDED
+        # cardinality — the controller hands back the top-N tenants by
+        # last-window mass plus every currently-degraded tenant and one
+        # "other" rollup, so a pod-churn host can never blow up the
+        # scrape — and the admission/resolver counters.
+        m = admission.metrics()
+        for t in m["tenants"]:
+            lab = {"tenant": t["tenant"]}
+            if t["tenant"] != "other":
+                # The rollup's membership is recomputed per scrape, so
+                # a cumulative "other" series would DROP whenever a
+                # tenant migrates into the top-N — a fake counter
+                # reset. Only named tenants get the monotonic family;
+                # the rollup keeps the last-window gauges below.
+                emit("parca_agent_tenant_samples_total", t["samples"],
+                     lab)
+            emit("parca_agent_tenant_window_samples",
+                 t["window_samples"], lab)
+            emit("parca_agent_tenant_window_pids", t["pids"], lab)
+            emit("parca_agent_tenant_ladder_level", t["level"], lab)
+            emit("parca_agent_tenant_over_quota", t["over_quota"], lab)
+        stats = dict(m["stats"])
+        # Fork/exec-storm containment gets its own first-class family
+        # (the zoo's fork-storm bar keys on it); the rest of the
+        # controller's counters export under the generic prefix.
+        emit("parca_agent_fork_storm_shed_total",
+             stats.pop("fork_storm_sheds_total", 0))
+        for k, v in stats.items():
+            emit(f"parca_agent_admission_{k}", v)
+        for k, v in m["resolver"].items():
+            emit(f"parca_agent_tenant_{k}", v)
     if identity is not None:
         # Generation-stamped process identity (process/identity.py).
         m = identity.metrics()
@@ -469,6 +534,61 @@ def render_metrics(profilers, batch_client=None, extra: dict | None = None,
              m.get("invalidations_total", 0))
         emit("parca_agent_pid_identity_errors_total",
              m.get("errors_total", 0))
+    if regression is not None:
+        # Regression sentinel (docs/regression.md): verdict counters by
+        # kind, the fold/seal/baseline lifecycle counters, judgment
+        # state gauges (groups, frozen baselines, worst drift), and the
+        # crash-only persistence + staleness-mark accounting.
+        m = regression.metrics()
+        for kind, n in sorted(m.pop("verdicts").items()):
+            emit("parca_agent_regression_verdicts_total", n,
+                 {"kind": kind})
+        for k in ("windows_folded", "windows_skipped", "fold_errors",
+                  "rollups_sealed", "groups_dropped", "keys_overflow",
+                  "rows_dropped", "verdicts_suppressed",
+                  "alerts_dropped", "baselines_frozen",
+                  "baseline_saves", "baseline_save_errors",
+                  "baselines_adopted", "baseline_adopt_errors",
+                  "stale_marks", "stale_mark_errors", "queries",
+                  "query_errors"):
+            emit(f"parca_agent_regression_{k}_total", m[k])
+        emit("parca_agent_regression_groups", m["groups"])
+        emit("parca_agent_regression_baselines", m["baselines"])
+        emit("parca_agent_regression_alerts_pending",
+             m["alerts_pending"])
+        emit("parca_agent_regression_drift_max", m["drift_max"])
+        emit("parca_agent_regression_last_fold_seconds",
+             round(m["last_fold_s"], 6))
+    if sinks is not None:
+        # Output-backend sinks (docs/sinks.md): the contract trio —
+        # windows/bytes/errors per sink — as labeled families, every
+        # backend-specific stat under its own family, plus the series
+        # sink's per-label-set cumulative sample counts (the OTLP-style
+        # scalar series the sink exists to serve).
+        m = sinks.metrics()
+        reg = m.pop("_registry", {})
+        for name, st in sorted(m.items()):
+            lab = {"sink": name}
+            emit("parca_agent_sink_windows_total", st.pop("windows", 0),
+                 lab)
+            emit("parca_agent_sink_errors_total", st.pop("errors", 0),
+                 lab)
+            emit("parca_agent_sink_bytes_total", st.pop("bytes", 0), lab)
+            emit("parca_agent_sink_last_emit_seconds",
+                 round(st.pop("last_emit_s", 0.0), 6), lab)
+            for k, v in sorted(st.items()):
+                if isinstance(v, (int, float)):
+                    emit(f"parca_agent_sink_{k}",
+                         round(v, 6) if isinstance(v, float) else v, lab)
+        emit("parca_agent_sink_windows_skipped_total",
+             reg.get("windows_skipped", 0))
+        emit("parca_agent_sink_capture_errors_total",
+             reg.get("capture_errors", 0))
+        series_sink = sinks.sink("series")
+        if series_sink is not None:
+            for pt in series_sink.series():
+                buf.sample("parca_agent_sink_series_samples_total", "",
+                           pt["labels"], pt["value"], mtype="counter")
     for k, v in (extra or {}).items():
         # Extra metrics may arrive with pre-rendered labels
         # ("name{k=\"v\"}"): split so the family still gets its TYPE
@@ -489,7 +609,8 @@ class AgentHTTPServer:
                  version: str = "dev", extra_metrics=None,
                  capture_info=None, supervisor=None, quarantine=None,
                  device_health=None, statics_store=None, recorder=None,
-                 identity=None, device_telemetry=None):
+                 identity=None, device_telemetry=None, hotspots=None,
+                 sinks=None, admission=None, regression=None):
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -520,7 +641,10 @@ class AgentHTTPServer:
                         statics_store=outer.statics_store,
                         recorder=outer.recorder,
                         identity=outer.identity,
-                        device_telemetry=outer.device_telemetry).encode())
+                        device_telemetry=outer.device_telemetry,
+                        hotspots=outer.hotspots, sinks=outer.sinks,
+                        admission=outer.admission,
+                        regression=outer.regression).encode())
                 elif url.path == "/healthy":
                     self._send(200, b"ok\n")
                 elif url.path == "/healthz":
@@ -528,9 +652,9 @@ class AgentHTTPServer:
                 elif url.path == "/query":
                     self._query(url)
                 elif url.path == "/hotspots":
-                    self._send(503, b"hotspot rollups not enabled\n")
+                    self._hotspots(url)
                 elif url.path == "/diff":
-                    self._send(503, b"regression sentinel not enabled\n")
+                    self._diff(url)
                 elif url.path == "/debug/windows":
                     self._debug_windows(url)
                 elif url.path == "/debug/device":
@@ -649,9 +773,9 @@ class AgentHTTPServer:
                 group (healthy/degraded/dead/exited). 200 while the agent
                 is healthy or degraded; 503 once a critical actor is
                 dead. Without a supervisor, plain liveness like /healthy.
-                The quarantine, device, statics and process-identity
-                sections are surfaced for operators and never decide the
-                status."""
+                The quarantine, device, statics, hotspot, sink,
+                admission, process-identity and regression sections are
+                surfaced for operators and never decide the status."""
                 body = {"status": "healthy", "actors": {}}
                 code, indent = 200, None
                 if outer.supervisor is not None:
@@ -665,8 +789,16 @@ class AgentHTTPServer:
                     body["device"] = outer.device_health.snapshot()
                 if outer.statics_store is not None:
                     body["statics"] = outer.statics_store.snapshot_info()
+                if outer.hotspots is not None:
+                    body["hotspots"] = outer.hotspots.snapshot()
+                if outer.sinks is not None:
+                    body["sinks"] = outer.sinks.snapshot()
+                if outer.admission is not None:
+                    body["admission"] = outer.admission.snapshot()
                 if outer.identity is not None:
                     body["process_identity"] = outer.identity.snapshot()
+                if outer.regression is not None:
+                    body["regression"] = outer.regression.snapshot()
                 self._send(code, json.dumps(body, indent=indent).encode(),
                            "application/json")
 
@@ -678,6 +810,94 @@ class AgentHTTPServer:
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
+
+            def _hotspots(self, url):
+                """Top-K hottest stacks from the pre-merged rollups
+                (docs/hotspots.md): ?k=N, ?t0=/-t1= (unix seconds) or
+                ?range=S (seconds back from now), ?scope=local|fleet;
+                every other parameter is a label selector term. Answers
+                come from sealed summaries — this handler never touches
+                the capture/close path."""
+                if outer.hotspots is None:
+                    self._send(503, b"hotspot rollups not enabled\n")
+                    return
+                params = dict(urllib.parse.parse_qsl(url.query))
+                try:
+                    # Shared hygiene (module helpers): tenant selector
+                    # validation, float finiteness, k/scope — the same
+                    # gates /query and /diff ride.
+                    pop_tenant(params)
+                    k, scope = pop_k_scope(params)
+                    t0_s, t1_s = pop_time_range(params)
+                    body = outer.hotspots.query(
+                        k=k, t0_s=t0_s, t1_s=t1_s, selector=params,
+                        scope=scope)
+                except (ValueError, TypeError, OverflowError) as e:
+                    outer.hotspots.count_query_error()
+                    self._send(400, f"bad hotspot query: {e}\n".encode())
+                    return
+                self._send(200, json.dumps(body, indent=1).encode(),
+                           "application/json")
+
+            def _diff(self, url):
+                """The regression sentinel's read surface
+                (docs/regression.md). Two modes:
+
+                  * default — recent verdicts + per-group judgment
+                    state (?tenant=, ?build=, ?kind=, ?since=,
+                    ?limit=);
+                  * range diff — ?a0=&a1=&b0=&b1= (unix seconds):
+                    range A minus range B computed over the hotspot
+                    store's rollup levels (?k=, ?scope=local|fleet,
+                    label selector terms), every entry carrying
+                    exact/estimate bounds.
+
+                Parameter hygiene rides the same shared helpers as
+                /query and /hotspots; malformed values are 400s."""
+                if outer.regression is None:
+                    self._send(503, b"regression sentinel not enabled\n")
+                    return
+                params = dict(urllib.parse.parse_qsl(url.query))
+                try:
+                    pop_tenant(params)
+                    bounds = [pop_float(params, n)
+                              for n in ("a0", "a1", "b0", "b1")]
+                    if any(b is not None for b in bounds):
+                        if any(b is None for b in bounds):
+                            raise ValueError(
+                                "a range diff needs all of a0,a1,b0,b1")
+                        if outer.hotspots is None:
+                            self._send(503, b"range diff needs hotspot "
+                                            b"rollups\n")
+                            return
+                        k, scope = pop_k_scope(params)
+                        body = outer.regression.diff_ranges(
+                            outer.hotspots, *bounds, k=k,
+                            selector=params, scope=scope)
+                    else:
+                        since = pop_float(params, "since")
+                        limit = int(params.pop("limit", "100"))
+                        if limit < 1:
+                            raise ValueError("limit must be >= 1")
+                        tenant = params.pop("tenant", None)
+                        build = params.pop("build", None)
+                        kind = params.pop("kind", None)
+                        if params:
+                            # Unlike the selector-consuming range mode,
+                            # verdict mode has a closed parameter set —
+                            # a typo'd filter must be a 400, not an
+                            # unfiltered 200 that reads as "no match".
+                            raise ValueError(
+                                f"unknown parameters {sorted(params)}")
+                        body = outer.regression.verdicts(
+                            tenant=tenant, build=build, kind=kind,
+                            since_s=since, limit=limit)
+                except (ValueError, TypeError, OverflowError) as e:
+                    outer.regression.count_query_error()
+                    self._send(400, f"bad diff query: {e}\n".encode())
+                    return
+                self._send(200, json.dumps(body, indent=1).encode(),
+                           "application/json")
 
             def _query(self, url):
                 if outer.listener is None:
@@ -718,6 +938,10 @@ class AgentHTTPServer:
         self.recorder = recorder
         self.identity = identity
         self.device_telemetry = device_telemetry
+        self.hotspots = hotspots
+        self.sinks = sinks
+        self.admission = admission
+        self.regression = regression
         self.version = version
         self.extra_metrics = extra_metrics
         self.capture_info = capture_info

@@ -6,6 +6,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.cpu import CPUAggregator as JaxCPU
 from parca_agent_tpu.capture import formats as jax_formats
@@ -17,6 +18,8 @@ from parca_agent_tpu_torch.capture import formats
 from parca_agent_tpu_torch.capture import synthetic
 from parca_agent_tpu_torch.ops import hashing
 from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
+
+torch.set_num_threads(1)
 
 SPECS = [
     dict(n_pids=10, n_unique_stacks=300, seed=1),

@@ -17,6 +17,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.capture.synthetic import SyntheticSpec as JaxSpec
@@ -26,6 +27,8 @@ from parca_agent_tpu.utils import faults
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
+
+torch.set_num_threads(1)
 
 CAP = 1 << 12
 # The carry's counters, moved alike in both packages.

@@ -13,6 +13,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.capture.synthetic import SyntheticSpec as JaxSpec
@@ -22,6 +23,8 @@ from parca_agent_tpu_torch.aggregator.cpu import CPUAggregator
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.pprof.builder import build_pprof
+
+torch.set_num_threads(1)
 
 CAP = 1 << 12
 

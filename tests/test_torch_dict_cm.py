@@ -17,6 +17,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.pprof.builder import build_pprof as jax_build_pprof
@@ -27,6 +28,8 @@ from parca_agent_tpu_torch.aggregator.dict import (
 )
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.pprof.builder import build_pprof
+
+torch.set_num_threads(1)
 
 
 def _pair(capacity: int, **kw):

@@ -18,6 +18,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from parca_agent_tpu.discovery import cgroup as jax_cgroup
 from parca_agent_tpu.discovery import cri as jax_cri
@@ -40,6 +41,8 @@ from parca_agent_tpu_torch.metadata.providers import (
     ServiceDiscoveryProvider as PortSD,
 )
 from parca_agent_tpu_torch.utils.vfs import FakeFS as PortFS
+
+torch.set_num_threads(1)
 
 CID = "a" * 64
 CID2 = "b" * 64

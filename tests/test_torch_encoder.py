@@ -21,6 +21,7 @@ import gzip
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.capture import formats as jax_formats
@@ -34,6 +35,8 @@ from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
 from parca_agent_tpu_torch.pprof import vec
 from parca_agent_tpu_torch.pprof.builder import build_pprof, parse_pprof
 from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
+
+torch.set_num_threads(1)
 
 # Structural stats that must move the same in both encoders.
 _STATS = ("windows_encoded", "template_rows", "dead_rows",

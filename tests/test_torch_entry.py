@@ -69,7 +69,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "kconfig", "discovery", "discovery.manager",
                 "discovery.cgroup", "discovery.systemd", "discovery.cri",
                 "discovery.kubernetes", "profiler.selfprofile",
-                "runtime.admission"):
+                "runtime.admission", "runtime.hotspots",
+                "runtime.regression", "sinks", "sinks.base", "sinks.pprof",
+                "sinks.registry", "sinks.autofdo", "sinks.series",
+                "sinks.alerts"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"

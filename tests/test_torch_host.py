@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.capture import formats as jax_formats
@@ -21,6 +22,8 @@ from parca_agent_tpu.capture.synthetic import generate as jax_generate
 from parca_agent_tpu_torch.aggregator.dict import DictAggregator
 from parca_agent_tpu_torch.capture import formats
 from parca_agent_tpu_torch.capture.synthetic import SyntheticSpec, generate
+
+torch.set_num_threads(1)
 
 I32 = np.iinfo(np.int32)
 

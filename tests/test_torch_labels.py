@@ -14,6 +14,7 @@ import dataclasses
 import random
 
 import pytest
+import torch
 
 from parca_agent_tpu import config as jax_config
 from parca_agent_tpu.labels import manager as jax_manager
@@ -25,6 +26,8 @@ from parca_agent_tpu_torch.labels import manager as port_manager
 from parca_agent_tpu_torch.labels import relabel as port_relabel
 from parca_agent_tpu_torch.metadata import providers as port_providers
 from parca_agent_tpu_torch.utils.vfs import FakeFS
+
+torch.set_num_threads(1)
 
 ACTIONS = sorted(port_relabel.RelabelConfig._ACTIONS)
 NAMES = ["comm", "pid", "node", "env", "cgroup_name", "__meta_app",

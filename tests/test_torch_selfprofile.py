@@ -18,11 +18,14 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from parca_agent_tpu.profiler import selfprofile as jax_sp
 from parca_agent_tpu_torch.pprof.builder import parse_pprof
 from parca_agent_tpu_torch.profiler import selfprofile as port_sp
 from parca_agent_tpu_torch.web import AgentHTTPServer
+
+torch.set_num_threads(1)
 
 
 def _busy(stop):

@@ -221,10 +221,43 @@ def test_a14_flag_matches_the_original(flag):
         == (type(jax), jax.dest, jax.default, jax.choices, jax.nargs)
 
 
+A15_FLAGS = [
+    "--tenant-quota-samples", "--tenant-quota-pids", "--tenant-burst-windows",
+    "--tenant-top-n", "--overload-close-latency", "--overload-registry-rows",
+    "--overload-backlog", "--overload-shed-after", "--overload-recover-after",
+    "--fork-storm-new-pids", "--hotspots", "--hotspot-top-k",
+    "--hotspot-candidates", "--hotspot-cm-depth", "--hotspot-cm-width",
+    "--hotspot-rollup-intervals", "--hotspot-level-bytes",
+    "--hotspot-stale-after", "--regression", "--regression-interval",
+    "--regression-baseline-windows", "--regression-path",
+    "--regression-sigma", "--regression-min-count", "--regression-min-ratio",
+    "--regression-drift-threshold", "--regression-max-groups",
+    "--regression-max-keys", "--alerts-path", "--sink", "--autofdo-dir",
+    "--autofdo-flush-windows", "--autofdo-max-binaries",
+    "--autofdo-max-offsets", "--series-max-sets"]
+
+
+@pytest.mark.parametrize("flag", A15_FLAGS)
+def test_a15_flag_matches_the_original(flag):
+    port, jax = (_action(m.build_parser(), flag) for m in (cli, jax_cli))
+    assert (type(port), port.dest, port.default, port.choices, port.nargs,
+            port.type, port.help) == \
+        (type(jax), jax.dest, jax.default, jax.choices, jax.nargs, jax.type,
+         jax.help)
+
+
 def test_the_cli_has_71_flags():
+    """The CLI's flag count: 71 before the analytics, whose 35 flags
+    (admission, hotspots, the regression sentinel, the sinks) make 106.
+    The one flag of the JAX CLI the port lacks is
+    --device-promote-after (no CPU fallback to promote from)."""
     flags = [a for a in cli.build_parser()._actions
              if a.option_strings and a.dest != "help"]
-    assert len(flags) == 71
+    assert len(flags) == 106
+    jax = {o for a in jax_cli.build_parser()._actions
+           if a.dest != "help" for o in a.option_strings}
+    port = {o for a in flags for o in a.option_strings}
+    assert jax - port == {"--device-promote-after"}
 
 
 def test_version_flag(capsys):
@@ -250,6 +283,23 @@ def _get(base, path, timeout=10):
             return r.status, r.read(), r.headers
     except urllib.error.HTTPError as e:
         return e.code, e.read(), e.headers
+
+
+def _trace_seq(base, timeout=30.0):
+    """The seq of window 1's trace once /debug/windows lists it complete
+    (a detached trace completes on the encode worker after its ship), as
+    tests/test_metrics_format.py reads it; 1 when tracing is off (the
+    route then answers 503 whatever the seq)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        code, body, _ = _get(base, "/debug/windows")
+        if code != 200:
+            return 1
+        done = [t["seq"] for t in json.loads(body)["traces"]
+                if t["complete"]]
+        if done or time.monotonic() > deadline:
+            return min(done, default=1)
+        time.sleep(0.02)
 
 
 def _small_window(seed: int):
@@ -322,11 +372,11 @@ def test_cli_serves_every_route(monkeypatch, capsys, tmp_path):
         seen["query_thread"] = threading.Thread(target=query, args=(base,))
         seen["query_thread"].start()
         for path in ("/", "/metrics", "/healthy", "/healthz",
-                     "/debug/windows", "/debug/trace/1",
-                     "/debug/trace/99999", "/debug/device",
+                     "/debug/windows", "/debug/trace/99999", "/debug/device",
                      "/debug/pprof/cmdline", "/debug/pprof/profile?seconds=0.2",
                      "/debug/pprof/heap?seconds=0.1", "/hotspots", "/diff"):
             seen[path] = _get(base, path)
+        seen["/debug/trace/1"] = _get(base, f"/debug/trace/{_trace_seq(base)}")
 
     h = Harness(monkeypatch, hook=hook)
     code, lines, err = h.run(
@@ -439,9 +489,10 @@ def test_cli_runs_without_the_recorders(monkeypatch, capsys, tmp_path,
     seen = {}
 
     def hook(base):
-        for path in ("/debug/windows", "/debug/trace/1", "/debug/device",
-                     "/metrics"):
+        for path in ("/debug/windows", "/debug/device", "/metrics"):
             seen[path] = _get(base, path)[0]
+        seen["/debug/trace/1"] = _get(
+            base, f"/debug/trace/{_trace_seq(base)}")[0]
 
     h = Harness(monkeypatch, windows=2, at=2, hook=hook)
     code, lines, err = h.run(capsys, "--aggregator", "dict", "--fast-encode",
@@ -501,10 +552,10 @@ KERNEL_EVENTS = {
 }
 
 
-def test_cli_metrics_families_equal_the_jax_clis(monkeypatch, capsys,
-                                                 tmp_path):
+def _families_of_both_clis(monkeypatch, capsys, tmp_path, extra=None):
     """Both CLIs replay the same three windows (--aggregator dict
-    --fast-encode); /metrics before the third window."""
+    --fast-encode, plus `extra(run_dir)` flags); /metrics before the
+    third window. Returns each one's {family: type}."""
     import parca_agent_tpu.capture.replay as jax_replay
     import parca_agent_tpu.runtime.device_telemetry as jax_dtel
     import parca_agent_tpu.runtime.trace as jax_trace
@@ -548,28 +599,125 @@ def test_cli_metrics_families_equal_the_jax_clis(monkeypatch, capsys,
 
     handlers = {sig: signal.getsignal(sig)
                 for sig in (signal.SIGINT, signal.SIGTERM)}
+
+    def run_flags(name):
+        out = flags + ["--local-store-directory", str(tmp_path / name)]
+        return out + (extra(tmp_path / f"{name}-run") if extra else [])
+
     try:
-        assert jax_cli.run(flags + ["--local-store-directory",
-                                    str(tmp_path / "jax")]) == 0
+        assert jax_cli.run(run_flags("jax")) == 0
     finally:
         # The JAX CLI installs process-global hooks and signal handlers.
         jax_trace.install(None)
         jax_dtel.install(None)
         for sig, handler in handlers.items():
             signal.signal(sig, handler)
-    assert cli.run(flags + ["--device", "cpu", "--local-store-directory",
-                            str(tmp_path / "port")]) == 0
+    assert cli.run(run_flags("port") + ["--device", "cpu"]) == 0
     capsys.readouterr()
-    jax_f, port_f = ({k: v["type"] for k, v in
-                      parse_prometheus_text(scraped[w]).items()}
-                     for w in ("jax", "port"))
+    return ({k: v["type"] for k, v in
+             parse_prometheus_text(scraped[w]).items()}
+            for w in ("jax", "port"))
+
+
+def _assert_families_agree(jax_f, port_f, device_path=KERNEL_EVENTS):
     assert set(jax_f) - set(port_f) <= JAX_ONLY
     assert set(jax_f) - set(port_f) >= JAX_ONLY - {
         "parca_agent_kernel_backend", "parca_agent_kernel_fallback",
         "parca_agent_kernel_interpret"}
-    assert set(port_f) - set(jax_f) <= KERNEL_EVENTS
+    assert set(port_f) - set(jax_f) <= device_path
     assert {k: port_f[k] for k in set(port_f) & set(jax_f)} == \
         {k: jax_f[k] for k in set(port_f) & set(jax_f)}
+
+
+def test_cli_metrics_families_equal_the_jax_clis(monkeypatch, capsys,
+                                                 tmp_path):
+    _assert_families_agree(*_families_of_both_clis(monkeypatch, capsys,
+                                                   tmp_path))
+
+
+def _analytics_flags(run_dir):
+    """The analytics' flags (hotspots, the regression sentinel judging
+    every window, every sink, tenant quotas), files under `run_dir`."""
+    return ["--hotspots", "--regression", "--regression-interval", "0.05",
+            "--regression-baseline-windows", "1",
+            "--sink", "pprof,autofdo,series,alerts",
+            "--autofdo-dir", str(run_dir / "afdo"),
+            "--autofdo-flush-windows", "1",
+            "--alerts-path", str(run_dir / "alerts.jsonl"),
+            "--tenant-quota-samples", "2000", "--tenant-quota-pids", "4"]
+
+
+ANALYTICS_FAMILIES = (
+    "parca_agent_hotspot_windows_folded_total",
+    "parca_agent_regression_windows_folded_total",
+    "parca_agent_admission_over_quota_windows_total",
+    "parca_agent_tenant_window_samples",
+    "parca_agent_sink_windows_total",
+)
+# The series sink's samples render once a window reached the sinks:
+# the JAX CLI's first windows take its CPU fallback (the scalar path,
+# which no sink sees) while its device probe is pending, as they do for
+# KERNEL_EVENTS.
+SINK_DATA = {"parca_agent_sink_series_samples_total"}
+
+
+def test_cli_metrics_families_equal_the_jax_clis_with_the_analytics(
+        monkeypatch, capsys, tmp_path):
+    """The same comparison with the analytics on in both CLIs: their
+    families are the same, and no family is added to JAX_ONLY."""
+    jax_f, port_f = _families_of_both_clis(monkeypatch, capsys, tmp_path,
+                                           _analytics_flags)
+    _assert_families_agree(jax_f, port_f, KERNEL_EVENTS | SINK_DATA)
+    assert all(f in port_f and f in jax_f for f in ANALYTICS_FAMILIES)
+
+
+def _store(path):
+    """(labels, decompressed profile) of each file of a local store
+    directory, sorted (a name is the labels, the write time, .pb.gz)."""
+    return sorted((f.name.rsplit(".", 3)[0], gzip.decompress(f.read_bytes()))
+                  for f in path.iterdir())
+
+
+def test_cli_serves_the_analytics(monkeypatch, capsys, tmp_path):
+    """The port's CLI with the analytics' flags on the CPU: /hotspots and
+    /diff answer 200 with their JSON, /metrics parses strictly and
+    carries their families, /healthz has their sections, the AutoFDO
+    directory holds profdata, and the stored pprof bytes equal a run's
+    with the pprof sink alone."""
+    seen = {}
+
+    def hook(base):
+        for path in ("/hotspots", "/hotspots?k=3&tenant=unknown", "/diff",
+                     "/diff?kind=regressed", "/metrics", "/healthz"):
+            seen[path] = _get(base, path)
+
+    run = tmp_path / "run"
+    flags = ["--aggregator", "dict", "--fast-encode", *_analytics_flags(run)]
+    code, lines, err = Harness(monkeypatch, hook=hook).run(
+        capsys, *flags, "--local-store-directory", str(tmp_path / "all"))
+    assert code == 0, err[-2000:]
+    assert {k: v[0] for k, v in seen.items()} == dict.fromkeys(seen, 200)
+    hot = json.loads(seen["/hotspots"][1])
+    counts = [e["count"] for e in hot["entries"]]
+    assert counts and counts == sorted(counts, reverse=True)
+    # Window 2 may still be on the encode worker.
+    assert hot["windows"] in (1, 2) and all(e["frames"] for e in hot["entries"])
+    assert len(json.loads(seen["/hotspots?k=3&tenant=unknown"][1])[
+        "entries"]) <= 3
+    assert "groups" in json.loads(seen["/diff"][1])
+    fams = parse_prometheus_text(seen["/metrics"][1].decode())
+    assert all(f in fams for f in ANALYTICS_FAMILIES)
+    health = json.loads(seen["/healthz"][1])
+    assert {"hotspots", "sinks", "admission", "regression"} <= set(health)
+    assert any(f.name.endswith(".afdo.txt") for f in (run / "afdo").iterdir())
+    assert len([ln for ln in lines if "window" in ln]) == 3
+    # The same windows with the pprof sink alone: the same bytes.
+    code, _, err = Harness(monkeypatch).run(
+        capsys, *flags, "--sink", "pprof", "--local-store-directory",
+        str(tmp_path / "pprof"))
+    assert code == 0, err[-2000:]
+    alone = _store(tmp_path / "pprof")
+    assert alone and _store(tmp_path / "all") == alone
 
 
 def _env():

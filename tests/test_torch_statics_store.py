@@ -19,6 +19,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.capture.synthetic import SyntheticSpec as JaxSpec
@@ -31,6 +32,8 @@ from parca_agent_tpu_torch.pprof import statics_store as ss
 from parca_agent_tpu_torch.pprof.statics_store import StaticsStore
 from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 from parca_agent_tpu_torch.profiler.encode_pipeline import EncodePipeline
+
+torch.set_num_threads(1)
 
 
 def _kw(seed=7, n_pids=10, rows=300):

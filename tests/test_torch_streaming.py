@@ -19,6 +19,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from parca_agent_tpu.aggregator.dict import DictAggregator as JaxDict
 from parca_agent_tpu.aggregator.dict import \
@@ -46,6 +47,8 @@ from parca_agent_tpu_torch.pprof.window_encoder import WindowEncoder
 from parca_agent_tpu_torch.process import maps
 from parca_agent_tpu_torch.profiler.cpu import CPUProfiler
 from parca_agent_tpu_torch.profiler.streaming import StreamingWindowFeeder
+
+torch.set_num_threads(1)
 
 
 class FakeMaps:

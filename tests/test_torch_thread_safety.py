@@ -303,3 +303,78 @@ def test_metrics_render_vs_the_loop(tmp_path):
     assert not any(t.is_alive() for t in scrapers)
     assert loop.metrics.attempts_total == 6 and len(seen) == 3
     assert loop.metrics.profiles_written == 6 * 20
+
+
+def test_hotspot_fold_vs_queries():
+    """One thread folds windows into a HotspotStore (the encode worker)
+    while others query it and scrape its metrics (HTTP threads): every
+    answer is well-formed and bounded by what was folded, and once the
+    folds end the store answers as one that folded them with no readers
+    did."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.ops.sketch import CountMinSpec
+    from parca_agent_tpu_torch.runtime.hotspots import (
+        HotspotSpec,
+        HotspotStore,
+        WindowSummary,
+    )
+
+    spec = HotspotSpec(k=10, candidates=64, cm=CountMinSpec(depth=3,
+                                                              width=256))
+    rng = np.random.default_rng(0)
+    sums = []
+    for w in range(60):
+        n = 500
+        h1 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        h2 = rng.integers(0, 64, n).astype(np.uint32)
+        counts = rng.integers(1, 100, n).astype(np.int64)
+        sums.append(WindowSummary.build(
+            h1, h2, counts,
+            lambda i: (i % 7, (f"f{i}",), {"pid": str(i % 7)}),
+            spec, w * 10**10, 10**10))
+    total = sum(s.total for s in sums)
+
+    def store():
+        return HotspotStore(spec=spec, rollup_spans_s=(30.0, 60.0),
+                            level_bytes=1 << 16, clock=lambda: 0.0)
+
+    shared, alone = store(), store()
+    done = threading.Event()
+    errors = []
+
+    def fold():
+        for s in sums:
+            shared.fold(s)
+        done.set()
+
+    def read(i):
+        while not done.is_set():
+            ans = shared.query(k=10, selector={"pid": str(i % 7)}
+                               if i % 2 else None)
+            assert 0 <= ans["total_samples"] <= total
+            assert len(ans["entries"]) <= 10
+            assert all(e["count"] <= e["estimate"]
+                       for e in ans["entries"])
+            shared.metrics()
+            shared.snapshot()
+
+    def worker(i):
+        try:
+            fold() if i == 0 else read(i)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            done.set()
+
+    _hammer(N_THREADS, worker)
+    assert not errors, errors[0]
+    for s in sums:
+        alone.fold(s)
+
+    def answer(st):
+        out = st.query(k=10, t0_s=0.0, t1_s=1e4)
+        out.pop("query_s")
+        return out
+
+    assert answer(shared) == answer(alone)
+    assert shared.stats["windows_folded"] == len(sums)

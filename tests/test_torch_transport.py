@@ -24,6 +24,7 @@ import time
 from concurrent import futures
 
 import pytest
+import torch
 
 from parca_agent_tpu.agent import batch as jax_batch
 from parca_agent_tpu.agent import debuginfo_client as jax_dbg
@@ -41,6 +42,8 @@ from parca_agent_tpu_torch.agent import profilestore as port_ps
 from parca_agent_tpu_torch.agent import spool as port_spool
 from parca_agent_tpu_torch.agent import writer as port_writer
 from parca_agent_tpu_torch.utils import faults as port_faults
+
+torch.set_num_threads(1)
 
 PACKAGES = {
     "jax": dict(batch=jax_batch, spool=jax_spool, ps=jax_ps, grpc=jax_grpc,
