@@ -335,6 +335,33 @@ of parca_agent_tpu. Phases, each printing one JSON line:
                discovery found on this host (groups by provider, failed
                updates) and the phase's seconds; K1 and the close kernel
                must launch.
+ 15. zoo       the workload zoo, the soak, the smokes and the tools
+               (bench_zoo/, tools/), in phase 14's child process after
+               its CLI, on the card: a warm-up dictionary launches K1,
+               B2 and B3 (with and without the carry cache) first, so
+               no row's close pays a first launch; then run_zoo(1234,
+               scale 1.0) over the whole schedule (every row passes, its
+               close-latency ceiling of 2 s included, and each row's
+               per-window mass equals the numpy sums of its scenario's
+               windows); run_matrix(1234, scale 1.0): 6 scenarios x 3
+               paths x 2 cadences and the port's outage rows (a
+               device.dispatch hang raises DeviceHang within the 0.5 s
+               watchdog plus a 1 s margin and wedges the registry after
+               every earlier window shipped whole; a hung device.probe
+               fails the registry and runs no window), every row and
+               every cross bar (the fast arms' bytes, the three arms'
+               mass, the scalar digest across cadences) holding; a soak
+               of 45 s wall (scale 0.5, 1 s windows) with its slopes
+               measured past the warm-up and every bar held; the trace,
+               hotspot and regression smokes on the card, each in a
+               process of its own; tools/snapshot over the window the
+               child replays (every 8th row of phase 4's), tools/
+               pprof_dump over its heaviest pid's profile (aggregated on
+               the card; its total the numpy oracle's) and tools/eh_frame
+               over tests/fixtures/fixture_pie_nofp (the golden table).
+               Prints each part's seconds and the zoo's close ms by row;
+               K1, B2 and B3 must launch on both the zoo's and the
+               soak's paths.
 
 With --k1-reference, a second build of K1 from that source (one with
 csrc/feed_probe.cu's C interface, e.g. an earlier commit's) is held
@@ -361,7 +388,8 @@ with csrc/sketch_build.cu's pa_sketch_build is built, held against the
 cluster kernel and timed in turns with it at phase 9's stream.
 
 Every CLI run serves its HTTP surface on a free port of its own
-(--http-address 127.0.0.1:0; phase 14 picks its port), and phase 11's
+(--http-address 127.0.0.1:0; phase 14 picks its port, the smokes of
+phase 15 bind port 0), and phase 11's
 incident file must carry a self-profile of the agent.
 
 Then one JSON line {"kernels": [...]} and, last, {"ok": true, "device":
@@ -6822,6 +6850,8 @@ def start_shell(snap, device_flags=()):
             "import chip_smoke\n"
             "rec = chip_smoke.shell_child(*map(json.loads, sys.argv[1:]))\n"
             "rec['child_s'] = time.perf_counter() - t0\n"
+            "rec['zoo'] = chip_smoke.zoo_child(json.loads(sys.argv[1]))\n"
+            "rec['zoo']['child_end_s'] = time.perf_counter() - t0\n"
             "print(json.dumps(rec), flush=True)\n")
     proc = subprocess.Popen(
         [sys.executable, "-c", code, json.dumps(tmp),
@@ -6832,9 +6862,10 @@ def start_shell(snap, device_flags=()):
     return proc, tmp
 
 
-def phase_shell(started) -> dict:
+def phase_shell(started) -> tuple:
     """Phase 14 (module docs): waits for start_shell's child (killed past
-    900 s), emits its record. Returns the launches of its CLI run."""
+    900 s), emits its record. Returns the launches of its CLI run and
+    phase 15's record (zoo_child's, from the same child)."""
     import shutil
 
     proc, tmp = started
@@ -6850,13 +6881,280 @@ def phase_shell(started) -> dict:
         raise AssertionError(f"shell child: rc {proc.returncode}: "
                              f"{err[-4000:]}")
     rec = json.loads(lines[-1])
+    zoo = rec.pop("zoo")
     rec.update(pids=PIDS, rows=SHELL_ROWS)
     emit("shell", **rec)
     if rec["launches"].get("feed_accumulate", 0) < 1 \
             or rec["launches"].get("close_pack", 0) \
             + rec["launches"].get("close_pack_delta", 0) < 1:
         raise AssertionError(f"the shell CLI launched {rec['launches']}")
-    return rec["launches"]
+    return rec["launches"], zoo
+
+
+# -- phase 15 -----------------------------------------------------------------
+
+ZOO_SEED = 1234
+ZOO_SCALE = 1.0
+SOAK_WALL_S = 45.0     # the soak smoke's wall
+SOAK_SCALE = 0.5
+SMOKES = ("trace_smoke", "hotspot_smoke", "regress_smoke")
+SMOKE_TIMEOUT_S = 300
+ZOO_KERNELS = ("feed_accumulate", "close_pack", "close_pack_delta")
+
+
+def zoo_launches() -> dict:
+    """K1's, B2's and B3's launch counts since the last reset."""
+    from parca_agent_tpu_torch.aggregator import close, probe
+
+    return {"feed_accumulate": probe.LAUNCHES["feed_accumulate"],
+            "close_pack": close.LAUNCHES["close_pack"],
+            "close_pack_delta": close.LAUNCHES["close_pack_delta"]}
+
+
+def zoo_reset() -> None:
+    from parca_agent_tpu_torch.aggregator import close, probe
+
+    probe.reset_launches()
+    close.reset_launches()
+
+
+def zoo_warm(device) -> dict:
+    """One dictionary of the zoo's capacity, without and with the carry
+    cache, closes three identical windows: a full close (B2), then delta
+    closes (B3), each after K1's feed. Returns their launches."""
+    import torch
+
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.bench_zoo import SCENARIOS
+
+    zoo_reset()
+    snaps = [zw.snapshot
+             for zw in SCENARIOS["deep_stacks"]().build(1, ZOO_SCALE)][:3]
+    for carry in (False, True):
+        agg = DictAggregator(capacity=1 << 14, carry=carry, device=device)
+        for snap in snaps:
+            if carry:
+                agg.feed(snap)
+                agg.close_window()
+            else:
+                agg.window_counts(snap)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return zoo_launches()
+
+
+def zoo_row(r: dict) -> dict:
+    """The part of a zoo or matrix row phase 15 prints and checks."""
+    out = {k: r[k] for k in ("scenario", "seed", "scale", "path",
+                             "window_s", "outage", "windows",
+                             "windows_closed", "windows_lost",
+                             "samples_fed", "samples_shipped",
+                             "mass_by_window", "passed", "wall_s")}
+    out["close_ms"] = r["close_latency_max_s"] * 1e3
+    out["failed_bars"] = sorted(k for k, v in r["bars"].items() if not v)
+    out["n_shipped"] = len(r["shipped_seq"])
+    for k in ("hang_s", "hang_bound_s", "hang_window", "device_state"):
+        if k in r:
+            out[k] = r[k]
+    return out
+
+
+def run_smoke(tool: str, device) -> dict:
+    """One smoke in a process of its own, on `device`."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        f"parca_agent_tpu_torch.tools.{tool}",
+                        "--device", str(device)],
+                       cwd=HERE, env=cli_env(), capture_output=True,
+                       text=True, timeout=SMOKE_TIMEOUT_S)
+    lines = r.stdout.strip().splitlines()
+    return {"rc": r.returncode, "s": time.perf_counter() - t0,
+            "lines": [ln for ln in lines if ln.startswith(tool[:-6])],
+            "stderr_tail": r.stderr[-3000:] if r.returncode else ""}
+
+
+def zoo_tools(tmp: str, device) -> dict:
+    """tools/snapshot over the replayed window (every 8th row of phase
+    4's), tools/pprof_dump over its heaviest pid's profile (the
+    dictionary on the card aggregates that pid's rows; its total must be
+    the numpy sum) and tools/eh_frame over fixture_pie_nofp (the golden
+    table). Returns each tool's text head and the checks' inputs."""
+    import contextlib
+    import gzip
+    import io
+
+    import numpy as np
+
+    from parca_agent_tpu_torch.aggregator.dict import DictAggregator
+    from parca_agent_tpu_torch.capture.formats import load_snapshot
+    from parca_agent_tpu_torch.pprof.builder import build_pprof
+    from parca_agent_tpu_torch.tools import eh_frame, pprof_dump, snapshot
+
+    def run(mod, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main([str(a) for a in argv])
+        return rc, out.getvalue()
+
+    rec = {}
+    snap_path = Path(tmp) / "rows.snap"
+    rc, text = run(snapshot, [snap_path, "--top", "5", "--pids", "5"])
+    snap = load_snapshot(str(snap_path))
+    rec["snapshot"] = {"rc": rc, "head": text.splitlines()[:3],
+                       "rows": len(snap),
+                       "samples": int(snap.counts.sum()),
+                       "pids": int(len(np.unique(snap.pids)))}
+    pids, inv = np.unique(snap.pids, return_inverse=True)
+    mass = np.bincount(inv, weights=snap.counts.astype(np.float64))
+    pid = int(pids[int(np.argmax(mass))])
+    rows = np.flatnonzero(snap.pids == pid)
+    sub = window_rows(snap, rows)
+    profs = DictAggregator(capacity=1 << 12, device=device).aggregate(sub)
+    path = Path(tmp) / f"pid{pid}.pb.gz"
+    path.write_bytes(gzip.compress(build_pprof(profs[0], compress=False)))
+    rc, text = run(pprof_dump, [path, "--top", "3"])
+    rec["pprof_dump"] = {"rc": rc, "pid": pid, "head": text.splitlines()[:4],
+                         "want_total": int(snap.counts[rows].sum()),
+                         "text": text}
+    fixture = HERE / "tests" / "fixtures" / "fixture_pie_nofp"
+    rc, text = run(eh_frame, [fixture])
+    golden = (HERE / "tests" / "fixtures" / "golden"
+              / "fixture_pie_nofp.table.txt").read_text()
+    rec["eh_frame"] = {"rc": rc, "rows": text.splitlines()[0],
+                       "golden": text == golden}
+    return rec
+
+
+def zoo_child(tmp: str, device: str = "cuda") -> dict:
+    """Phase 15's run (module docs), in phase 14's child after its CLI:
+    the warm-up, the zoo, the matrix, the soak, the smokes, the tools.
+    Returns its record; phase_zoo checks it."""
+    from parca_agent_tpu_torch.bench_zoo import run_matrix, run_soak, run_zoo
+    from parca_agent_tpu_torch.utils.log import reset_logging, setup_logging
+
+    # The rows' fault drills log by design; keep the child's stderr to
+    # what fails.
+    setup_logging("error")
+    parts, rec = {}, {}
+    try:
+        t0 = time.perf_counter()
+        rec["warm_launches"] = zoo_warm(device)
+        parts["warm_s"] = time.perf_counter() - t0
+        zoo_reset()
+        t0 = time.perf_counter()
+        zoo = run_zoo(ZOO_SEED, scale=ZOO_SCALE, device=device)
+        parts["zoo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        matrix = run_matrix(ZOO_SEED, scale=ZOO_SCALE, device=device)
+        parts["matrix_s"] = time.perf_counter() - t0
+        rec["launches_zoo"] = zoo_launches()
+        zoo_reset()
+        t0 = time.perf_counter()
+        soak = run_soak(wall_s=SOAK_WALL_S, seed=ZOO_SEED, scale=SOAK_SCALE,
+                        window_s=1.0, device=device)
+        parts["soak_s"] = time.perf_counter() - t0
+        rec["launches_soak"] = zoo_launches()
+        t0 = time.perf_counter()
+        rec["smokes"] = {tool: run_smoke(tool, device) for tool in SMOKES}
+        parts["smokes_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["tools"] = zoo_tools(tmp, device)
+        parts["tools_s"] = time.perf_counter() - t0
+    finally:
+        reset_logging()
+    rec["zoo"] = {"passed": zoo["passed"], "schedule": zoo["schedule"],
+                  "rows": [zoo_row(r) for r in zoo["rows"]]}
+    rec["matrix"] = {"passed": matrix["passed"],
+                     "rows_total": matrix["rows_total"],
+                     "rows_passed": matrix["rows_passed"],
+                     "rows": [zoo_row(r) for r in matrix["rows"]],
+                     "cross": matrix["cross"]}
+    rec["soak"] = {k: v for k, v in soak.items() if k != "series"}
+    rec["parts_s"] = parts
+    return rec
+
+
+def zoo_oracle(label: str, rows: list) -> None:
+    """Raise unless each row's per-window mass is the numpy sums of its
+    scenario's windows (rebuilt here from the row's seed and scale),
+    over the windows the row ran: all of them, or those before an
+    outage's hang (none for a failed probe)."""
+    import numpy as np
+
+    from parca_agent_tpu_torch.bench_zoo import SCENARIOS
+
+    for r in rows:
+        built = SCENARIOS[r["scenario"]]().build(r["seed"], r["scale"])
+        want = [int(np.asarray(zw.snapshot.counts, np.int64).sum())
+                for zw in built]
+        n = {None: len(want), "probe": 0}.get(r["outage"],
+                                              r.get("hang_window"))
+        if r["windows"] != len(want) or r["mass_by_window"] != want[:n]:
+            raise AssertionError(
+                f"{label} {r['scenario']} {r['path']} {r['window_s']} "
+                f"{r['outage']}: mass {r['mass_by_window']} against the "
+                f"oracle's {want[:n]}")
+
+
+def phase_zoo(rec: dict) -> tuple:
+    """Phase 15 (module docs): emits zoo_child's record and checks it.
+    Returns the zoo's and the soak's launches."""
+    zoo, matrix, soak = rec["zoo"], rec["matrix"], rec["soak"]
+    emit("zoo", parts_s=rec["parts_s"], child_end_s=rec["child_end_s"],
+         warm_launches=rec["warm_launches"], passed=zoo["passed"],
+         close_ms={r["scenario"]: r["close_ms"] for r in zoo["rows"]},
+         rows=zoo["rows"], launches=rec["launches_zoo"])
+    emit("zoo_matrix", passed=matrix["passed"],
+         rows_total=matrix["rows_total"], rows_passed=matrix["rows_passed"],
+         cross=matrix["cross"],
+         close_ms_max=max(r["close_ms"] for r in matrix["rows"]),
+         hang_s=[r["hang_s"] for r in matrix["rows"]
+                 if r["outage"] == "dispatch"],
+         failed=[r for r in matrix["rows"] if not r["passed"]])
+    emit("zoo_soak", launches=rec["launches_soak"], **soak)
+    emit("zoo_smokes", **rec["smokes"])
+    tools = rec["tools"]
+    emit("zoo_tools", **{k: {f: v for f, v in t.items() if f != "text"}
+                         for k, t in tools.items()})
+    failed = [r for r in zoo["rows"] if not r["passed"]]
+    if not zoo["passed"] or failed or len(zoo["rows"]) != 6:
+        raise AssertionError(f"zoo rows failed: {failed}")
+    zoo_oracle("zoo", zoo["rows"])
+    if not matrix["passed"] or matrix["rows_total"] != 6 * (6 + 4) \
+            or not all(c["passed"] for c in matrix["cross"]):
+        raise AssertionError(
+            f"zoo matrix: {matrix['rows_passed']} of {matrix['rows_total']} "
+            f"rows; cross {[c['bars'] for c in matrix['cross']]}")
+    zoo_oracle("zoo matrix", matrix["rows"])
+    for r in matrix["rows"]:
+        if r["outage"] == "dispatch" and not (
+                r["device_state"] == "wedged"
+                and r["hang_s"] <= r["hang_bound_s"]):
+            raise AssertionError(f"zoo matrix outage row {r}")
+    if not (soak["passed"] and soak["slope_measured"]
+            and soak["samples_shipped"] == soak["samples_fed"] > 0):
+        raise AssertionError(f"zoo soak: {soak['bars']}, slope measured "
+                             f"{soak['slope_measured']}, bad lanes "
+                             f"{soak['bad_lanes']}")
+    for tool, r in rec["smokes"].items():
+        if r["rc"] != 0 or not r["lines"] \
+                or not r["lines"][-1].endswith(": PASS"):
+            raise AssertionError(f"{tool}: rc {r['rc']}: {r['stderr_tail']}")
+    if tools["snapshot"]["rc"] != 0 \
+            or tools["snapshot"]["head"][0] != \
+            f"rows: {tools['snapshot']['rows']}":
+        raise AssertionError(f"tools/snapshot: {tools['snapshot']}")
+    pd = tools["pprof_dump"]
+    if pd["rc"] != 0 or f"{pd['want_total']} total" not in pd["text"]:
+        raise AssertionError(f"tools/pprof_dump: {pd['head']} against "
+                             f"{pd['want_total']} samples")
+    if tools["eh_frame"]["rc"] != 0 or not tools["eh_frame"]["golden"]:
+        raise AssertionError(f"tools/eh_frame: {tools['eh_frame']}")
+    for path, launches in (("zoo", rec["launches_zoo"]),
+                           ("soak", rec["launches_soak"])):
+        if min(launches[k] for k in ZOO_KERNELS) < 1:
+            raise AssertionError(f"the {path} path launched {launches}")
+    return rec["launches_zoo"], rec["launches_soak"]
 
 
 def main() -> int:
@@ -7004,7 +7302,8 @@ def main() -> int:
     launches_transport = timed("transport", phase_transport, dev,
                                steady_blobs)
     del steady_blobs
-    launches_shell = timed("shell", phase_shell, shell)
+    launches_shell, zoo_rec = timed("shell", phase_shell, shell)
+    launches_zoo, launches_soak = timed("zoo", phase_zoo, zoo_rec)
     # Each path's own launches, counted from 0 just before it: the
     # dictionary (phase 4), the one-shot aggregator (phase 5), the
     # bounded-memory dictionary (phase 6), the streaming window (phase 7),
@@ -7015,7 +7314,8 @@ def main() -> int:
     # walked DWARF window), the CLI that ships to a store (phase 13) and
     # the CLI that serves its HTTP surface (phase 14), and the
     # analytics' paths: phase 8's admission window, phase 9's merger
-    # rounds feeding the fleet hotspot store.
+    # rounds feeding the fleet hotspot store; and phase 15's zoo (its
+    # scalar sweep and its matrix) and soak.
     # `launches` is their sum.
     by_path = {"dict": launches,
                "one_shot": {k: rows[k]["launches"]
@@ -7030,7 +7330,9 @@ def main() -> int:
                "runtime": launches_runtime,
                "symbolize": {k: n for k, n in launches_sym.items() if n},
                "transport": launches_transport,
-               "shell": launches_shell}
+               "shell": launches_shell,
+               "zoo": launches_zoo,
+               "soak": launches_soak}
     for name, row in rows.items():
         row["launches_by_path"] = {path: n[name]
                                    for path, n in by_path.items()

@@ -762,6 +762,11 @@ class DictAggregator:
     # bpf/cpu/cpu.bpf.c:110-116), and window close only packs + fetches the
     # accumulated counts. window_counts() remains the one-shot batch path.
 
+    # palint: capture-path — the feed is the capture thread's dispatch-
+    # only hot path: device work must OVERLAP capture, so no host sync
+    # may ride here outside a device_wait (the watchdog bounds those).
+    # Device state for the checker (one line — no continuations):
+    # palint: device-state: _dev, _acc, _touch, _acc_spare, _touch_spare
     def feed(self, snapshot: WindowSnapshot, hashes=None,
              lo: int = 0, hi: int | None = None) -> None:
         """Accumulate snapshot rows [lo, hi) into the open window.
@@ -879,6 +884,9 @@ class DictAggregator:
         self._miss_inflight = (handle, snapshot, rows_map, w64,
                                h1c, h2c, h3c)
 
+    # palint: sync-ok — THE deferred sync boundary: by the next feed (or
+    # the close) the kernel has completed, so its miss-count fetch (a
+    # device_wait) is a completion check, not a kernel-latency stall.
     def _settle_misses(self) -> None:
         """Settle the deferred miss check of the last dispatched feed:
         sync the miss count, resolve any misses (insert new stacks, queue
@@ -1236,6 +1244,9 @@ class DictAggregator:
         close."""
         return self.close_collect(self.close_dispatch(), copy=copy)
 
+    # palint: capture-path — dispatch half of the split close: pack
+    # kernel launch + buffer flip only; the fetch belongs to
+    # close_collect, off this path.
     def close_dispatch(self) -> "_CloseHandle | None":
         """First half of the window close: settle deferred feed misses,
         launch the pack against the open accumulator (no host sync), and

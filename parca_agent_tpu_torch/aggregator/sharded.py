@@ -356,6 +356,10 @@ class ShardedDictAggregator(DictAggregator):
         return torch.zeros((self._n_shards, self._id_cap), dtype=torch.int32,
                            device=self.device)
 
+    # palint: capture-path — the sharded override of the dispatch-only
+    # feed (the base seed's call graph stops at file scope, so the
+    # override seeds itself). Device state (one line, no continuations):
+    # palint: device-state: _dev, _acc, _touch, _acc_spare, _touch_spare
     def _feed_dispatch_async(self, packed: np.ndarray, reset: bool):
         t0 = time.perf_counter()
         dev_packed = self._to_device(packed)  # the feed's one H2D
@@ -369,6 +373,7 @@ class ShardedDictAggregator(DictAggregator):
                            self._id_cap, packed.shape[1]))
         return out
 
+    # palint: sync-ok — the sharded twin of the base settle boundary.
     def _settle_dispatch(self, handle) -> np.ndarray:
         """The miss rows of one dispatched feed, shard after shard (their
         packed positions). The n_miss fetch is the feed's one sync."""

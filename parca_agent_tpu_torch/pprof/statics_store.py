@@ -55,6 +55,8 @@ from parca_agent_tpu_torch.utils.vfs import atomic_write_bytes
 
 _log = get_logger("statics-store")
 
+# palint: persistence-root — the warm statics snapshot is adopted at startup.
+
 _MAGIC = b"PASTATS1"
 _FMARK = b"PSRC"                       # per-frame marker (resync anchor)
 _FRAME = struct.Struct("<II")          # payload len, crc32(payload)

@@ -109,6 +109,7 @@ class ProcessIdentityTracker:
         with self._lock:
             self._gens.pop(int(pid), None)
 
+    # palint: fail-open
     def observe_window(self, pids: Iterable[int]) -> list[int]:
         """Check every pid in this window's capture against its
         remembered starttime; fire invalidators for recycled pids.
@@ -158,6 +159,7 @@ class ProcessIdentityTracker:
         with self._lock:
             hooks = list(self._invalidators)
         for _name, fn in hooks:
+            # palint: fail-open
             try:
                 fn(pid)
                 with self._lock:

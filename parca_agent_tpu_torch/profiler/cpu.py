@@ -1014,6 +1014,9 @@ class CPUProfiler(WindowLoop):
         record["encode_ms"] = enc_s * 1e3
         self._finish(record, n)
 
+    # palint: fail-open=caller — the pipeline's hand-off guard counts
+    # rollup_errors and ships the window unfolded; swallowing here would
+    # leave that exported counter dark.
     def _rollup_capture(self, prep):
         """EncodePipeline rollup-capture hook (this thread, at the
         hand-off): the per-id mirror references the fold will read,
@@ -1023,6 +1026,9 @@ class CPUProfiler(WindowLoop):
 
         return RegistryView(self._aggregator)
 
+    # palint: fail-open=caller — fold_from_aggregator counts fold_errors
+    # and RE-RAISES by contract, for the pipeline's worker guard to
+    # count rollup_errors; both counters are exported on /metrics.
     def _rollup_window(self, prep, ctx) -> None:
         """EncodePipeline rollup hook (worker thread): fold the shipped
         window's live (id, count) rows into the hotspot store through
@@ -1040,6 +1046,7 @@ class CPUProfiler(WindowLoop):
             if self._regression is not None:
                 self._regression.fold_from_prepared(ctx, prep)
 
+    # palint: fail-open
     def _emit_sinks_inline(self, out, snapshot: WindowSnapshot) -> None:
         """The secondaries of an inline-encoded window (this thread: no
         pipeline, or the hand-off was refused). The pprof bytes already

@@ -149,6 +149,9 @@ class StreamingWindowFeeder:
 
     # -- drain tee -----------------------------------------------------------
 
+    # palint: capture-path — runs synchronously inside the sampler's
+    # poll() on the profiler thread; feed work here must be dispatch-
+    # only (the aggregator's seeded feed carries the same contract).
     def on_drain(self, cols) -> None:
         """Feed one drain. ``cols`` is (pids, tids, user_len, kernel_len,
         stacks, counts), optionally followed by a capture-carried (h1, h2,

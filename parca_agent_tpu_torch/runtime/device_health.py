@@ -148,9 +148,9 @@ class DeviceHealthRegistry:
         """Run the probe once, bounded by its deadline, on this thread's
         watch (the probe itself runs on an abandonable helper thread).
         Returns whether the card proved out; the state follows."""
-        if self._probe is None:
-            return self.state == STATE_HEALTHY
         with self._lock:
+            if self._probe is None:
+                return self.state == STATE_HEALTHY
             self.stats["probes_total"] += 1
 
         def call():
@@ -196,11 +196,10 @@ class DeviceHealthRegistry:
         card is wedged for good: the run ends."""
         with self._lock:
             self.stats["hangs_total"] += 1
-            self.wedged_at = self.windows
+            self.wedged_at = window = self.windows
             self.last_error = "device call hung (abandoned)"
             self.state = STATE_WEDGED
-        _log.error("device call hung; the card is wedged",
-                   window=self.windows)
+        _log.error("device call hung; the card is wedged", window=window)
 
     def tick_window(self) -> None:
         """One window passed (the profiler calls this once an iteration)."""

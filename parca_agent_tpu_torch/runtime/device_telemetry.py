@@ -142,6 +142,7 @@ class DeviceTelemetry:
 
     # -- write side (dispatch sites; capture path) ---------------------------
 
+    # palint: fail-open
     def record(self, kernel: str, duration_s: float, shape=None,
                h2d_bytes: int = 0, d2h_bytes: int = 0) -> None:
         """Record one kernel observation: latency histogram keyed
@@ -194,6 +195,7 @@ class DeviceTelemetry:
         except Exception as e:  # noqa: BLE001 - telemetry is fail-open
             self._record_error(e)
 
+    # palint: fail-open
     def record_transfer(self, kernel: str, direction: str,
                         nbytes: int) -> None:
         """Account a transfer with no latency observation (eager device
@@ -207,6 +209,7 @@ class DeviceTelemetry:
         except Exception as e:  # noqa: BLE001 - telemetry is fail-open
             self._record_error(e)
 
+    # palint: fail-open
     def note_backend(self, kernel: str, requested: str | None = None,
                      resolved: str | None = None,
                      interpret: bool | None = None,
@@ -233,6 +236,7 @@ class DeviceTelemetry:
         except Exception as e:  # noqa: BLE001 - telemetry is fail-open
             self._record_error(e)
 
+    # palint: fail-open
     def tick_window(self, used_s: float) -> None:
         """Roll one window into the SLO layer. ``used_s`` is the capture
         thread's busy wall for the window; kernel seconds recorded from
@@ -270,6 +274,7 @@ class DeviceTelemetry:
         except Exception as e:  # noqa: BLE001 - telemetry is fail-open
             self._record_error(e)
 
+    # palint: fail-open
     def ensure_identity(self) -> dict:
         """Latch (once) and return the identity record. Safe off the
         capture path only — the first call may initialize CUDA.

@@ -201,7 +201,7 @@ class QuarantineRegistry:
         except Exception:  # noqa: BLE001 - eviction scoping is best-effort
             return ""
 
-    def _evict_one_locked(self, tenant: str = "") -> bool:
+    def _evict_one_locked(self, tenant: str = "") -> bool:  # palint: holds=_lock
         """Make room at the tracked-pid cap: evict the least-incriminated
         non-quarantined entry (fewest trips, then strikes, oldest first),
         so a churn of one-error pids can never flush a persistently
@@ -319,7 +319,7 @@ class QuarantineRegistry:
             if salvaged:
                 self.stats["windows_salvaged_total"] += 1
 
-    def _trip(self, st: _PidState, pid: int) -> None:
+    def _trip(self, st: _PidState, pid: int) -> None:  # palint: holds=_lock
         # Lock held by caller.
         st.trips += 1
         st.state = "quarantined"
@@ -340,7 +340,7 @@ class QuarantineRegistry:
         with self._lock:
             return self._counts_locked()
 
-    def _counts_locked(self) -> dict[str, int]:
+    def _counts_locked(self) -> dict[str, int]:  # palint: holds=_lock
         out = {"quarantined": 0, "probation": 0, "watched": 0,
                "level_addresses": 0, "level_scalar": 0}
         for st in self._pids.values():

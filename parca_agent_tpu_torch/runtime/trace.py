@@ -48,6 +48,8 @@ from parca_agent_tpu_torch.utils.vfs import atomic_write_bytes
 
 _log = get_logger("trace")
 
+# palint: persistence-root — incident files are read by operators post-crash.
+
 
 # Log-spaced bucket upper bounds in seconds: 10 us doubling to ~671 s.
 # 27 finite buckets + the implicit +Inf bucket cover everything from a
@@ -213,6 +215,7 @@ class WindowTrace:
     def span(self, stage: str) -> _SpanCtx:
         return _SpanCtx(self, stage)
 
+    # palint: fail-open
     def add_span(self, stage: str, duration_s: float,
                  error: str | None = None,
                  histogram: bool = True) -> None:
@@ -236,6 +239,7 @@ class WindowTrace:
         except Exception as e:  # noqa: BLE001 - tracing is fail-open
             self._rec._record_error(e)
 
+    # palint: fail-open
     def annotate(self, **kv) -> None:
         try:
             # Rebind, don't mutate: a detached trace may already be in
@@ -352,6 +356,7 @@ class FlightRecorder:
 
     # -- trace lifecycle -----------------------------------------------------
 
+    # palint: fail-open
     def begin(self, time_ns: int | None = None):
         """Start the next window's trace. Fail-open: any internal error
         returns the NULL trace so the window proceeds untraced."""
@@ -368,6 +373,7 @@ class FlightRecorder:
             self._record_error(e)
             return NULL_TRACE
 
+    # palint: fail-open
     def complete(self, trace: WindowTrace, error: str | None = None) -> None:
         """Finish a trace: total span, ring append, histogram feed, slow
         detection. Idempotent; fail-open."""
@@ -418,6 +424,7 @@ class FlightRecorder:
         except Exception as e:  # noqa: BLE001 - tracing is fail-open
             self._record_error(e)
 
+    # palint: fail-open
     def discard(self, trace) -> None:
         """Drop a trace that never became a window (source exhausted):
         not ringed, not histogrammed."""
@@ -429,6 +436,7 @@ class FlightRecorder:
         except Exception as e:  # noqa: BLE001 - tracing is fail-open
             self._record_error(e)
 
+    # palint: fail-open
     def observe(self, stage: str, duration_s: float) -> None:
         """Feed one non-per-window stage observation (batch flush, store
         ack, spool spill/replay) into its histogram + the slow detector.
@@ -458,7 +466,7 @@ class FlightRecorder:
 
     # -- slow-window detection / incidents -----------------------------------
 
-    def _budget_locked(self, stage: str) -> float | None:
+    def _budget_locked(self, stage: str) -> float | None:  # palint: holds=_lock
         """Stage budget = slow_multiple x running p99, floored at
         min_duration_s; None until min_count samples exist (a budget
         computed from two observations is noise, not a contract)."""

@@ -8,8 +8,9 @@ injects ``maps.parse``, ``elf.read``, ``perfmap.parse``,
 ``device.probe``, ``device.dispatch``, ``fleet.join``,
 ``fleet.collective``, the ship path's ``grpc.write_raw``,
 ``grpc.handshake``, ``spool.write``, ``batch.flush`` and
-``writer.write``, and the actor sites ``actor.profiler``,
-``actor.encode``, ``actor.feeder`` and ``actor.flush``; the registry
+``writer.write``, the actor sites ``actor.profiler``,
+``actor.encode``, ``actor.feeder`` and ``actor.flush``, and the workload
+zoo's ``zoo.scenario``, ``zoo.path`` and ``soak.tick``; the registry
 below names every site of the original, as the chaos suite's contract.
 
 The always-on agent's hard scenarios — hours-long store outages, cert

@@ -11,6 +11,8 @@ import io
 import os
 from typing import Iterable, Protocol
 
+# palint: persistence-root — atomic_write_bytes is the shared tmp+rename primitive.
+
 
 class VFS(Protocol):
     def read_bytes(self, path: str) -> bytes: ...

@@ -23,8 +23,9 @@ device-state gauge is one-hot over this package's states
 (runtime/device_health.py STATES: no degraded state, so no cooldown or
 shadow series). `/hotspots` serves the rollups' top K and `/diff` the
 sentinel's verdicts or a range diff over the rollups; each answers 503
-when its store is off. The soak is not in this package: its families
-are absent.
+when its store is off. With ``soak=`` (bench_zoo/soak.py SoakStatus)
+the soak's ``parca_agent_soak_*`` families render and ``/healthz``
+carries its never-red ``endurance`` section.
 """
 
 from __future__ import annotations
@@ -367,7 +368,7 @@ def render_metrics(profilers, batch_client=None, extra: dict | None = None,
                    device_health=None, statics_store=None,
                    recorder=None, identity=None,
                    device_telemetry=None, hotspots=None, sinks=None,
-                   admission=None, regression=None) -> str:
+                   admission=None, regression=None, soak=None) -> str:
     """Prometheus text exposition of the agent's metric contract: every
     family carries a ``# TYPE`` line and label values are escaped (the
     strict parser of tests/test_metrics_format.py holds the output)."""
@@ -589,6 +590,26 @@ def render_metrics(profilers, batch_client=None, extra: dict | None = None,
             for pt in series_sink.series():
                 buf.sample("parca_agent_sink_series_samples_total", "",
                            pt["labels"], pt["value"], mtype="counter")
+    if soak is not None:
+        # Endurance telemetry (bench_zoo/soak.py SoakStatus): live
+        # progress gauges plus a one-hot over the scenario universe so
+        # dashboards get a stable label set from window zero. The lane
+        # family mixes byte lanes and entry counts — the slope verdict,
+        # not the unit, is the contract.
+        s = soak.snapshot()
+        emit("parca_agent_soak_running", bool(s.get("running")))
+        emit("parca_agent_soak_rss_bytes", int(s.get("rss_bytes", 0)))
+        emit("parca_agent_soak_windows_elapsed",
+             int(s.get("windows_elapsed", 0)))
+        cur = s.get("scenario", "")
+        for name in (s.get("scenarios") or ()):
+            emit("parca_agent_soak_scenario", int(name == cur),
+                 labels={"scenario": name})
+        for lane, v in sorted((s.get("lanes") or {}).items()):
+            emit("parca_agent_soak_lane", v, labels={"lane": lane})
+        verdict = s.get("verdict")
+        if verdict is not None:
+            emit("parca_agent_soak_passed", bool(verdict.get("passed")))
     for k, v in (extra or {}).items():
         # Extra metrics may arrive with pre-rendered labels
         # ("name{k=\"v\"}"): split so the family still gets its TYPE
@@ -610,7 +631,7 @@ class AgentHTTPServer:
                  capture_info=None, supervisor=None, quarantine=None,
                  device_health=None, statics_store=None, recorder=None,
                  identity=None, device_telemetry=None, hotspots=None,
-                 sinks=None, admission=None, regression=None):
+                 sinks=None, admission=None, regression=None, soak=None):
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -644,7 +665,8 @@ class AgentHTTPServer:
                         device_telemetry=outer.device_telemetry,
                         hotspots=outer.hotspots, sinks=outer.sinks,
                         admission=outer.admission,
-                        regression=outer.regression).encode())
+                        regression=outer.regression,
+                        soak=outer.soak).encode())
                 elif url.path == "/healthy":
                     self._send(200, b"ok\n")
                 elif url.path == "/healthz":
@@ -774,8 +796,10 @@ class AgentHTTPServer:
                 is healthy or degraded; 503 once a critical actor is
                 dead. Without a supervisor, plain liveness like /healthy.
                 The quarantine, device, statics, hotspot, sink,
-                admission, process-identity and regression sections are
-                surfaced for operators and never decide the status."""
+                admission, process-identity, regression and endurance
+                sections are surfaced for operators and never decide the
+                status (a red soak is a verdict about a build, not a
+                liveness fact about this process)."""
                 body = {"status": "healthy", "actors": {}}
                 code, indent = 200, None
                 if outer.supervisor is not None:
@@ -799,6 +823,8 @@ class AgentHTTPServer:
                     body["process_identity"] = outer.identity.snapshot()
                 if outer.regression is not None:
                     body["regression"] = outer.regression.snapshot()
+                if outer.soak is not None:
+                    body["endurance"] = outer.soak.snapshot()
                 self._send(code, json.dumps(body, indent=indent).encode(),
                            "application/json")
 
@@ -942,6 +968,7 @@ class AgentHTTPServer:
         self.sinks = sinks
         self.admission = admission
         self.regression = regression
+        self.soak = soak
         self.version = version
         self.extra_metrics = extra_metrics
         self.capture_info = capture_info

@@ -41,16 +41,21 @@ BOTH = ("jax", "port")
 
 
 def test_cgroup_fuzz_no_taxonomy_escapes():
-    """300 seeded mutants of the cgroup corpus through the port's parse
-    and tenant mapping: every one is benign or a PoisonInput, and each
-    outcome (the tenant, or the poison's message) is the original's."""
+    """300 seeded mutants of the cgroup corpus from the port's harness
+    (utils/fuzz.py), the same stream the original's harness makes,
+    through both packages' parse and tenant mapping: every one is benign
+    or a PoisonInput, and each outcome (the tenant, or the poison's
+    message) is the original's."""
     import random
 
-    from parca_agent_tpu.utils import fuzz
-
-    corpus, _ = fuzz.PARSERS["cgroup"]
-    rng = random.Random(42)
-    mutants = [fuzz.mutate(rng, corpus()) for _ in range(300)]
+    streams = {}
+    for which in BOTH:
+        fuzz = pkg(which, "utils.fuzz")
+        corpus, _ = fuzz.PARSERS["cgroup"]
+        rng = random.Random(42)
+        streams[which] = [fuzz.mutate(rng, corpus()) for _ in range(300)]
+    assert streams["port"] == streams["jax"]
+    mutants = streams["port"]
     outcomes = {}
     for which in BOTH:
         prov = pkg(which, "metadata.providers")

@@ -83,6 +83,7 @@ def _snaps(seed, dup, **kw):
             _dup(jax_generate(JaxSpec(**_spec(seed, **kw))), dup))
 
 
+@pytest.mark.chaos
 def test_feed_coalesce_fault_falls_back_uncoalesced_alike():
     """feed.coalesce:error:count=1: the batch dispatches unfolded, the
     window closes exact, the next window folds again — in both."""
@@ -103,6 +104,7 @@ def test_feed_coalesce_fault_falls_back_uncoalesced_alike():
         "feed.coalesce": 1}
 
 
+@pytest.mark.chaos
 def test_feed_carry_fault_dispatches_per_drain_alike():
     """feed.carry:error:count=1: matching is off until the boundary, the
     carried mass still flushes, every window is exact, the next window
@@ -124,6 +126,7 @@ def test_feed_carry_fault_dispatches_per_drain_alike():
     assert d.stats["carry_fallbacks"] == 1
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("kind", ["disk_full", "error"])
 def test_statics_snapshot_fault_is_counted_and_skipped_alike(tmp_path, kind):
     """statics.snapshot:<kind>:count=1: the first save fails (counted),
@@ -150,6 +153,7 @@ def test_statics_snapshot_fault_is_counted_and_skipped_alike(tmp_path, kind):
     assert outs[0] == outs[1] == (False, False, True, 1, 1)
 
 
+@pytest.mark.chaos
 def test_actor_encode_crash_disables_then_the_probe_revives():
     """actor.encode:crash:count=1 kills the worker on its window: the
     pipeline disables and counts the window (no fallback in the port);
@@ -177,6 +181,7 @@ def test_actor_encode_crash_disables_then_the_probe_revives():
     assert shipped == [4] and pipe.stats["windows_pipelined"] == 1
 
 
+@pytest.mark.chaos
 def test_actor_site_crash_restarts_like_parca_agent_tpu():
     """actor.<name>:crash:count=2 at the actor's tick: restarted twice
     with the same backoffs, then healthy — in both supervisors."""
@@ -204,6 +209,7 @@ def test_actor_site_crash_restarts_like_parca_agent_tpu():
     assert results[0][1] == 2 and results[0][3] == [1]
 
 
+@pytest.mark.chaos
 def test_actor_profiler_crash_is_restarted_by_the_cli(tmp_path):
     """The CLI's window loop under actor.profiler:crash:count=1: the
     supervisor restarts it and every window still ships."""
@@ -239,6 +245,7 @@ class _Objs:
         return None
 
 
+@pytest.mark.chaos
 def test_actor_feeder_crash_cools_the_feeder_down():
     """actor.feeder:crash:count=1 at the drain tick: the feeder enters
     its cooldown (never raising into capture), the window re-aggregates
@@ -278,6 +285,7 @@ def test_maps_poison_sends_pids_down_the_ladder_in_the_procfs_sampler(spec):
     assert reg.quarantined_pids()
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("kind", ["trace.record:error", "incident.dump:error"])
 def test_tracing_faults_never_cost_a_window(tmp_path, kind):
     """trace.record and incident.dump failing: the loop's windows ship
@@ -312,6 +320,7 @@ def test_tracing_faults_never_cost_a_window(tmp_path, kind):
         assert not list(tmp_path.iterdir())
 
 
+@pytest.mark.chaos
 def test_fleet_join_hang_is_bounded():
     """fleet.join:hang: the join is abandoned at its bound and raises
     FleetJoinError; the process group is never formed. (The rule also

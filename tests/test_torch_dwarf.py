@@ -31,6 +31,9 @@ from parca_agent_tpu.unwind import table as jax_table
 from parca_agent_tpu.utils import faults as jax_faults
 from parca_agent_tpu.utils.vfs import FakeFS as JaxFS
 from parca_agent_tpu_torch.dwarf import frame
+from parca_agent_tpu_torch.tools.eh_frame import (
+    format_table as port_format_table,
+)
 from parca_agent_tpu_torch.elf.executable import is_aslr_eligible
 from parca_agent_tpu_torch.elf.reader import ElfFile
 from parca_agent_tpu_torch.process.maps import ProcMapping
@@ -108,6 +111,9 @@ def test_compact_tables_match_and_print_as_golden(name):
         t = table.build_compact_table(eh, addr)
         got = f"{len(t)} rows\n" + format_table(t) + "\n"
         assert got == (FIXDIR / "golden" / f"{name}.table.txt").read_text()
+        # The port's tools/eh_frame prints the original's text.
+        assert port_format_table(t) == format_table(t)
+        assert port_format_table(jt) == format_table(jt)
     else:
         assert len(t) > 10_000
 
@@ -214,6 +220,7 @@ def _proc_world(broken: bool = False):
     return files, maps
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("fault", [None, "unwind.build:poison"])
 def test_table_builder_matches_over_a_fake_proc(fault):
     files, maps = _proc_world(broken=True)

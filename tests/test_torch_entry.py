@@ -72,7 +72,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "runtime.admission", "runtime.hotspots",
                 "runtime.regression", "sinks", "sinks.base", "sinks.pprof",
                 "sinks.registry", "sinks.autofdo", "sinks.series",
-                "sinks.alerts"):
+                "sinks.alerts", "bench_zoo", "bench_zoo.scenarios",
+                "bench_zoo.runner", "bench_zoo.soak", "utils.fuzz",
+                "tools", "tools.pprof_dump", "tools.snapshot",
+                "tools.eh_frame", "tools.trace_smoke",
+                "tools.hotspot_smoke", "tools.regress_smoke",
+                "tools.lint", "tools.lint.core", "tools.lint.cli",
+                "tools.lint.lock_discipline", "tools.lint.fail_open",
+                "tools.lint.crash_only_io", "tools.lint.chaos_sites",
+                "tools.lint.host_sync",
+                "tools.lint.bounded_call_check"):
         assert "parca_agent_tpu_torch." + mod in names
     code = (
         "import importlib, sys\n"

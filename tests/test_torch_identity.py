@@ -126,6 +126,7 @@ def test_tracker_matches_parca_agent_tpus(seed, enabled):
         assert fired == [] and t.metrics()["checks_total"] == 0
 
 
+@pytest.mark.chaos
 def test_identity_fault_is_fail_open_alike():
     world = {10: 100, 11: 5}
     t = identity.ProcessIdentityTracker(starttime_of=world.__getitem__,
@@ -264,6 +265,7 @@ def test_cli_observes_identity_unless_turned_off(capsys, monkeypatch):
     assert code == 0 and "process_identity" not in runtime
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("site", ["process.identity", "symbolize.kernel"])
 def test_cli_chaos_sites_fail_open(capsys, site):
     """--fault-inject at the identity check or at the kernel resolve

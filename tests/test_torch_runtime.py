@@ -182,6 +182,7 @@ def test_flight_recorder_matches_parca_agent_tpus(tmp_path):
         assert a[k] == b[k], k
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("spec", ["trace.record:error",
                                   "trace.record:error:p=0.5"])
 def test_trace_record_faults_are_swallowed_and_counted_alike(spec):
@@ -314,6 +315,7 @@ def test_device_telemetry_identity_is_torchs():
     assert not any(k.startswith("jax") for k in ident)
 
 
+@pytest.mark.chaos
 def test_dictionary_reports_launches_and_bytes():
     """On the dictionary: the first feed of a padded shape is its
     compile event, the rest execute; H2D bytes are the packed buffers'
@@ -569,6 +571,7 @@ def test_probe_accounting_matches_parca_agent_tpus(outcome):
     assert port.state == ("healthy" if outcome == "ok" else "failed")
 
 
+@pytest.mark.chaos
 def test_probe_site_hang_is_bounded():
     faults.install(faults.FaultInjector.from_spec("device.probe:hang:ms=5000"))
     reg = device_health.DeviceHealthRegistry(
@@ -693,6 +696,7 @@ def test_waits_only_bound_is_per_wait_and_thread_local():
         pass
 
 
+@pytest.mark.chaos
 def test_dispatch_site_hang_ends_the_profiler_loop():
     faults.install(faults.FaultInjector.from_spec(
         "device.dispatch:hang:ms=3000"))
@@ -719,6 +723,7 @@ def _env():
     return env
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("fast", [True, False])
 def test_cli_dispatch_hang_exits_bounded_with_the_health_snapshot(
         tmp_path, fast):

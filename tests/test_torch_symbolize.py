@@ -312,6 +312,7 @@ def test_symbolizer_skips_laddered_pids_alike():
     assert by_pid[103].functions
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("site", ["symbolize.kernel", "perfmap.parse"])
 def test_symbolize_chaos_sites_fail_open_alike(site):
     """An injected error at either site costs the window those names,

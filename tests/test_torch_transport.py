@@ -353,6 +353,7 @@ def test_spool_adoption_eviction_and_corruption_alike(tmp_path):
 # -- the chaos sites of the ship path -----------------------------------------
 
 
+@pytest.mark.chaos
 def test_spool_write_disk_full_counts_alike(tmp_path):
     _install("spool.write:disk_full:count=2", seed=0)
     stats = {}
@@ -364,6 +365,7 @@ def test_spool_write_disk_full_counts_alike(tmp_path):
     assert stats["jax"][0] == [False, False, True]
 
 
+@pytest.mark.chaos
 def test_batch_flush_site_counts_alike(tmp_path):
     out = {}
     for pkg, mods in PACKAGES.items():
@@ -416,6 +418,7 @@ class _FakeRpcError(Exception):
         return self._details
 
 
+@pytest.mark.chaos
 def test_grpc_write_raw_unavailable_resets_alike(monkeypatch):
     pytest.importorskip("grpc")
     _install("grpc.write_raw:unavailable:count=3", seed=0)
@@ -441,6 +444,7 @@ def test_grpc_write_raw_unavailable_resets_alike(monkeypatch):
     assert out["jax"][1]["channel_resets"] == 1 and out["jax"][2] == 2
 
 
+@pytest.mark.chaos
 def test_grpc_handshake_fault_absorbed_by_flush_alike():
     pytest.importorskip("grpc")
     _install("grpc.handshake:handshake:count=2", seed=0)
@@ -562,6 +566,7 @@ def test_writers_alike(tmp_path):
     assert out["jax"][2] == [({"pid": "4", "node": "a/b"}, b"raw-pprof")]
 
 
+@pytest.mark.chaos
 def test_file_writer_disk_full_alike(tmp_path):
     _install("writer.write:disk_full:count=1", seed=0)
     out = {}
